@@ -1,0 +1,25 @@
+"""wavenet_autoencoders_tpu_torch — the PyTorch/CUDA port of
+``wavenet_autoencoders_tpu``.
+
+It carries the SVQ-WAE serving path (ABX export and AR synthesis) with the
+same layout as the JAX package, so each module has its counterpart under
+the same name:
+
+- ``config``  — typed config, JSON presets, "k=v" overrides (own copy)
+- ``dsp``     — the numpy/scipy waveform post-processing synthesis needs
+- ``ops``     — weight-normed convs, the GLU cell, upsampler, samplers
+- ``models``  — WaveNet decoder, content encoder, VQ bottlenecks, VQWAE
+- ``kernels`` — the fused AR decode kernel (CUDA for Hopper, ``csrc/``)
+                with its plain PyTorch version
+- ``eval``    — ABX export and voice-conversion synthesis
+- ``utils``   — device selection and the JAX-parameter bridge
+- ``cli``     — the ``infer`` and ``synthesize`` subcommands
+
+The package imports torch, numpy and scipy only; it never imports JAX or
+the JAX package. Entry points run on the CUDA device unless the caller
+asks for the CPU.
+"""
+
+__version__ = "0.1.0"
+
+from wavenet_autoencoders_tpu_torch.config import Config, load_preset  # noqa: F401

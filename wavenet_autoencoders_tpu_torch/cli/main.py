@@ -1,0 +1,127 @@
+"""Command-line entry points of the port (counterpart of
+``wavenet_autoencoders_tpu/cli/main.py``):
+
+    infer       ABX representation export
+    synthesize  voice-conversion synthesis
+
+Both load a checkpoint in the JAX package's npz format (leaves keyed
+``params/<tree path>``) and run on ``--device`` (default ``cuda``).
+Run as ``python -m wavenet_autoencoders_tpu_torch.cli.main <cmd> ...``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+from pathlib import Path
+
+import numpy as np
+
+from wavenet_autoencoders_tpu_torch.config import Config, load_preset
+
+
+def _cfg_from(args) -> Config:
+    if args.preset:
+        return load_preset(args.preset, args.hparams or "")
+    return Config().parse(args.hparams or "")
+
+
+def _add_common(p):
+    p.add_argument("--preset", help="bundled preset name or JSON path")
+    p.add_argument("--hparams", default="", help='overrides: "k=v,k2=[..]"')
+    p.add_argument("--device", default="cuda", help="torch device (default cuda; 'cpu' to run on the CPU)")
+    p.add_argument("--use-ema", action=argparse.BooleanOptionalAction, default="auto",
+                   help="load the *_ema checkpoint sibling; --no-use-ema uses raw weights "
+                        "(default: only once the EMA shadow is warm)")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="wae-torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("infer", help="export ABX representations")
+    _add_common(p)
+    p.add_argument("checkpoint")
+    p.add_argument("scp")
+    p.add_argument("dst_dir")
+    p.add_argument("--feat", default="mfcc.norm")
+    p.add_argument("--lan", default=None, help="submission language dir (else inferred from dump paths)")
+    p.add_argument("--pre-vq", action="store_true",
+                   help="export the continuous pre-quantization latent (VQ models only)")
+
+    p = sub.add_parser("synthesize", help="voice-conversion synthesis")
+    _add_common(p)
+    p.add_argument("checkpoint")
+    p.add_argument("dump_root")
+    p.add_argument("dst_dir")
+    p.add_argument("syn_list")
+    p.add_argument("speaker2ind")
+    p.add_argument("lan")
+    p.add_argument("--start-ind", type=int, default=0)
+    p.add_argument("--tar-utt-map", default=None, help="json: speaker -> mfcc.norm.npy for AdaIN")
+    p.add_argument("--train-dump-root", default=None, help="train_no_dev dump dir for auto tar_c selection")
+    p.add_argument("--batch", type=int, default=1, help="utterances decoded in parallel")
+    p.add_argument("--pad-frames-multiple", type=int, default=0,
+                   help="bucket conditioning lengths to a multiple of N frames "
+                        "(edge-replicated, cropped back); 0 = exact lengths")
+
+    args = ap.parse_args(argv)
+    cfg = _cfg_from(args)
+    model = _load_model(cfg, args.checkpoint, use_ema=args.use_ema, device=args.device)
+    if args.cmd == "infer":
+        from wavenet_autoencoders_tpu_torch.eval.infer import export_representations
+
+        export_representations(
+            cfg, model, args.scp, args.dst_dir, feat=args.feat, lan=args.lan,
+            pre_vq=args.pre_vq, device=args.device,
+        )
+    elif args.cmd == "synthesize":
+        from wavenet_autoencoders_tpu_torch.eval.synthesize import run_synthesis_list
+
+        tar_map = json.load(open(args.tar_utt_map)) if args.tar_utt_map else None
+        run_synthesis_list(
+            cfg, model, args.dump_root, args.syn_list, args.speaker2ind, args.dst_dir,
+            lan=args.lan, start_ind=args.start_ind, tar_utt_map=tar_map, batch=args.batch,
+            train_dump_root=args.train_dump_root, pad_multiple=args.pad_frames_multiple,
+            device=args.device,
+        )
+
+
+def ema_warm_steps(ema_decay: float) -> int:
+    """Steps before the EMA shadow is a faithful parameter average: ~5 time
+    constants (decay**step < 1%)."""
+    if ema_decay >= 1.0:
+        return 1 << 30
+    return int(math.ceil(5.0 / (1.0 - ema_decay)))
+
+
+def _load_model(cfg: Config, checkpoint: str, use_ema: bool | str = "auto", device="cuda"):
+    """Build the model from cfg on ``device`` and load the npz checkpoint.
+
+    ``use_ema=True`` prefers the *_ema sibling; ``"auto"`` does so only once
+    the shadow has warmed (checkpoint step >= ema_warm_steps)."""
+    from wavenet_autoencoders_tpu_torch.models.zoo import build_model
+    from wavenet_autoencoders_tpu_torch.utils.params import load_flat_params
+
+    model = build_model(cfg, device=device)
+    path = checkpoint
+    if use_ema == "auto":
+        try:
+            step = int(np.load(checkpoint)["step"])
+        except (KeyError, FileNotFoundError):
+            step = 0
+        use_ema = step >= ema_warm_steps(cfg.ema_decay)
+        if not use_ema:
+            print(f"ema shadow not warm at step {step} "
+                  f"(< {ema_warm_steps(cfg.ema_decay)}); evaluating live params")
+    if use_ema:
+        ema_path = str(checkpoint).replace(".npz", "_ema.npz")
+        if Path(ema_path).exists() and not str(checkpoint).endswith("_ema.npz"):
+            path = ema_path
+    load_flat_params(model, np.load(path), prefix="params/")
+    print(f"loaded checkpoint {path}")
+    return model
+
+
+if __name__ == "__main__":
+    main()

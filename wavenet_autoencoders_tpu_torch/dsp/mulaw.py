@@ -1,0 +1,28 @@
+"""Inverse mu-law companding and inverse pre-emphasis (numpy/scipy).
+
+Counterparts of ``wavenet_autoencoders_tpu/dsp/mulaw.py:35-79`` for host
+arrays; ``mu = quantize_channels - 1`` (255) gives codes in [0, 255].
+"""
+from __future__ import annotations
+
+import numpy as np
+from scipy.signal import lfilter
+
+
+def inv_mulaw(y, mu: int = 256):
+    """Inverse mu-law companding: [-1, 1] -> [-1, 1]."""
+    mu = float(mu)
+    return np.sign(y) * (1.0 / mu) * ((1.0 + mu) ** np.abs(y) - 1.0)
+
+
+def inv_mulaw_quantize(y, mu: int = 256):
+    """Integer codes [0, mu] -> waveform in [-1, 1]."""
+    if np.isscalar(y):
+        return float(inv_mulaw(2.0 * y / mu - 1.0, mu))
+    y = np.asarray(y).astype(np.float32)
+    return inv_mulaw(2.0 * y / mu - 1.0, mu)
+
+
+def inv_preemphasis(x, coef: float = 0.85):
+    """Inverse of pre-emphasis: y[t] = x[t] + coef * y[t-1]."""
+    return lfilter([1], [1, -float(coef)], x)

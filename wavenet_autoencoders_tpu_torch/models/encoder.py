@@ -1,0 +1,57 @@
+"""Convolutional content encoder (counterpart of
+``wavenet_autoencoders_tpu/models/encoder.py:30-79``).
+
+A 10-block Conv-ReLU stack with identity residuals (stride 1 and matching
+widths) and k5/s2 temporal downsampling blocks, then a linear projection.
+The number of stride-2 blocks is log2(downsample).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from wavenet_autoencoders_tpu_torch.ops.conv import Conv1d, Linear, conv1d_apply, linear_apply
+
+
+def _block_apply(p, x, k, stride, residual):
+    # torch-style padding k//2 both sides, strided conv, ReLU, residual
+    # AFTER the ReLU
+    pad = k // 2
+    out = F.relu(conv1d_apply(p, x, stride=stride, padding=[(pad, pad)]))
+    if residual:
+        out = out + x
+    return out
+
+
+class Encoder(nn.Module):
+    """Parameters ``blocks.{i}.w|b`` and ``lin.w|b``."""
+
+    def __init__(self, c_in: int = 39, hid: int = 768, c_out: int = 64,
+                 downsample: int = 4, generator=None):
+        super().__init__()
+        self.c_in, self.hid, self.c_out, self.downsample = c_in, hid, c_out, downsample
+        blocks, cin = [], c_in
+        for k, _s in self._blocks():
+            blocks.append(Conv1d(cin, hid, k, bias=True, generator=generator))
+            cin = hid
+        self.blocks = nn.ModuleList(blocks)
+        self.lin = Linear(hid, c_out, generator=generator)
+
+    def _blocks(self):
+        """(kernel, stride) per block."""
+        n_ds = {1: 0, 2: 1, 4: 2}[self.downsample]
+        specs = [(3, 1), (3, 1)]
+        specs += [(5, 2)] * n_ds + [(5, 1)] * (2 - n_ds)
+        specs += [(3, 1), (3, 1)] + [(1, 1)] * 4
+        return specs
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B, T, c_in) -> (B, T/downsample, c_out)."""
+        h, cin = x, self.c_in
+        for p, (k, s) in zip(self.blocks, self._blocks()):
+            h = _block_apply(p, h, k, s, residual=(s == 1 and cin == self.hid))
+            cin = self.hid
+        return linear_apply(self.lin, h)
+
+    forward = apply

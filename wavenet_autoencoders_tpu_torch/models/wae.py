@@ -1,0 +1,95 @@
+"""WaveNet autoencoders: the shared base and the VQ family (counterpart of
+``wavenet_autoencoders_tpu/models/wae.py:43-87,116-224``).
+
+The port's models hold their weights, so ``encode(c)`` and
+``decode(c, ...)`` take no params/state arguments. Training-only parts
+(``forward``, dead-code revival, jitter, VQ-dropout, EMA codebooks) come
+with the training slice. All activations are (B, T, C).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from wavenet_autoencoders_tpu_torch.models import bottlenecks as bn
+from wavenet_autoencoders_tpu_torch.models.encoder import Encoder
+from wavenet_autoencoders_tpu_torch.models.wavenet import WaveNet
+from wavenet_autoencoders_tpu_torch.ops.conv import Conv1d
+
+
+class WAEBase(nn.Module):
+    def __init__(self, wavenet: WaveNet, c_in: int = 39, hid: int = 64,
+                 frame_rate: int = 25, encoder_hid: int = 768, generator=None):
+        super().__init__()
+        self.c_in, self.hid, self.frame_rate, self.encoder_hid = c_in, hid, frame_rate, encoder_hid
+        self.encoder = Encoder(c_in=c_in, hid=encoder_hid, c_out=hid,
+                               downsample=self.downsample, generator=generator)
+        self.wavenet = wavenet
+
+    @property
+    def downsample(self) -> int:
+        return 100 // self.frame_rate
+
+    def _up_factor(self) -> int:
+        return int(np.prod(self.wavenet.upsample_scales))
+
+    @torch.no_grad()
+    def decode(self, c, g=None, T=None, tar_c=None, **kw):
+        """AR generation conditioned on features c (B, T', c_in) through the
+        plain ``WaveNet.decode``. Default T accounts for the
+        2·cin_pad·prod(scales) context trim of the conditioning upsampler."""
+        lat = self.encode(c, tar_c=tar_c)
+        if T is None:
+            if not self.wavenet.upsample_conditional_features:
+                raise ValueError(
+                    "pass T explicitly when upsample_conditional_features is "
+                    "off (T = latent frames * sample_rate // frame_rate; see "
+                    "eval.synthesize.batch_wavegen)"
+                )
+            T = (lat.shape[1] - 2 * self.wavenet.cin_pad) * self._up_factor()
+        return self.wavenet.decode(T, c=lat, g=g, **kw)
+
+
+class VQWAE(WAEBase):
+    """Plain or sliced VQ bottleneck with optional instance norm, AdaIN
+    re-styling and post-conv. Parameters: ``encoder``, ``wavenet``, ``vq``
+    (``codebook`` or ``codebooks.{i}``) and optional ``post``."""
+
+    def __init__(self, wavenet: WaveNet, c_in=39, hid=64, frame_rate=25, encoder_hid=768, *,
+                 K=256, K1=None, num_slices=2, beta=0.25, commit_scale=1.0, ema=False,
+                 sliced=False, ins_norm=False, post_conv=False, adain=False, generator=None):
+        super().__init__(wavenet, c_in, hid, frame_rate, encoder_hid, generator=generator)
+        if ema:
+            raise NotImplementedError(
+                "EMA codebooks are training state and come with the training "
+                "slice: see ROADMAP.md, queue 1"
+            )
+        self.K, self.K1, self.num_slices = K, K1, num_slices
+        self.beta, self.commit_scale = beta, commit_scale
+        self.sliced, self.ins_norm, self.post_conv, self.adain = sliced, ins_norm, post_conv, adain
+        if sliced:
+            self.vq = bn.SlicedVQ(K, hid, num_slices, K1, generator=generator)
+        else:
+            self.vq = bn.VQ(K, hid, generator=generator)
+        # the training forward projects the quantized code up to the
+        # decoder's cin_channels with it; encode() returns the code unprojected
+        self.post = Conv1d(hid, wavenet.cin_channels, 3, generator=generator) if post_conv else None
+
+    def _quantize(self, z):
+        if self.sliced:
+            return bn.sliced_vq_apply(self.vq, z, beta=self.beta, commit_scale=self.commit_scale)
+        return bn.vq_apply(self.vq, z, beta=self.beta)
+
+    def encode(self, c, tar_c=None, pre_vq: bool = False):
+        """Quantized latent (B, T', hid) — the ABX representation. With
+        adain and a target utterance, re-styles the pre-VQ code first.
+        ``pre_vq=True`` returns the continuous pre-quantization code."""
+        z = self.encoder.apply(c)
+        if tar_c is not None and self.adain:
+            z = bn.adain(z, self.encoder.apply(tar_c))
+        elif self.ins_norm:
+            z = bn.instance_norm(z)
+        if pre_vq:
+            return z
+        return self._quantize(z)[0]
