@@ -25,8 +25,23 @@ Phases (each raises on failure, so the script exits non-zero):
    weights. K1's launch counter is zeroed before and read after.
 4. Times with CUDA events after a warm-up: K1 and its plain version at
    B=256, T=5120, bf16 storage, beside the bound.
+5. K2/K3 (the fused GLU-stack forward and backward) against their plain
+   versions at svqwae width (20 layers, residual 256, gate 368, skip 256,
+   cin 64), B=2 x T=2048 and B=3 x T=2000 (ragged), f32 with TF32 off and
+   bf16 storage: skips, ab, the final residual and all ten gradients; K3 in
+   f32 against autograd of the plain forward; two K3 calls bitwise equal.
+6. Training through the port's CLI on ``cuda``: ``train --preset svqwae
+   --hparams fused_stack=true --max-steps 3`` at B=40 x T=5120 in bf16 on a
+   synthetic dump (48 utterances of 200 frames, 2 speakers). The K2/K3
+   counters are zeroed before and read after (one launch each per step);
+   every loss and grad norm is finite; the checkpoint and its ``_ema``
+   sibling exist; ``infer`` runs on it; the first step's loss agrees with
+   the unfused path's from the same init and batch.
+7. Times at B=40 x T=5120, bf16: K2, K3 and their plain versions with CUDA
+   events beside their bounds; whole train steps, fused and unfused, in
+   turns (host clock after a synchronize), in samples/s.
 
-Prints the kernel table as one JSON line, the nvidia-smi line, and last
+Prints the kernel table (K1, K2, K3) as one JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
 prints no result. It imports only the port, never JAX.
 """
@@ -382,9 +397,322 @@ def phase4(res):
     })
 
 
+def glu_inputs(B, T, store, rng):
+    """Seeded inputs of the GLU stack at svqwae width (C=256, G=368, S=256,
+    cin=64, L=20, dilations 1..512 twice) on the card: weights N(0, 1/fan_in)
+    so that the residual stays O(1) over the 20 layers."""
+    import torch
+
+    C, G, S, cin, L = 256, 368, 256, 64, 20
+
+    def mk(shape, std):
+        return torch.from_numpy((std * rng.standard_normal(shape)).astype(np.float32)).cuda()
+
+    x = mk((B, T, C), 0.5).to(store)
+    c = mk((B, T, cin), 1.0).to(store)
+    g_add = mk((B, L, G), 0.1)
+    w = {"wconv": mk((L, 3, C, G), (3 * C) ** -0.5), "bconv": mk((L, G), 0.05),
+         "wc": mk((L, cin, G), cin ** -0.5), "wout": mk((L, G // 2, C), (G // 2) ** -0.5),
+         "bout": mk((L, C), 0.05), "wskip": mk((L, G // 2, S), (G // 2) ** -0.5), "bskip": mk((L, S), 0.05)}
+    w = {k: (v if k.startswith("b") else v.to(store)) for k, v in w.items()}
+    dils = tuple(2 ** (i % 10) for i in range(L))
+    return x, c, g_add, w, dils
+
+
+FWD_OUTPUTS = ("skips", "ab", "hfin")
+GLU_GRADS = ("dx", "dc", "dgadd", "dwconv", "dbconv", "dwc", "dwout", "dbout", "dwskip", "dbskip")
+# Tolerances of K2/K3 against their plain versions, max abs error relative to
+# the max abs of the plain value:
+# - f32 (TF32 off): forward 1e-4, gradients 1e-3. Only the f32 summation
+#   order differs (~1e-7 relative per sum), but the backward inverts the
+#   residual update layer by layer, which multiplies the error of h by sqrt 2
+#   per layer: 2^10 over 20 layers, ~1e-4 relative at layer 0.
+# - bf16 storage: forward 2e-2, gradients 5e-2. Both versions round at the
+#   same points, but a different summation order flips a bf16 rounding of
+#   ab or act (2^-8 relative) now and then, and the flip propagates.
+TOL_GLU = {"float32": (1e-4, 1e-3), "bfloat16": (2e-2, 5e-2)}
+
+
+def rel_err(a, b) -> float:
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def phase5(k2, k3):
+    import torch
+
+    from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
+
+    out, abs_err = {}, {"K2": 0.0, "K3": 0.0}
+    for B, T in ((2, 2048), (3, 2000)):
+        for name, store in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            rng = np.random.default_rng(5 + B)
+            x, c, g_add, w, dils = glu_inputs(B, T, store, rng)
+            args = (x, c, g_add, w["wconv"], w["bconv"], w["wc"], w["wout"], w["bout"], w["wskip"],
+                    w["bskip"], dils)
+            dskips = torch.from_numpy(rng.standard_normal((B, T, 256)).astype(np.float32)).cuda().to(store)
+            with torch.no_grad():
+                skips, hfin, ab = K.glu_stack_forward(*args)
+                p_skips, p_hfin, p_ab = K.glu_stack_forward_reference(*args)
+                bargs = (c, ab, w["wconv"], w["wc"], w["wout"], w["bout"], w["wskip"], dils, True)
+                grads = K.glu_stack_backward(dskips, hfin, *bargs)
+                again = K.glu_stack_backward(dskips, hfin, *bargs)
+                plain = K.glu_stack_backward_reference(dskips, p_hfin, c, p_ab, *bargs[2:])
+            torch.cuda.synchronize()
+            errs = {"skips": rel_err(skips, p_skips), "ab": rel_err(ab, p_ab), "hfin": rel_err(hfin, p_hfin)}
+            errs.update({n: rel_err(g, p) for n, g, p in zip(GLU_GRADS, grads, plain)})
+            abs_err["K2"] = max(abs_err["K2"], *((a.float() - b.float()).abs().max().item()
+                                                  for a, b in ((skips, p_skips), (ab, p_ab))))
+            abs_err["K3"] = max(abs_err["K3"], *((g - p.float()).abs().max().item() for g, p in zip(grads, plain)))
+            bitwise = all(torch.equal(g, h) for g, h in zip(grads, again))
+            if store == torch.float32:
+                # K3 against autograd of the plain forward (leaves in GLU_GRADS order)
+                leaves = [t.detach().clone().requires_grad_(True) for t in args[:-1]]
+                s, _, _ = K.glu_stack_forward_reference(*leaves, dils)
+                (s * dskips).sum().backward()
+                errs.update({f"{n}_vs_autograd": rel_err(g, t.grad) for n, g, t in zip(GLU_GRADS, grads, leaves)})
+            tol_f, tol_b = TOL_GLU[name]
+            log(f"phase 5: B={B} T={T} {name}: bitwise-equal K3 reruns {bitwise}; "
+                f"rel errors {json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}")
+            for k, e in errs.items():
+                tol = tol_f if k in FWD_OUTPUTS else tol_b
+                if not np.isfinite(e) or e > tol:
+                    raise AssertionError(f"K2/K3 B={B} T={T} {name}: {k} rel error {e} exceeds {tol}")
+            if not bitwise:
+                raise AssertionError("two K3 calls on the same inputs differ")
+            out[f"B{B}_T{T}_{name}"] = errs
+    k2["max_rel_err"] = {case: max(e[k] for k in FWD_OUTPUTS) for case, e in out.items()}
+    k3["max_rel_err"] = {case: max(v for k, v in e.items() if k not in FWD_OUTPUTS) for case, e in out.items()}
+    k2["max_abs_err"], k3["max_abs_err"] = abs_err["K2"], abs_err["K3"]
+    k2["tolerances_rel"] = k3["tolerances_rel"] = TOL_GLU
+
+
+def make_dump(root: Path, rng, n_utts=48, frames=200, hop=160):
+    """A synthetic training dump: ``train.txt`` and, per utterance,
+    ``wave.npy`` (mu-law codes) and ``mfcc.norm.npy`` (39-dim), 2 speakers."""
+    lines, dirs = [], []
+    for i in range(n_utts):
+        d = root / "english" / "train" / f"V00{i % 2 + 1}_{2000 + i}"
+        d.mkdir(parents=True)
+        np.save(d / "wave.npy", rng.integers(0, 256, frames * hop))
+        np.save(d / "mfcc.norm.npy", rng.standard_normal((frames, 39)).astype(np.float32))
+        lines.append(f"{d}/|{frames}|{i % 2}|dummy")
+        dirs.append(d)
+    (root / "train.txt").write_text("\n".join(lines) + "\n")
+    return dirs
+
+
+# The first step's loss through K2 against the unfused path, same init and
+# batch, bf16 compute: 1e-2 relative. The fused path rounds the residual
+# into the kernel to bf16 and keeps ab and act in bf16 where the unfused
+# path keeps f32 activations; the loss at random init is ~ln 256 = 5.5.
+TOL_STEP1 = 1e-2
+
+
+def phase6(k2, k3, tmp: Path):
+    import torch
+
+    from wavenet_autoencoders_tpu_torch.cli.main import main as cli
+    from wavenet_autoencoders_tpu_torch.config import load_preset
+    from wavenet_autoencoders_tpu_torch.data.dataset import WaveDataset, data_iterator
+    from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
+    from wavenet_autoencoders_tpu_torch.models import build_model
+    from wavenet_autoencoders_tpu_torch.train.loop import batch_to_device
+    from wavenet_autoencoders_tpu_torch.train.step import compute_dtype, prep_x, recon_loss
+    from wavenet_autoencoders_tpu_torch.ops.losses import sequence_mask
+
+    dump, ckpt, abx = tmp / "dump", tmp / "exp", tmp / "abx"
+    dirs = make_dump(dump, np.random.default_rng(6))
+    K.LAUNCHES_FWD = K.LAUNCHES_BWD = 0
+    t0 = time.perf_counter()
+    cli(["train", "--preset", "svqwae", "--hparams", "fused_stack=true", "--device", "cuda",
+         "--max-steps", "3", str(dump), str(ckpt)])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = (K.LAUNCHES_FWD, K.LAUNCHES_BWD)
+    log(f"phase 6: train 3 steps at B=40 x T=5120 bf16 through the CLI: {t1 - t0:.2f} s host clock "
+        f"(build and data included); K2/K3 launches {launches}")
+    if launches != (3, 3):
+        raise AssertionError(f"K2/K3 launched {launches} times in 3 fused train steps, expected (3, 3)")
+    # 48 utterances at B=40 make one step per epoch, so the epoch records hold
+    # every step's loss; the step records (step 1, and the last) the grad norms
+    recs = [json.loads(line) for line in (ckpt / "logs" / "metrics.jsonl").read_text().splitlines()]
+    losses = {r["step"]: r["loss"] for r in recs if r["phase"] == "train_no_dev_epoch"}
+    gnorms = {r["step"]: r["grad_norm"] for r in recs if r["phase"] == "train_no_dev"}
+    if sorted(losses) != [1, 2, 3] or sorted(gnorms) != [1, 3] or not np.isfinite(
+            list(losses.values()) + list(gnorms.values())).all():
+        raise AssertionError(f"metrics of the 3 steps: losses {losses}, grad norms {gnorms}")
+    for name in ("checkpoint_step000000003.npz", "checkpoint_step000000003_ema.npz"):
+        if not (ckpt / name).exists():
+            raise AssertionError(f"{name} was not written")
+
+    scp = tmp / "scp.json"
+    scp.write_text(json.dumps([[f"wav/{d.name}.wav", f"{d}/"] for d in dirs[:4]]))
+    cli(["infer", "--preset", "svqwae", "--device", "cuda", str(ckpt / "checkpoint_step000000003.npz"),
+         str(scp), str(abx), "--lan", "english"])
+    codes = [np.loadtxt(abx / "2019" / "english" / "test" / f"{d.name}.txt") for d in dirs[:4]]
+    if any(a.shape != (50, 64) or not np.isfinite(a).all() for a in codes):
+        raise AssertionError(f"ABX export of the trained checkpoint: {[a.shape for a in codes]}")
+
+    # the first step's loss, unfused, from the same init and first batch
+    cfg = load_preset("svqwae")
+    model = build_model(cfg, device="cuda")
+    batch = next(data_iterator(WaveDataset(str(dump), cfg), cfg, prefetch=0,
+                               transform=lambda b: batch_to_device(b, torch.device("cuda"))))
+    with torch.no_grad():
+        x = prep_x(cfg, batch["x"])
+        y_hat, aux, _ = model.forward(x, batch["c"], batch["g"], train=True, dtype=compute_dtype(cfg))
+        mask = sequence_mask(batch["lengths"], x.shape[1])[..., None]
+        unfused = (recon_loss(cfg, y_hat.float(), batch["y"], mask) + aux).item()
+    fused = losses[1]
+    diff = abs(fused - unfused) / abs(unfused)
+    log(f"phase 6: losses {[round(losses[s], 5) for s in (1, 2, 3)]}, grad norms steps 1, 3 "
+        f"{[round(gnorms[s], 4) for s in (1, 3)]}; step-1 loss fused {fused:.6f} vs unfused "
+        f"{unfused:.6f}: rel diff {diff:.2e} (bound {TOL_STEP1}); infer wrote {len(codes)} ABX files of 50 x 64")
+    if not diff <= TOL_STEP1:
+        raise AssertionError(f"fused step-1 loss {fused} vs unfused {unfused}")
+    k2["launches"], k3["launches"] = launches
+    k2["train_path"] = {"steps": 3, "losses": [losses[s] for s in (1, 2, 3)],
+                        "grad_norms_steps_1_3": [gnorms[s] for s in (1, 3)],
+                        "step1_loss_unfused": unfused, "step1_rel_diff": diff, "tol": TOL_STEP1,
+                        "cli_train_s": t1 - t0}
+
+
+def glu_bound(B, T, C=256, G=368, S=256, cin=64, L=20):
+    """(K2 FLOP, K2 bytes, K3 FLOP, K3 bytes) at svqwae width, bf16 storage:
+    each input read once, each output written once."""
+    G2, rows = G // 2, B * T * L
+    f2 = 2.0 * rows * ((3 * C + cin) * G + G2 * (C + S))
+    # rebuild out; dact; dwout+dwskip; dwconv+dwc; dx+dc
+    f3 = 2.0 * rows * (G2 * C + (C + S) * G2 + G2 * (C + S) + (3 * C + cin) * G + (3 * C + cin) * G)
+    w_bf16 = 2 * L * (3 * C * G + cin * G + G2 * (C + S))
+    b_f32 = 4 * L * (G + C + S)
+    ab = 2 * B * L * T * G
+    by2 = 2 * B * T * (C + cin) + 4 * B * L * G + w_bf16 + b_f32 + 2 * B * T * S + 4 * B * T * C + ab
+    # in: dskips, hfin, c, ab, weights, bout; out: dx, dc, dgadd, f32 weight and bias grads
+    by3 = (2 * B * T * S + 4 * B * T * C + 2 * B * T * cin + ab + w_bf16 + 4 * L * C
+           + 2 * B * T * C + 4 * B * T * cin + 4 * B * L * G + 2 * w_bf16 + b_f32)
+    return f2, by2, f3, by3
+
+
+GLU_PASSES = ("GateOp", "OutOp", "RebuildOp", "DactOp", "W1Op", "W2Op", "DxOp", "reduce_kernel<W", "colsum_")
+
+
+def kernel_breakdown(fn):
+    """Device time by kernel name over one call of ``fn`` (torch.profiler):
+    [(name, ms, launches)] sorted by time. Empty when the profiler sees no
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # kernels only: the host-side ops above them carry their children's time too
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def phase7(k2, k3):
+    import torch
+
+    from wavenet_autoencoders_tpu_torch.config import load_preset
+    from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
+    from wavenet_autoencoders_tpu_torch.models import build_model
+    from wavenet_autoencoders_tpu_torch.train.step import init_state, make_train_step
+
+    B, T = 40, 5120
+    rng = np.random.default_rng(7)
+    x, c, g_add, w, dils = glu_inputs(B, T, torch.bfloat16, rng)
+    args = (x, c, g_add, w["wconv"], w["bconv"], w["wc"], w["wout"], w["bout"], w["wskip"], w["bskip"], dils)
+    dskips = torch.from_numpy(rng.standard_normal((B, T, 256)).astype(np.float32)).cuda().to(torch.bfloat16)
+    with torch.no_grad():
+        k2_ms = cuda_time(lambda: K.glu_stack_forward(*args), reps=3)
+        _, hfin, ab = K.glu_stack_forward(*args)
+        bargs = (c, ab, w["wconv"], w["wc"], w["wout"], w["bout"], w["wskip"], dils, True)
+        k3_ms = cuda_time(lambda: K.glu_stack_backward(dskips, hfin, *bargs), reps=3)
+        p2_ms = cuda_time(lambda: K.glu_stack_forward_reference(*args), reps=2)
+        p3_ms = cuda_time(lambda: K.glu_stack_backward_reference(dskips, hfin, *bargs), reps=2)
+    del ab, hfin
+    f2, by2, f3, by3 = glu_bound(B, T)
+
+    # whole train steps, fused and unfused, at the preset's shape, in turns
+    def stepper(fused):
+        cfg = load_preset("svqwae", f"fused_stack={str(fused).lower()}")
+        model = build_model(cfg, device="cuda").train()
+        st, step = init_state(cfg, model), make_train_step(cfg, model)
+        r = np.random.default_rng(8)
+        codes = torch.from_numpy(r.integers(0, 256, (B, T))).cuda()
+        batch = {"x": codes, "y": codes[..., None], "lengths": torch.full((B,), T, device="cuda"),
+                 "c": torch.from_numpy(r.standard_normal((B, T // 160, 39)).astype(np.float32)).cuda(),
+                 "g": torch.from_numpy(r.integers(0, 153, (B,))).cuda()}
+        torch.cuda.reset_peak_memory_stats()
+        step(st, batch)  # warm-up
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+
+        def run(n=2):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                step(st, batch)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / n * 1e3
+
+        return run, peak
+
+    unfused, peak_u = stepper(False)
+    fused, peak_f = stepper(True)
+    order = [("unfused", unfused), ("fused", fused), ("fused", fused), ("unfused", unfused)]
+    times = {"unfused": [], "fused": []}
+    for name, run in order:
+        times[name].append(run())
+    step_ms = {k: float(np.mean(v)) for k, v in times.items()}
+    sps = {k: B * T / (v / 1e3) for k, v in step_ms.items()}
+    rest = step_ms["fused"] - k2_ms - k3_ms
+    log(f"phase 7: B={B} T={T} bf16: K2 {k2_ms:.2f} ms (plain {p2_ms:.2f}), K3 {k3_ms:.2f} ms (plain {p3_ms:.2f}); "
+        f"train step fused {times['fused']} ms, unfused {times['unfused']} ms (host clock, 2 steps each, in turns) "
+        f"= {sps['fused']:,.0f} vs {sps['unfused']:,.0f} samples/s; fused step minus K2+K3 {rest:.1f} ms; "
+        f"peak memory fused {peak_f:.1f} GiB, unfused {peak_u:.1f} GiB")
+    # where a step's device time goes, by kernel (one more step each)
+    breakdown = {}
+    for name, run in (("fused", fused), ("unfused", unfused)):
+        t0 = time.perf_counter()
+        rows = kernel_breakdown(lambda: run(1))
+        wall = (time.perf_counter() - t0) * 1e3
+        busy = sum(r[1] for r in rows)
+        passes = {p: sum(ms for k, ms, _ in rows if p in k) for p in GLU_PASSES}
+        breakdown[name] = {"device_ms": busy, "wall_ms_profiled": wall,
+                           "top": [(k[:100], ms, n) for k, ms, n in rows[:12]],
+                           "glu_passes_ms": {p: v for p, v in passes.items() if v > 0}}
+        log(f"phase 7: {name} step under the profiler: device busy {busy:.1f} ms of {wall:.1f} ms wall; "
+            f"K2/K3 passes {json.dumps({p: round(v, 2) for p, v in passes.items() if v > 0})}")
+        for k, ms, n in rows[:12]:
+            log(f"  {ms:9.3f} ms {n:5d}x  {k[:110]}")
+    for rec, ms, plain, flop, nbytes in ((k2, k2_ms, p2_ms, f2, by2), (k3, k3_ms, p3_ms, f3, by3)):
+        t_ops, t_bytes = flop / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+        rec.update({"ms": ms, "plain_ms": plain, "bound_ms": max(t_ops, t_bytes),
+                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                    "library_ms": None,  # no single PyTorch call computes the stack or its backward
+                    "shape": f"B={B},T={T},bf16 storage", "flop": flop, "bytes": nbytes})
+        log(f"phase 7: {rec['name']}: {flop / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB -> bound {rec['bound_ms']:.3f} ms "
+            f"(ops {t_ops:.3f}, bytes {t_bytes:.3f}); {100 * rec['bound_ms'] / ms:.2f}% of bound")
+    k2["train_step"] = {"fused_ms": times["fused"], "unfused_ms": times["unfused"], "samples_per_s": sps,
+                        "fused_minus_k2_k3_ms": rest, "peak_gib": {"fused": peak_f, "unfused": peak_u},
+                        "profile": breakdown}
+    k3["unfused_step_ms"] = k2["unfused_step_ms"] = step_ms["unfused"]
+
+
+KERNELS = {
+    "K1": ("wavenet_decode", "decode.cu", "wavenet_autoencoders_tpu/kernels/decode.py:352"),
+    "K2": ("glu_stack_forward", "glu_stack.cu", "wavenet_autoencoders_tpu/kernels/glu_stack.py:157"),
+    "K3": ("glu_stack_backward", "glu_stack.cu", "wavenet_autoencoders_tpu/kernels/glu_stack.py:355"),
+}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="0,1,2,3,4")
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7")
     phases = {int(p) for p in ap.parse_args(argv).phases.split(",")}
 
     import torch
@@ -407,22 +735,29 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    res = {"name": "wavenet_decode", "route": "cuda",
-           "source": "wavenet_autoencoders_tpu_torch/csrc/decode.cu",
-           "replaces": "wavenet_autoencoders_tpu/kernels/decode.py:352",
-           "launches": None, "max_abs_err": None, "ms": None, "plain_ms": None,
-           "bound_ms": None, "bound_by": None, "library_ms": None}
+    res = {k: {"name": n, "route": "cuda", "source": f"wavenet_autoencoders_tpu_torch/csrc/{src}",
+               "replaces": rep, "launches": None, "max_abs_err": None, "ms": None, "plain_ms": None,
+               "bound_ms": None, "bound_by": None, "library_ms": None}
+           for k, (n, src, rep) in KERNELS.items()}
+    k1, k2, k3 = res["K1"], res["K2"], res["K3"]
     if 1 in phases:
-        phase1(res)
+        phase1(k1)
     if 2 in phases:
-        phase2(res)
+        phase2(k1)
     if 3 in phases:
         with tempfile.TemporaryDirectory() as tmp:
-            phase3(res, Path(tmp))
+            phase3(k1, Path(tmp))
     if 4 in phases:
-        phase4(res)
+        phase4(k1)
+    if 5 in phases:
+        phase5(k2, k3)
+    if 6 in phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            phase6(k2, k3, Path(tmp))
+    if 7 in phases:
+        phase7(k2, k3)
 
-    print(json.dumps({"kernels": [res]}))
+    print(json.dumps({"kernels": list(res.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

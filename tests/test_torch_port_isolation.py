@@ -84,6 +84,18 @@ def test_cli_default_device_refuses_cpu(monkeypatch, tmp_path):
         main(["infer", "--preset", "svqwae", str(tmp_path / "c.npz"), "scp.json", str(tmp_path)])
 
 
+def test_train_entry_points_default_device_refuse_cpu(monkeypatch, tmp_path):
+    from wavenet_autoencoders_tpu_torch.cli.main import main
+    from wavenet_autoencoders_tpu_torch.config import load_preset
+    from wavenet_autoencoders_tpu_torch.train.loop import train
+
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train(load_preset("svqwae", TINY_SVQWAE), str(tmp_path), str(tmp_path / "exp"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["train", "--preset", "svqwae", str(tmp_path), str(tmp_path / "exp")])
+
+
 def test_unported_models_raise():
     from wavenet_autoencoders_tpu_torch.config import load_preset
     from wavenet_autoencoders_tpu_torch.models import build_model

@@ -124,6 +124,12 @@ def test_fold_weight_norm_preserves_function():
 
 
 def test_fused_stack_is_not_ported_yet():
-    _, _, net = nets(seed=6, fused_stack=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        net.apply(torch.zeros(1, 4, dtype=torch.long))
+    """The fused stack is ported now (K2/K3): on CPU tensors ``fused_stack``
+    runs their plain versions, and the logits equal the JAX package's fused
+    apply (Pallas in interpret mode) on the same weights."""
+    jnet, params, net = nets(seed=6, fused_stack=True)
+    ids, c, g, _ = _inputs({})
+    want = jnet.apply(params, jnp.asarray(ids), c, jnp.asarray(g), upsampled=True)
+    with torch.no_grad():
+        got = net.apply(torch.from_numpy(ids), torch.from_numpy(c), torch.from_numpy(g), upsampled=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)

@@ -1,19 +1,23 @@
 """wavenet_autoencoders_tpu_torch — the PyTorch/CUDA port of
 ``wavenet_autoencoders_tpu``.
 
-It carries the SVQ-WAE serving path (ABX export and AR synthesis) with the
-same layout as the JAX package, so each module has its counterpart under
-the same name:
+It carries the SVQ-WAE serving path (ABX export and AR synthesis) and its
+training, with the same layout as the JAX package, so each module has its
+counterpart under the same name:
 
 - ``config``  — typed config, JSON presets, "k=v" overrides (own copy)
-- ``dsp``     — the numpy/scipy waveform post-processing synthesis needs
-- ``ops``     — weight-normed convs, the GLU cell, upsampler, samplers
+- ``dsp``     — mu-law and the waveform post-processing synthesis needs
+- ``data``    — the train.txt manifest, dataset, sampler, collator, prefetch
+- ``ops``     — weight-normed convs, the GLU cell, upsampler, samplers, losses
 - ``models``  — WaveNet decoder, content encoder, VQ bottlenecks, VQWAE
-- ``kernels`` — the fused AR decode kernel (CUDA for Hopper, ``csrc/``)
-                with its plain PyTorch version
+- ``kernels`` — the fused AR decode and the fused GLU-stack forward and
+                backward (CUDA for Hopper, ``csrc/``), each with its plain
+                PyTorch version
+- ``train``   — train step (Adam, clipping, parameter EMA), schedules,
+                checkpoints in the JAX package's npz format, metrics, loop
 - ``eval``    — ABX export and voice-conversion synthesis
 - ``utils``   — device selection and the JAX-parameter bridge
-- ``cli``     — the ``infer`` and ``synthesize`` subcommands
+- ``cli``     — the ``train``, ``infer`` and ``synthesize`` subcommands
 
 The package imports torch, numpy and scipy only; it never imports JAX or
 the JAX package. Entry points run on the CUDA device unless the caller

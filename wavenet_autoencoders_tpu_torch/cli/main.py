@@ -1,18 +1,19 @@
 """Command-line entry points of the port (counterpart of
 ``wavenet_autoencoders_tpu/cli/main.py``):
 
+    train       train a model (single process), npz checkpoints
     infer       ABX representation export
     synthesize  voice-conversion synthesis
 
-Both load a checkpoint in the JAX package's npz format (leaves keyed
-``params/<tree path>``) and run on ``--device`` (default ``cuda``).
+Checkpoints are in the JAX package's npz format (leaves keyed
+``params/<tree path>``, ``opt_state/...``), so either package reads the
+other's. Everything runs on ``--device`` (default ``cuda``).
 Run as ``python -m wavenet_autoencoders_tpu_torch.cli.main <cmd> ...``.
 """
 from __future__ import annotations
 
 import argparse
 import json
-import math
 from pathlib import Path
 
 import numpy as np
@@ -26,10 +27,14 @@ def _cfg_from(args) -> Config:
     return Config().parse(args.hparams or "")
 
 
-def _add_common(p):
+def _add_cfg(p):
     p.add_argument("--preset", help="bundled preset name or JSON path")
     p.add_argument("--hparams", default="", help='overrides: "k=v,k2=[..]"')
     p.add_argument("--device", default="cuda", help="torch device (default cuda; 'cpu' to run on the CPU)")
+
+
+def _add_common(p):
+    _add_cfg(p)
     p.add_argument("--use-ema", action=argparse.BooleanOptionalAction, default="auto",
                    help="load the *_ema checkpoint sibling; --no-use-ema uses raw weights "
                         "(default: only once the EMA shadow is warm)")
@@ -38,6 +43,17 @@ def _add_common(p):
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="wae-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("train", help="train a model")
+    _add_cfg(p)
+    p.add_argument("dump_root")
+    p.add_argument("checkpoint_dir")
+    p.add_argument("--dev-dump-root", default=None, help="dev split (the dev pass is not ported yet: raises)")
+    p.add_argument("--checkpoint", default=None, help="resume checkpoint")
+    p.add_argument("--restore-parts", default=None, help="partial, shape-tolerant weight load")
+    p.add_argument("--reset-optimizer", action="store_true")
+    p.add_argument("--feat-type", default="mfcc")
+    p.add_argument("--max-steps", type=int, default=None)
 
     p = sub.add_parser("infer", help="export ABX representations")
     _add_common(p)
@@ -67,6 +83,16 @@ def main(argv=None):
 
     args = ap.parse_args(argv)
     cfg = _cfg_from(args)
+    if args.cmd == "train":
+        from wavenet_autoencoders_tpu_torch.train.loop import train
+
+        train(
+            cfg, args.dump_root, args.checkpoint_dir, resume=args.checkpoint,
+            restore_parts_from=args.restore_parts, reset_optimizer=args.reset_optimizer,
+            feat_type=args.feat_type, max_steps=args.max_steps, dev_dump_root=args.dev_dump_root,
+            device=args.device,
+        )
+        return
     model = _load_model(cfg, args.checkpoint, use_ema=args.use_ema, device=args.device)
     if args.cmd == "infer":
         from wavenet_autoencoders_tpu_torch.eval.infer import export_representations
@@ -87,20 +113,13 @@ def main(argv=None):
         )
 
 
-def ema_warm_steps(ema_decay: float) -> int:
-    """Steps before the EMA shadow is a faithful parameter average: ~5 time
-    constants (decay**step < 1%)."""
-    if ema_decay >= 1.0:
-        return 1 << 30
-    return int(math.ceil(5.0 / (1.0 - ema_decay)))
-
-
 def _load_model(cfg: Config, checkpoint: str, use_ema: bool | str = "auto", device="cuda"):
     """Build the model from cfg on ``device`` and load the npz checkpoint.
 
     ``use_ema=True`` prefers the *_ema sibling; ``"auto"`` does so only once
     the shadow has warmed (checkpoint step >= ema_warm_steps)."""
     from wavenet_autoencoders_tpu_torch.models.zoo import build_model
+    from wavenet_autoencoders_tpu_torch.train.step import ema_warm_steps
     from wavenet_autoencoders_tpu_torch.utils.params import load_flat_params
 
     model = build_model(cfg, device=device)

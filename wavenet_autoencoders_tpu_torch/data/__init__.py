@@ -1,0 +1,3 @@
+"""The training data feed: the ``train.txt`` manifest and the Python
+collate path (length-bucketed sampling, hop-aligned crops, a prefetch thread
+that also does the host-to-device copy)."""

@@ -1,12 +1,26 @@
-"""Inverse mu-law companding and inverse pre-emphasis (numpy/scipy).
+"""Mu-law companding, its inverse and inverse pre-emphasis (numpy/scipy).
 
-Counterparts of ``wavenet_autoencoders_tpu/dsp/mulaw.py:35-79`` for host
+Counterparts of ``wavenet_autoencoders_tpu/dsp/mulaw.py:27-79`` for host
 arrays; ``mu = quantize_channels - 1`` (255) gives codes in [0, 255].
 """
 from __future__ import annotations
 
 import numpy as np
 from scipy.signal import lfilter
+
+
+def mulaw(x, mu: int = 256):
+    """Mu-law companding: [-1, 1] -> [-1, 1]."""
+    mu = float(mu)
+    return np.sign(x) * np.log1p(mu * np.abs(x)) / np.log1p(mu)
+
+
+def mulaw_quantize(x, mu: int = 256):
+    """Mu-law compand + quantize: [-1, 1] -> integer codes [0, mu]."""
+    out = (mulaw(x, mu) + 1) / 2 * mu
+    if np.isscalar(out):
+        return int(out)
+    return out.astype(np.int64)
 
 
 def inv_mulaw(y, mu: int = 256):

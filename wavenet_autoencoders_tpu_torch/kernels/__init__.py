@@ -3,9 +3,11 @@ version and a launch counter.
 
 - ``decode``: the fused AR decode (``csrc/decode.cu``), counterpart of the
   JAX package's ``wavenet_decode_pallas``.
+- ``glu_stack``: the fused residual-GLU stack for training
+  (``csrc/glu_stack.cu``): K2, the forward of all layers, and K3, its exact
+  backward, joined by the ``FusedGLUStack`` autograd function; counterparts
+  of the JAX package's ``_fwd_pallas`` / ``_bwd_pallas``.
 
-The fused GLU-stack kernels of the JAX package (``kernels/glu_stack.py``)
-are training-only and not ported yet (see ROADMAP.md). ``build`` compiles
-``csrc/*.cu`` with ``nvcc`` at first use; importing this package needs no
-CUDA toolkit.
+``build`` compiles ``csrc/*.cu`` with ``nvcc`` at first use; importing this
+package needs no CUDA toolkit.
 """

@@ -1,4 +1,4 @@
-"""The bottlenecks the SVQ-WAE serving path needs (counterpart of
+"""The bottlenecks of the SVQ-WAE serving and training paths (counterpart of
 ``wavenet_autoencoders_tpu/models/bottlenecks.py:35-141,321-336``):
 
 - plain VQ with the reference's swapped-β loss (β weights the

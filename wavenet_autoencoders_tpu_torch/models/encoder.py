@@ -14,11 +14,11 @@ from torch import nn
 from wavenet_autoencoders_tpu_torch.ops.conv import Conv1d, Linear, conv1d_apply, linear_apply
 
 
-def _block_apply(p, x, k, stride, residual):
+def _block_apply(p, x, k, stride, residual, dtype=None):
     # torch-style padding k//2 both sides, strided conv, ReLU, residual
     # AFTER the ReLU
     pad = k // 2
-    out = F.relu(conv1d_apply(p, x, stride=stride, padding=[(pad, pad)]))
+    out = F.relu(conv1d_apply(p, x, stride=stride, padding=[(pad, pad)], dtype=dtype))
     if residual:
         out = out + x
     return out
@@ -46,12 +46,13 @@ class Encoder(nn.Module):
         specs += [(3, 1), (3, 1)] + [(1, 1)] * 4
         return specs
 
-    def apply(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, T, c_in) -> (B, T/downsample, c_out)."""
+    def apply(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
+        """x: (B, T, c_in) -> (B, T/downsample, c_out); ``dtype`` is the
+        compute dtype of the convs and the projection."""
         h, cin = x, self.c_in
         for p, (k, s) in zip(self.blocks, self._blocks()):
-            h = _block_apply(p, h, k, s, residual=(s == 1 and cin == self.hid))
+            h = _block_apply(p, h, k, s, residual=(s == 1 and cin == self.hid), dtype=dtype)
             cin = self.hid
-        return linear_apply(self.lin, h)
+        return linear_apply(self.lin, h, dtype=dtype)
 
     forward = apply

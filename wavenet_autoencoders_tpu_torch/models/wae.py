@@ -1,10 +1,11 @@
 """WaveNet autoencoders: the shared base and the VQ family (counterpart of
 ``wavenet_autoencoders_tpu/models/wae.py:43-87,116-224``).
 
-The port's models hold their weights, so ``encode(c)`` and
-``decode(c, ...)`` take no params/state arguments. Training-only parts
-(``forward``, dead-code revival, jitter, VQ-dropout, EMA codebooks) come
-with the training slice. All activations are (B, T, C).
+The port's models hold their weights, so ``encode(c)``, ``decode(c, ...)``
+and the training ``forward(x, c, g, train=, dtype=)`` take no params/state
+arguments. The training-only bottleneck options (EMA codebooks, dead-code
+revival, time jitter, VQ-dropout) are not ported yet and raise. All
+activations are (B, T, C).
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from torch import nn
 from wavenet_autoencoders_tpu_torch.models import bottlenecks as bn
 from wavenet_autoencoders_tpu_torch.models.encoder import Encoder
 from wavenet_autoencoders_tpu_torch.models.wavenet import WaveNet
-from wavenet_autoencoders_tpu_torch.ops.conv import Conv1d
+from wavenet_autoencoders_tpu_torch.ops.conv import Conv1d, conv1d_apply
 
 
 class WAEBase(nn.Module):
@@ -58,16 +59,18 @@ class VQWAE(WAEBase):
 
     def __init__(self, wavenet: WaveNet, c_in=39, hid=64, frame_rate=25, encoder_hid=768, *,
                  K=256, K1=None, num_slices=2, beta=0.25, commit_scale=1.0, ema=False,
-                 sliced=False, ins_norm=False, post_conv=False, adain=False, generator=None):
+                 sliced=False, ins_norm=False, post_conv=False, adain=False,
+                 use_time_jitter=False, vq_drop=False, drop_dim=0, reseed=False, generator=None):
         super().__init__(wavenet, c_in, hid, frame_rate, encoder_hid, generator=generator)
         if ema:
             raise NotImplementedError(
-                "EMA codebooks are training state and come with the training "
-                "slice: see ROADMAP.md, queue 1"
+                "EMA codebooks are not ported yet: see ROADMAP.md, queue 1 (EMA "
+                "codebooks, reseed, time jitter and VQ-dropout)"
             )
         self.K, self.K1, self.num_slices = K, K1, num_slices
         self.beta, self.commit_scale = beta, commit_scale
         self.sliced, self.ins_norm, self.post_conv, self.adain = sliced, ins_norm, post_conv, adain
+        self.use_time_jitter, self.vq_drop, self.drop_dim, self.reseed = use_time_jitter, vq_drop, drop_dim, reseed
         if sliced:
             self.vq = bn.SlicedVQ(K, hid, num_slices, K1, generator=generator)
         else:
@@ -80,6 +83,28 @@ class VQWAE(WAEBase):
         if self.sliced:
             return bn.sliced_vq_apply(self.vq, z, beta=self.beta, commit_scale=self.commit_scale)
         return bn.vq_apply(self.vq, z, beta=self.beta)
+
+    def forward(self, x, c, g, *, train: bool = True, dtype=None):
+        """Training forward: encoder -> instance norm -> VQ (straight-through)
+        -> post-conv -> teacher-forced decoder. Returns (y_hat, vq_loss,
+        perplexity)."""
+        if train:
+            for on, item in ((self.use_time_jitter, "time jitter"),
+                             (self.vq_drop and self.drop_dim > 0, "VQ-dropout"),
+                             (self.reseed, "dead-code reseed")):
+                if on:
+                    raise NotImplementedError(
+                        f"{item} is not ported yet: see ROADMAP.md, queue 1 (EMA codebooks, "
+                        "reseed, time jitter and VQ-dropout)"
+                    )
+        z = self.encoder.apply(c, dtype=dtype)
+        if self.ins_norm:
+            z = bn.instance_norm(z)
+        q, vq_loss, perp, _idx = self._quantize(z)
+        if self.post_conv:
+            q = conv1d_apply(self.post, q, padding=[(1, 1)], dtype=dtype)
+        y_hat = self.wavenet.apply(x, q, g, train=train, dtype=dtype)
+        return y_hat, vq_loss, perp
 
     def encode(self, c, tar_c=None, pre_vq: bool = False):
         """Quantized latent (B, T', hid) — the ABX representation. With

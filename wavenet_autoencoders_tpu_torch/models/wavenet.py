@@ -7,8 +7,11 @@ the JAX tree paths (``first``, ``layers.3.conv.g``, ``post1``, ``post2``,
 ``embed.table``, ``upsample.conv_in.w``, ...).
 
 - ``apply``: the teacher-forced forward over (B, T, C), convs through
-  ``F.conv1d``. (The name shadows ``nn.Module.apply(fn)``, keeping the JAX
-  package's vocabulary; ``forward`` is the same method.)
+  ``F.conv1d``, in a compute ``dtype`` when given; with ``fused_stack`` (and
+  kernel size 3, no dropout) the residual-GLU stack runs as one
+  ``FusedGLUStack`` (``kernels/glu_stack.py``: K2 forward, K3 backward).
+  (The name shadows ``nn.Module.apply(fn)``, keeping the JAX package's
+  vocabulary; ``forward`` is the same method.)
 - ``decode``: the plain AR loop (the JAX ``lax.scan`` becomes a Python loop
   over ``step``), for any kernel size.
 - ``decode_kernel``: the fused decode of ``kernels/decode.py`` — the CUDA
@@ -162,26 +165,26 @@ class WaveNet(nn.Module):
             g = g[:, :, 0]
         return g
 
-    def upsample_conditioning(self, c):
+    def upsample_conditioning(self, c, dtype=None):
         """(B, T', cin) frame-rate conditioning -> (B, T, cin) sample-rate."""
         if c is None or not self.upsample_conditional_features:
             return c
         if self.upsample_net == "ConvInUpsampleNetwork":
             return conv_in_upsample_apply(
-                self.upsample, c, self.upsample_scales, self.freq_axis_kernel_size
+                self.upsample, c, self.upsample_scales, self.freq_axis_kernel_size, dtype=dtype
             )
         return upsample_network_apply(
             self.upsample, c, self.upsample_scales, self.freq_axis_kernel_size,
-            cin_pad=self.cin_pad,
+            cin_pad=self.cin_pad, dtype=dtype,
         )
 
-    def _align_conditioning(self, c, T, upsampled=False):
+    def _align_conditioning(self, c, T, upsampled=False, dtype=None):
         """Bring conditioning to sample rate (length T): the learned
         upsampler, or a frame repeat when the model has none."""
         if c is None:
             return None
         if not upsampled:
-            c = self.upsample_conditioning(c)
+            c = self.upsample_conditioning(c, dtype=dtype)
         if not self.upsample_conditional_features and c.shape[1] != T:
             assert T % c.shape[1] == 0, (
                 f"T={T} is not a multiple of conditioning frames {c.shape[1]} "
@@ -191,39 +194,72 @@ class WaveNet(nn.Module):
         assert c.shape[1] == T, f"conditioning {tuple(c.shape)} vs T={T}"
         return c
 
-    def apply(self, x, c=None, g=None, *, softmax: bool = False, upsampled: bool = False):
+    def apply(self, x, c=None, g=None, *, softmax: bool = False, upsampled: bool = False,
+              train: bool = False, dtype=None):
         """Teacher-forced forward.
 
         x: (B, T, in_channels) one-hot or (B, T, 1) scalar input, or (B, T)
            integer codes (the first 1x1 then is a row gather of its weight).
         c: (B, T', cin) conditioning at frame rate (upsampled here unless
            ``upsampled``). g: (B,) int speaker ids or (B, gin) features.
+        train: training mode (dropout, which is not ported, raises).
+        dtype: compute dtype of the convs (None = f32 throughout).
         Returns logits/params (B, T, out_channels).
         """
-        if self.fused_stack:
-            raise NotImplementedError(
-                "fused_stack=True needs the fused GLU-stack kernels (K2/K3), "
-                "which the port has not carried yet: see ROADMAP.md, queue 2"
-            )
         T = x.shape[1]
         g_feat = self._global_features(g)
-        c = self._align_conditioning(c, T, upsampled=upsampled)
+        c = self._align_conditioning(c, T, upsampled=upsampled, dtype=dtype)
         if x.ndim == 2 and not x.is_floating_point():
-            h = conv1d_weight(self.first)[0][x.long()] + self.first.b
+            h = conv1d_weight(self.first, dtype)[0][x.long()] + self.first.b
         else:
-            h = conv1d_apply(self.first, x)
-        skips = 0.0
-        for i, lp in enumerate(self.layers):
-            h, s = residual_glu_apply(lp, h, c, g_feat, dilation=self.dilation(i))
-            skips = skips + s
+            h = conv1d_apply(self.first, x, dtype=dtype)
+        if self.fused_stack and self.kernel_size == 3 and self.dropout == 0.0:
+            skips = self._fused_stack(h, c, g_feat, dtype)
+        else:
+            skips = 0.0
+            for i, lp in enumerate(self.layers):
+                h, s = residual_glu_apply(
+                    lp, h, c, g_feat, dilation=self.dilation(i),
+                    dropout=self.dropout if train else 0.0, dtype=dtype,
+                )
+                skips = skips + s
         skips = skips * math.sqrt(1.0 / self.n_layers)
-        out = conv1d_apply(self.post1, F.relu(skips))
-        out = conv1d_apply(self.post2, F.relu(out))
+        out = conv1d_apply(self.post1, F.relu(skips), dtype=dtype)
+        out = conv1d_apply(self.post2, F.relu(out), dtype=dtype)
         if softmax:
             out = torch.softmax(out, dim=-1)
         return out
 
     forward = apply
+
+    def _fused_stack(self, h, c, g_feat, dtype):
+        """The whole residual-GLU stack as one ``FusedGLUStack``: folded
+        weights stacked per layer, the per-layer global addends (B, L, G)
+        computed here. Returns the unscaled skip sum in f32. Weight norm,
+        ``gproj`` and the embedding stay in autograd, outside the kernel."""
+        from wavenet_autoencoders_tpu_torch.kernels.glu_stack import FusedGLUStack
+
+        if dtype is not None:
+            h = h.to(dtype)
+            c = None if c is None else c.to(dtype)
+        lays = self.layers
+        wc = None if c is None else torch.stack([conv1d_weight(lp.cproj, dtype)[0] for lp in lays])
+        g_adds = None
+        if g_feat is not None and lays[0].gproj is not None:
+            g_adds = torch.stack(
+                [g_feat @ conv1d_weight(lp.gproj, dtype)[0].float() for lp in lays], dim=1
+            )
+        return FusedGLUStack.apply(
+            h, c, g_adds,
+            torch.stack([conv1d_weight(lp.conv, dtype) for lp in lays]),
+            torch.stack([lp.conv.b for lp in lays]),
+            wc,
+            torch.stack([conv1d_weight(lp.out, dtype)[0] for lp in lays]),
+            torch.stack([lp.out.b for lp in lays]),
+            torch.stack([conv1d_weight(lp.skip, dtype)[0] for lp in lays]),
+            torch.stack([lp.skip.b for lp in lays]),
+            tuple(self.dilation(i) for i in range(self.n_layers)),
+        ).float()
 
     # ------------------------------------------------------------------
     # AR decoding

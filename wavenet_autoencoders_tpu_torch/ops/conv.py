@@ -11,6 +11,11 @@ JAX package's names and layouts so weights carry across unchanged:
 
 Inputs and outputs are (B, T, C); the transpose to (B, C, T) happens only
 around ``F.conv1d``.
+
+``dtype`` is the compute dtype, cast where the JAX package casts (no
+autocast): the folded weight and the input are cast to it, the product
+accumulates in f32 but its result stays in ``dtype`` (bf16 under bf16), and
+the f32 bias added after it promotes the output to f32. Parameters stay f32.
 """
 from __future__ import annotations
 
@@ -64,12 +69,15 @@ class Linear(nn.Module):
         self.b = nn.Parameter(_uniform((cout,), bound, generator)) if bias else None
 
 
-def conv1d_weight(p: nn.Module) -> torch.Tensor:
-    """Fold (g, v) -> w (K, Cin, Cout). For plain convs returns w."""
+def conv1d_weight(p: nn.Module, dtype=None) -> torch.Tensor:
+    """Fold (g, v) -> w (K, Cin, Cout), cast to ``dtype`` when given. For
+    plain convs returns w."""
     if isinstance(p, WNConv1d):
         norm = p.v.square().sum((0, 1), keepdim=True).sqrt()
-        return p.g[None, None, :] * p.v / norm.clamp_min(1e-12)
-    return p.w
+        w = p.g[None, None, :] * p.v / norm.clamp_min(1e-12)
+    else:
+        w = p.w
+    return w if dtype is None else w.to(dtype)
 
 
 def conv1d_apply(
@@ -79,13 +87,16 @@ def conv1d_apply(
     dilation: int = 1,
     stride: int = 1,
     padding="SAME",
+    dtype=None,
 ) -> torch.Tensor:
     """Conv over (B, T, Cin) -> (B, T', Cout).
 
     padding: 'SAME' | 'VALID' | 'CAUSAL' | explicit [(lo, hi)]. 'CAUSAL'
     left-pads (k-1)*dilation.
     """
-    w = conv1d_weight(p)
+    w = conv1d_weight(p, dtype)
+    if dtype is not None:
+        x = x.to(dtype)
     k = w.shape[0]
     if k == 1 and stride == 1:
         y = x @ w[0]
@@ -107,12 +118,15 @@ def conv1d_apply(
     return y
 
 
-def causal_conv1d_apply(p, x, *, dilation=1):
-    return conv1d_apply(p, x, dilation=dilation, padding="CAUSAL")
+def causal_conv1d_apply(p, x, *, dilation=1, dtype=None):
+    return conv1d_apply(p, x, dilation=dilation, padding="CAUSAL", dtype=dtype)
 
 
-def linear_apply(p: Linear, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p.w
+def linear_apply(p: Linear, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    w = p.w
+    if dtype is not None:
+        x, w = x.to(dtype), w.to(dtype)
+    y = x @ w
     if p.b is not None:
         y = y + p.b
     return y

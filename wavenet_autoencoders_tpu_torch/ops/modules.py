@@ -73,20 +73,28 @@ def residual_glu_apply(
     g: torch.Tensor | None = None,
     *,
     dilation: int = 1,
+    dropout: float = 0.0,
+    dtype=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, T, residual); c: (B, T, cin) or None; g: (B, gin) or
     (B, T, gin). Returns (residual_out, skip) with the sqrt(0.5) residual
-    scaling."""
-    h = causal_conv1d_apply(p.conv, x, dilation=dilation)
-    c_add = conv1d_apply(p.cproj, c) if c is not None else None
+    scaling. ``dtype`` is the compute dtype of the convs; ``dropout`` is the
+    training-time rate (the caller passes 0 outside training)."""
+    if dropout > 0.0:
+        raise NotImplementedError(
+            "dropout in the residual GLU block is not ported yet: see ROADMAP.md, "
+            "queue 1 (dropout)"
+        )
+    h = causal_conv1d_apply(p.conv, x, dilation=dilation, dtype=dtype)
+    c_add = conv1d_apply(p.cproj, c, dtype=dtype) if c is not None else None
     g_add = None
     if g is not None:
         if g.ndim == 2:
             g = g[:, None, :]
-        g_add = conv1d_apply(p.gproj, g)
+        g_add = conv1d_apply(p.gproj, g, dtype=dtype)
     gated = _gate(h, c_add, g_add)
-    s = conv1d_apply(p.skip, gated)
-    out = (conv1d_apply(p.out, gated) + x) * math.sqrt(0.5)
+    s = conv1d_apply(p.skip, gated, dtype=dtype)
+    out = (conv1d_apply(p.out, gated, dtype=dtype) + x) * math.sqrt(0.5)
     return out, s
 
 

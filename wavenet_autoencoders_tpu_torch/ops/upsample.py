@@ -51,13 +51,20 @@ def upsample_network_apply(
     upsample_scales,
     freq_axis_kernel_size: int = 1,
     cin_pad: int = 0,
+    dtype=None,
 ) -> torch.Tensor:
-    """c: (B, T0, C) -> (B, T0 * prod(scales) - 2*cin_pad*prod, C)."""
+    """c: (B, T0, C) -> (B, T0 * prod(scales) - 2*cin_pad*prod, C). Under a
+    compute ``dtype`` the input and every smoothing weight are cast to it and
+    each conv's output stays in it."""
     x = c.transpose(1, 2)[:, None]  # (B, 1, C, T)
+    if dtype is not None:
+        x = x.to(dtype)
     fpad = (freq_axis_kernel_size - 1) // 2
     for conv, scale in zip(p.convs, upsample_scales):
         x = x.repeat_interleave(scale, dim=3)
         w = conv.g * conv.v / conv.v.square().sum().sqrt().clamp_min(1e-12)
+        if dtype is not None:
+            w = w.to(dtype)
         x = F.conv2d(x, w, padding=(fpad, scale))
     out = x[:, 0].transpose(1, 2)  # (B, T, C)
     indent = cin_pad * int(np.prod(upsample_scales))
@@ -71,7 +78,8 @@ def conv_in_upsample_apply(
     c: torch.Tensor,
     upsample_scales,
     freq_axis_kernel_size: int = 1,
+    dtype=None,
 ) -> torch.Tensor:
     """c: (B, T0, C) -> (B, (T0 - 2*cin_pad) * prod(scales), C)."""
-    h = conv1d_apply(p.conv_in, c, padding="VALID")
-    return upsample_network_apply(p.upsample, h, upsample_scales, freq_axis_kernel_size)
+    h = conv1d_apply(p.conv_in, c, padding="VALID", dtype=dtype)
+    return upsample_network_apply(p.upsample, h, upsample_scales, freq_axis_kernel_size, dtype=dtype)
