@@ -30,16 +30,19 @@ Phases (each raises on failure, so the script exits non-zero):
    cin 64), B=2 x T=2048 and B=3 x T=2000 (ragged), f32 with TF32 off and
    bf16 storage: skips, ab, the final residual and all ten gradients; K3 in
    f32 against autograd of the plain forward; two K3 calls bitwise equal.
+   (Phase 7 repeats the bf16 check at the main path's B=40 x T=5120.)
 6. Training through the port's CLI on ``cuda``: ``train --preset svqwae
    --hparams fused_stack=true --max-steps 3`` at B=40 x T=5120 in bf16 on a
    synthetic dump (48 utterances of 200 frames, 2 speakers). The K2/K3
    counters are zeroed before and read after (one launch each per step);
    every loss and grad norm is finite; the checkpoint and its ``_ema``
-   sibling exist; ``infer`` runs on it; the first step's loss agrees with
-   the unfused path's from the same init and batch.
-7. Times at B=40 x T=5120, bf16: K2, K3 and their plain versions with CUDA
-   events beside their bounds; whole train steps, fused and unfused, in
-   turns (host clock after a synchronize), in samples/s.
+   sibling exist; ``infer`` runs on it; the first step's loss and grad norm
+   agree with the unfused train step's from the same init and batch.
+7. At B=40 x T=5120, bf16: K2 and K3 against their plain versions on the
+   same inputs (skips, ab, the final residual and all ten gradients, at
+   phase 5's bf16 tolerances); then their times and the plain versions'
+   with CUDA events beside their bounds; whole train steps, fused and
+   unfused, in turns (host clock after a synchronize), in samples/s.
 
 Prints the kernel table (K1, K2, K3) as one JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
@@ -437,6 +440,27 @@ def rel_err(a, b) -> float:
     return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)).item()
 
 
+def glu_errors(fwd, p_fwd, grads, p_grads):
+    """Errors of K2's (skips, hfin, ab) and K3's ten gradients against their
+    plain versions: ({output: max abs error relative to the plain max},
+    largest abs error of K2, largest abs error of K3)."""
+    fwd = dict(zip(("skips", "hfin", "ab"), fwd))
+    p_fwd = dict(zip(("skips", "hfin", "ab"), p_fwd))
+    errs = {k: rel_err(fwd[k], p_fwd[k]) for k in FWD_OUTPUTS}
+    errs.update({n: rel_err(g, p) for n, g, p in zip(GLU_GRADS, grads, p_grads)})
+    abs2 = max((fwd[k].float() - p_fwd[k].float()).abs().max().item() for k in FWD_OUTPUTS)
+    abs3 = max((g.float() - p.float()).abs().max().item() for g, p in zip(grads, p_grads))
+    return errs, abs2, abs3
+
+
+def check_glu(errs, name, where):
+    tol_f, tol_b = TOL_GLU[name]
+    for k, e in errs.items():
+        tol = tol_f if k in FWD_OUTPUTS else tol_b
+        if not np.isfinite(e) or e > tol:
+            raise AssertionError(f"K2/K3 {where} {name}: {k} rel error {e} exceeds {tol}")
+
+
 def phase5(k2, k3):
     import torch
 
@@ -458,11 +482,8 @@ def phase5(k2, k3):
                 again = K.glu_stack_backward(dskips, hfin, *bargs)
                 plain = K.glu_stack_backward_reference(dskips, p_hfin, c, p_ab, *bargs[2:])
             torch.cuda.synchronize()
-            errs = {"skips": rel_err(skips, p_skips), "ab": rel_err(ab, p_ab), "hfin": rel_err(hfin, p_hfin)}
-            errs.update({n: rel_err(g, p) for n, g, p in zip(GLU_GRADS, grads, plain)})
-            abs_err["K2"] = max(abs_err["K2"], *((a.float() - b.float()).abs().max().item()
-                                                  for a, b in ((skips, p_skips), (ab, p_ab))))
-            abs_err["K3"] = max(abs_err["K3"], *((g - p.float()).abs().max().item() for g, p in zip(grads, plain)))
+            errs, a2, a3 = glu_errors((skips, hfin, ab), (p_skips, p_hfin, p_ab), grads, plain)
+            abs_err["K2"], abs_err["K3"] = max(abs_err["K2"], a2), max(abs_err["K3"], a3)
             bitwise = all(torch.equal(g, h) for g, h in zip(grads, again))
             if store == torch.float32:
                 # K3 against autograd of the plain forward (leaves in GLU_GRADS order)
@@ -470,13 +491,9 @@ def phase5(k2, k3):
                 s, _, _ = K.glu_stack_forward_reference(*leaves, dils)
                 (s * dskips).sum().backward()
                 errs.update({f"{n}_vs_autograd": rel_err(g, t.grad) for n, g, t in zip(GLU_GRADS, grads, leaves)})
-            tol_f, tol_b = TOL_GLU[name]
             log(f"phase 5: B={B} T={T} {name}: bitwise-equal K3 reruns {bitwise}; "
                 f"rel errors {json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}")
-            for k, e in errs.items():
-                tol = tol_f if k in FWD_OUTPUTS else tol_b
-                if not np.isfinite(e) or e > tol:
-                    raise AssertionError(f"K2/K3 B={B} T={T} {name}: {k} rel error {e} exceeds {tol}")
+            check_glu(errs, name, f"B={B} T={T}")
             if not bitwise:
                 raise AssertionError("two K3 calls on the same inputs differ")
             out[f"B{B}_T{T}_{name}"] = errs
@@ -501,11 +518,18 @@ def make_dump(root: Path, rng, n_utts=48, frames=200, hop=160):
     return dirs
 
 
-# The first step's loss through K2 against the unfused path, same init and
-# batch, bf16 compute: 1e-2 relative. The fused path rounds the residual
-# into the kernel to bf16 and keeps ab and act in bf16 where the unfused
-# path keeps f32 activations; the loss at random init is ~ln 256 = 5.5.
-TOL_STEP1 = 1e-2
+# The first fused train step against the unfused one from the same init and
+# batch, bf16 compute, relative difference. The fused path rounds the
+# residual into the kernel to bf16 and keeps ab and act in bf16 where the
+# unfused path keeps f32 activations.
+# - loss: 1e-4. Sound kernels read 8e-7 to 1.1e-6 at B=40 x T=5120 (H100
+#   runs of this script); a copy of K2 without the speaker addend g_add
+#   reads 2.0e-3.
+# - grad norm: 5e-3. Sound kernels read 5.4e-4 (bf16 products whose
+#   roundings differ between the paths). A copy of K3 whose weight-gradient
+#   reductions add only their first 32 of the 50 row chunks reads 2.4e-2,
+#   while its loss is exact: the loss comes before the backward.
+TOL_STEP1 = {"loss": 1e-4, "grad_norm": 5e-3}
 
 
 def phase6(k2, k3, tmp: Path):
@@ -517,8 +541,7 @@ def phase6(k2, k3, tmp: Path):
     from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
     from wavenet_autoencoders_tpu_torch.models import build_model
     from wavenet_autoencoders_tpu_torch.train.loop import batch_to_device
-    from wavenet_autoencoders_tpu_torch.train.step import compute_dtype, prep_x, recon_loss
-    from wavenet_autoencoders_tpu_torch.ops.losses import sequence_mask
+    from wavenet_autoencoders_tpu_torch.train.step import init_state, make_train_step
 
     dump, ckpt, abx = tmp / "dump", tmp / "exp", tmp / "abx"
     dirs = make_dump(dump, np.random.default_rng(6))
@@ -553,27 +576,26 @@ def phase6(k2, k3, tmp: Path):
     if any(a.shape != (50, 64) or not np.isfinite(a).all() for a in codes):
         raise AssertionError(f"ABX export of the trained checkpoint: {[a.shape for a in codes]}")
 
-    # the first step's loss, unfused, from the same init and first batch
+    # the first step, unfused, from the same init and first batch
     cfg = load_preset("svqwae")
-    model = build_model(cfg, device="cuda")
+    model = build_model(cfg, device="cuda").train()
     batch = next(data_iterator(WaveDataset(str(dump), cfg), cfg, prefetch=0,
                                transform=lambda b: batch_to_device(b, torch.device("cuda"))))
-    with torch.no_grad():
-        x = prep_x(cfg, batch["x"])
-        y_hat, aux, _ = model.forward(x, batch["c"], batch["g"], train=True, dtype=compute_dtype(cfg))
-        mask = sequence_mask(batch["lengths"], x.shape[1])[..., None]
-        unfused = (recon_loss(cfg, y_hat.float(), batch["y"], mask) + aux).item()
-    fused = losses[1]
-    diff = abs(fused - unfused) / abs(unfused)
+    _, m = make_train_step(cfg, model)(init_state(cfg, model), batch)
+    unfused = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item()}
+    fused = {"loss": losses[1], "grad_norm": gnorms[1]}
+    diff = {k: abs(fused[k] - unfused[k]) / abs(unfused[k]) for k in fused}
     log(f"phase 6: losses {[round(losses[s], 5) for s in (1, 2, 3)]}, grad norms steps 1, 3 "
-        f"{[round(gnorms[s], 4) for s in (1, 3)]}; step-1 loss fused {fused:.6f} vs unfused "
-        f"{unfused:.6f}: rel diff {diff:.2e} (bound {TOL_STEP1}); infer wrote {len(codes)} ABX files of 50 x 64")
-    if not diff <= TOL_STEP1:
-        raise AssertionError(f"fused step-1 loss {fused} vs unfused {unfused}")
+        f"{[round(gnorms[s], 4) for s in (1, 3)]}; step 1 fused {json.dumps(fused)} vs unfused "
+        f"{json.dumps(unfused)}: rel diff {json.dumps(diff)} (bounds {json.dumps(TOL_STEP1)}); "
+        f"infer wrote {len(codes)} ABX files of 50 x 64")
+    for k, tol in TOL_STEP1.items():
+        if not diff[k] <= tol:
+            raise AssertionError(f"fused step-1 {k} {fused[k]} vs unfused {unfused[k]}: rel diff {diff[k]}")
     k2["launches"], k3["launches"] = launches
     k2["train_path"] = {"steps": 3, "losses": [losses[s] for s in (1, 2, 3)],
                         "grad_norms_steps_1_3": [gnorms[s] for s in (1, 3)],
-                        "step1_loss_unfused": unfused, "step1_rel_diff": diff, "tol": TOL_STEP1,
+                        "step1_unfused": unfused, "step1_rel_diff": diff, "tol": TOL_STEP1,
                         "cli_train_s": t1 - t0}
 
 
@@ -628,13 +650,31 @@ def phase7(k2, k3):
     args = (x, c, g_add, w["wconv"], w["bconv"], w["wc"], w["wout"], w["bout"], w["wskip"], w["bskip"], dils)
     dskips = torch.from_numpy(rng.standard_normal((B, T, 256)).astype(np.float32)).cuda().to(torch.bfloat16)
     with torch.no_grad():
-        k2_ms = cuda_time(lambda: K.glu_stack_forward(*args), reps=3)
-        _, hfin, ab = K.glu_stack_forward(*args)
+        # first the check at the main path's shape (50 row chunks of the
+        # weight-gradient reductions, 20 time chunks of the column sums), at
+        # phase 5's bf16 tolerances; K3 and its plain version on the same
+        # inputs (K2's hfin and ab)
+        fwd = K.glu_stack_forward(*args)
+        p_fwd = K.glu_stack_forward_reference(*args)
+        hfin, ab = fwd[1], fwd[2]
         bargs = (c, ab, w["wconv"], w["wc"], w["wout"], w["bout"], w["wskip"], dils, True)
+        grads = K.glu_stack_backward(dskips, hfin, *bargs)
+        p_grads = K.glu_stack_backward_reference(dskips, hfin, *bargs)
+        torch.cuda.synchronize()
+        errs, a2, a3 = glu_errors(fwd, p_fwd, grads, p_grads)
+        del p_fwd, grads, p_grads
+        log(f"phase 7: B={B} T={T} bfloat16 against the plain versions: "
+            f"rel errors {json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}")
+        check_glu(errs, "bfloat16", f"B={B} T={T}")
+        k2["max_abs_err"], k3["max_abs_err"] = max(k2["max_abs_err"] or 0.0, a2), max(k3["max_abs_err"] or 0.0, a3)
+        k2["max_rel_err_main_shape"] = max(errs[k] for k in FWD_OUTPUTS)
+        k3["max_rel_err_main_shape"] = max(v for k, v in errs.items() if k not in FWD_OUTPUTS)
+
+        k2_ms = cuda_time(lambda: K.glu_stack_forward(*args), reps=3)
         k3_ms = cuda_time(lambda: K.glu_stack_backward(dskips, hfin, *bargs), reps=3)
         p2_ms = cuda_time(lambda: K.glu_stack_forward_reference(*args), reps=2)
         p3_ms = cuda_time(lambda: K.glu_stack_backward_reference(dskips, hfin, *bargs), reps=2)
-    del ab, hfin
+    del fwd, ab, hfin, bargs
     f2, by2, f3, by3 = glu_bound(B, T)
 
     # whole train steps, fused and unfused, at the preset's shape, in turns

@@ -123,10 +123,10 @@ def test_fold_weight_norm_preserves_function():
     np.testing.assert_allclose(after.numpy(), before.numpy(), atol=1e-5)
 
 
-def test_fused_stack_is_not_ported_yet():
-    """The fused stack is ported now (K2/K3): on CPU tensors ``fused_stack``
-    runs their plain versions, and the logits equal the JAX package's fused
-    apply (Pallas in interpret mode) on the same weights."""
+def test_fused_stack_apply_matches_jax():
+    """On CPU tensors ``fused_stack`` runs the plain versions of K2/K3, and
+    the logits equal the JAX package's fused apply (Pallas in interpret mode)
+    on the same weights."""
     jnet, params, net = nets(seed=6, fused_stack=True)
     ids, c, g, _ = _inputs({})
     want = jnet.apply(params, jnp.asarray(ids), c, jnp.asarray(g), upsampled=True)

@@ -66,13 +66,14 @@
 #define BKT 32    // depth of one shared-memory stage (tensor-core path)
 #define PADS 4    // padding of the shared tiles' rows
 #define CT 128    // threads of a column-sum block
+#define CHUNK_ROWS 4096  // rows of (b, t) one block of a weight-gradient product sums
+#define T_CHUNK 256      // time steps one block of a column sum sums
 #define RS 0.70710678118654752f
 #define IRS 1.41421356237309505f
 
 // Mirrored field for field (all 8-byte) by _GluArgs in kernels/glu_stack.py.
 struct GluArgs {
   int64_t B, T, L, C, G, S, CIN, store_bf16, has_c, has_g;
-  int64_t chunk_rows, n_chunks, t_chunk, n_tchunks;
   int64_t dil[MAXL];
   const void* x;
   const void* c;
@@ -100,10 +101,23 @@ struct GluArgs {
   float* dbout;
   float* dwskip;
   float* dbskip;
-  float* work;
-  float* part;
+  float* work;  // wae_glu_workspace_floats(args) floats, backward only
   void* stream;
 };
+
+// The backward's workspace: the per-chunk partial sums of the largest weight
+// gradient (work_floats), then the per-(b, time chunk) column sums.
+static int64_t n_row_chunks(const GluArgs& a) { return (a.B * a.T + CHUNK_ROWS - 1) / CHUNK_ROWS; }
+static int64_t n_t_chunks(const GluArgs& a) { return (a.T + T_CHUNK - 1) / T_CHUNK; }
+static int64_t work_floats(const GluArgs& a) {
+  const int64_t cin = a.has_c ? a.CIN : 0;
+  const int64_t w1 = a.G / 2 * (a.C + a.S), w2 = (3 * a.C + cin) * a.G;  // W1Op, W2Op: M x N
+  return n_row_chunks(a) * (w1 > w2 ? w1 : w2);
+}
+static int64_t part_floats(const GluArgs& a) {
+  const int64_t n = a.G > a.C ? a.G : a.C;  // widest column sum: dab, dres or dskip
+  return a.B * n_t_chunks(a) * (n > a.S ? n : a.S);
+}
 
 // ---- storage-type helpers -------------------------------------------------
 __device__ __forceinline__ float ld(const float* p) { return *p; }
@@ -618,14 +632,14 @@ __global__ void colsum_final(const float* part, int B, int n_tc, int N, float* p
 }
 
 template <class X>
-static cudaError_t colsum(const X& x, const GluArgs& a, float* per_b, int64_t stride, float* total,
-                          cudaStream_t st) {
-  const int n_tc = (int)a.n_tchunks;
+static cudaError_t colsum(const X& x, const GluArgs& a, float* part, float* per_b, int64_t stride,
+                          float* total, cudaStream_t st) {
+  const int n_tc = (int)n_t_chunks(a);
   dim3 grid(n_tc, (unsigned)a.B, (x.N + CT - 1) / CT);
-  colsum_partial<X><<<grid, CT, 0, st>>>(x, (int)a.T, (int)a.t_chunk, a.part);
+  colsum_partial<X><<<grid, CT, 0, st>>>(x, (int)a.T, T_CHUNK, part);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  colsum_final<<<(x.N + CT - 1) / CT, CT, 0, st>>>(a.part, (int)a.B, n_tc, x.N, per_b, stride, total);
+  colsum_final<<<(x.N + CT - 1) / CT, CT, 0, st>>>(part, (int)a.B, n_tc, x.N, per_b, stride, total);
   return cudaGetLastError();
 }
 
@@ -634,7 +648,8 @@ static cudaError_t backward_impl(const GluArgs& a) {
   cudaStream_t st = (cudaStream_t)a.stream;
   const int B = (int)a.B, T = (int)a.T, L = (int)a.L, C = (int)a.C, G = (int)a.G;
   const int G2 = G / 2, SK = (int)a.S, CIN = a.has_c ? (int)a.CIN : 0, M = B * T;
-  const int nz = (int)a.n_chunks, chunk = (int)a.chunk_rows;
+  const int nz = (int)n_row_chunks(a), chunk = CHUNK_ROWS;
+  float* part = a.work + work_floats(a);
   const S* ab = (const S*)a.ab;
   const S* dskips = (const S*)a.dskips;
   cudaError_t e;
@@ -645,7 +660,7 @@ static cudaError_t backward_impl(const GluArgs& a) {
   DskipCol<S> ds;
   ds.N = SK, ds.dskips = dskips;
   float* dbskip_last = a.dbskip + (int64_t)(L - 1) * SK;
-  CHECK(colsum(ds, a, nullptr, 0, dbskip_last, st));
+  CHECK(colsum(ds, a, part, nullptr, 0, dbskip_last, st));
   for (int l = L - 1; l >= 0; --l) {
     const int d = (int)a.dil[l];
     const S* wout = (const S*)a.wout + (int64_t)l * G2 * C;
@@ -663,11 +678,11 @@ static cudaError_t backward_impl(const GluArgs& a) {
 
     DabCol dc;
     dc.N = G, dc.dab = a.dab;
-    CHECK(colsum(dc, a, a.has_g ? a.dgadd + (int64_t)l * G : nullptr, (int64_t)L * G,
+    CHECK(colsum(dc, a, part, a.has_g ? a.dgadd + (int64_t)l * G : nullptr, (int64_t)L * G,
                  a.dbconv + (int64_t)l * G, st));
     DresCol dr;
     dr.N = C, dr.dx = a.dx;
-    CHECK(colsum(dr, a, nullptr, 0, a.dbout + (int64_t)l * C, st));
+    CHECK(colsum(dr, a, part, nullptr, 0, a.dbout + (int64_t)l * C, st));
     if (l < L - 1)
       CHECK(cudaMemcpyAsync(a.dbskip + (int64_t)l * SK, dbskip_last, SK * sizeof(float),
                             cudaMemcpyDeviceToDevice, st));
@@ -709,6 +724,10 @@ extern "C" int wae_glu_forward(const GluArgs* args) {
 
 extern "C" int wae_glu_backward(const GluArgs* args) {
   return (int)(args->store_bf16 ? backward_impl<__nv_bfloat16>(*args) : backward_impl<float>(*args));
+}
+
+extern "C" int64_t wae_glu_workspace_floats(const GluArgs* args) {
+  return work_floats(*args) + part_floats(*args);
 }
 
 extern "C" const char* wae_glu_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }

@@ -41,10 +41,6 @@ LAUNCHES_BWD = 0
 RS = math.sqrt(0.5)
 IRS = math.sqrt(2.0)
 _MAXL = 64
-# rows of (b, t) summed by one block of a weight-gradient product, and time
-# steps summed by one block of a column sum, before the fixed-order second pass
-_CHUNK_ROWS = 4096
-_T_CHUNK = 256
 
 
 def _rounder(store: torch.dtype):
@@ -165,13 +161,12 @@ class _GluArgs(ctypes.Structure):
     _fields_ = (
         [(n, ctypes.c_int64) for n in (
             "B", "T", "L", "C", "G", "S", "CIN", "store_bf16", "has_c", "has_g",
-            "chunk_rows", "n_chunks", "t_chunk", "n_tchunks",
         )]
         + [("dil", ctypes.c_int64 * _MAXL)]
         + [(n, ctypes.c_void_p) for n in (
             "x", "c", "g_add", "wconv", "bconv", "wc", "wout", "bout", "wskip", "bskip",
             "h", "skip", "skips", "ab", "dskips", "dx", "dab", "dc", "dgadd",
-            "dwconv", "dbconv", "dwc", "dwout", "dbout", "dwskip", "dbskip", "work", "part", "stream",
+            "dwconv", "dbconv", "dwc", "dwout", "dbout", "dwskip", "dbskip", "work", "stream",
         )]
     )
 
@@ -183,6 +178,8 @@ def _lib():
     for fn in (lib.wae_glu_forward, lib.wae_glu_backward):
         fn.argtypes = [ctypes.POINTER(_GluArgs)]
         fn.restype = ctypes.c_int
+    lib.wae_glu_workspace_floats.argtypes = [ctypes.POINTER(_GluArgs)]
+    lib.wae_glu_workspace_floats.restype = ctypes.c_int64
     lib.wae_glu_error_string.argtypes = [ctypes.c_int]
     lib.wae_glu_error_string.restype = ctypes.c_char_p
     return lib
@@ -213,10 +210,8 @@ def _dims(x_shape, wconv, wskip, c, dilations):
 
 
 def _args(store, B, T, C, L, G, Sk, cin, has_g, dilations, stream):
-    n_chunks = -(-B * T // _CHUNK_ROWS)
     a = _GluArgs(B=B, T=T, L=L, C=C, G=G, S=Sk, CIN=cin, store_bf16=int(store == torch.bfloat16),
-                 has_c=int(cin > 0), has_g=int(has_g), chunk_rows=_CHUNK_ROWS, n_chunks=n_chunks,
-                 t_chunk=_T_CHUNK, n_tchunks=-(-T // _T_CHUNK))
+                 has_c=int(cin > 0), has_g=int(has_g))
     for l, d in enumerate(dilations):
         a.dil[l] = int(d)
     a.stream = stream
@@ -309,13 +304,13 @@ def _backward_cuda(dskips, hfin, c, ab, wconv, wc, wout, bout, wskip, dilations,
     lib = _lib()
     with torch.cuda.device(dev):
         a = _args(store, B, T, C, L, G, Sk, cin, has_g, dilations, torch.cuda.current_stream(dev).cuda_stream)
-        work = torch.empty(a.n_chunks * max(G2 * (C + Sk), (3 * C + cin) * G), **f32)
-        part = torch.empty(B * a.n_tchunks * max(G, C, Sk), **f32)
+        # sized by the C side, which alone knows the passes' partial-sum layout
+        work = torch.empty(lib.wae_glu_workspace_floats(ctypes.byref(a)), **f32)
         for k, v in t.items():
             setattr(a, k, _ptr(v))
         for k, v in out.items():
             setattr(a, k, _ptr(v))
-        a.h, a.work, a.part = _ptr(h), _ptr(work), _ptr(part)
+        a.h, a.work = _ptr(h), _ptr(work)
         err = lib.wae_glu_backward(ctypes.byref(a))
     if err != 0:
         raise RuntimeError(f"glu_stack backward launch failed: {lib.wae_glu_error_string(err).decode()}")

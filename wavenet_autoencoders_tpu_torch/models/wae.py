@@ -3,9 +3,10 @@
 
 The port's models hold their weights, so ``encode(c)``, ``decode(c, ...)``
 and the training ``forward(x, c, g, train=, dtype=)`` take no params/state
-arguments. The training-only bottleneck options (EMA codebooks, dead-code
-revival, time jitter, VQ-dropout) are not ported yet and raise. All
-activations are (B, T, C).
+arguments. EMA codebooks are not ported yet and raise here; the other
+training-only bottleneck options (dead-code revival, time jitter,
+VQ-dropout) are refused by ``train.step.check_ported``. All activations
+are (B, T, C).
 """
 from __future__ import annotations
 
@@ -59,8 +60,7 @@ class VQWAE(WAEBase):
 
     def __init__(self, wavenet: WaveNet, c_in=39, hid=64, frame_rate=25, encoder_hid=768, *,
                  K=256, K1=None, num_slices=2, beta=0.25, commit_scale=1.0, ema=False,
-                 sliced=False, ins_norm=False, post_conv=False, adain=False,
-                 use_time_jitter=False, vq_drop=False, drop_dim=0, reseed=False, generator=None):
+                 sliced=False, ins_norm=False, post_conv=False, adain=False, generator=None):
         super().__init__(wavenet, c_in, hid, frame_rate, encoder_hid, generator=generator)
         if ema:
             raise NotImplementedError(
@@ -70,7 +70,6 @@ class VQWAE(WAEBase):
         self.K, self.K1, self.num_slices = K, K1, num_slices
         self.beta, self.commit_scale = beta, commit_scale
         self.sliced, self.ins_norm, self.post_conv, self.adain = sliced, ins_norm, post_conv, adain
-        self.use_time_jitter, self.vq_drop, self.drop_dim, self.reseed = use_time_jitter, vq_drop, drop_dim, reseed
         if sliced:
             self.vq = bn.SlicedVQ(K, hid, num_slices, K1, generator=generator)
         else:
@@ -88,16 +87,7 @@ class VQWAE(WAEBase):
         """Training forward: encoder -> instance norm -> VQ (straight-through)
         -> post-conv -> teacher-forced decoder. Returns (y_hat, vq_loss,
         perplexity)."""
-        if train:
-            for on, item in ((self.use_time_jitter, "time jitter"),
-                             (self.vq_drop and self.drop_dim > 0, "VQ-dropout"),
-                             (self.reseed, "dead-code reseed")):
-                if on:
-                    raise NotImplementedError(
-                        f"{item} is not ported yet: see ROADMAP.md, queue 1 (EMA codebooks, "
-                        "reseed, time jitter and VQ-dropout)"
-                    )
-        z = self.encoder.apply(c, dtype=dtype)
+        z =self.encoder.apply(c, dtype=dtype)
         if self.ins_norm:
             z = bn.instance_norm(z)
         q, vq_loss, perp, _idx = self._quantize(z)

@@ -77,10 +77,6 @@ def build_model(cfg: Config, device: str | torch.device = "cuda", seed: int | No
         ins_norm=cfg.ins_norm,
         post_conv=cfg.post_conv,
         adain=cfg.adain,
-        use_time_jitter=cfg.time_jitter,
-        vq_drop=cfg.vq_drop,
-        drop_dim=cfg.drop_dim,
-        reseed=cfg.vq_reseed,
         generator=gen,
     )
     return model.to(dev).eval()

@@ -66,13 +66,25 @@ def prep_x(cfg: Config, x: torch.Tensor) -> torch.Tensor:
 
 def recon_loss(cfg: Config, y_hat, y, mask):
     """One-step-ahead objective: predict y[t+1] from y_hat[t], masked by the
-    shifted lengths."""
-    if not cfg.is_mulaw_quantize:
-        raise NotImplementedError(
-            "the MoL/MoG losses of scalar input are not ported yet: see ROADMAP.md, "
-            "queue 1 (MoL/MoG losses)"
-        )
+    shifted lengths (the mu-law CE; ``check_ported`` refuses the others)."""
     return masked_cross_entropy(y_hat[:, :-1], y[:, 1:], mask[:, 1:])
+
+
+def check_ported(cfg: Config) -> None:
+    """Raise ``NotImplementedError``, naming its ROADMAP item, for a training
+    option of ``cfg`` that the port does not carry yet, instead of training
+    something else. (EMA codebooks fail in the model's constructor already,
+    ``dev_dump_root`` in ``train.loop.train``.)"""
+    vq_item = "EMA codebooks, reseed, time jitter and VQ-dropout"
+    for on, what, item in (
+        (cfg.time_jitter, "time jitter", vq_item),
+        (cfg.vq_drop and cfg.drop_dim > 0, "VQ-dropout", vq_item),
+        (cfg.vq_reseed, "dead-code reseed", vq_item),
+        (cfg.dropout > 0.0, "dropout in the residual GLU block", "dropout"),
+        (not cfg.is_mulaw_quantize, "the MoL/MoG losses of scalar input", "MoL/MoG losses"),
+    ):
+        if on:
+            raise NotImplementedError(f"{what} is not ported yet: see ROADMAP.md, queue 1 ({item})")
 
 
 def make_train_step(cfg: Config, model: nn.Module):
@@ -80,6 +92,7 @@ def make_train_step(cfg: Config, model: nn.Module):
     on the model's device: x (B, T) codes, y (B, T, 1), c (B, T', dim_in),
     g (B,) and lengths (B,). The metrics are 0-dim tensors (reading them
     waits for the device)."""
+    check_ported(cfg)
     op = cfg.optimizer_params
     if cfg.optimizer.lower() not in ("adam", "adamw"):
         raise ValueError(f"optimizer {cfg.optimizer!r} is not Adam")
