@@ -446,10 +446,14 @@ def glu_errors(fwd, p_fwd, grads, p_grads):
     largest abs error of K2, largest abs error of K3)."""
     fwd = dict(zip(("skips", "hfin", "ab"), fwd))
     p_fwd = dict(zip(("skips", "hfin", "ab"), p_fwd))
+    for n, g, p in zip(GLU_GRADS, grads, p_grads):
+        if (g is None) != (p is None):
+            raise AssertionError(f"K3 returned {n} {'None' if g is None else 'a tensor'}, its plain version not")
+    live = [(n, g, p) for n, g, p in zip(GLU_GRADS, grads, p_grads) if g is not None]
     errs = {k: rel_err(fwd[k], p_fwd[k]) for k in FWD_OUTPUTS}
-    errs.update({n: rel_err(g, p) for n, g, p in zip(GLU_GRADS, grads, p_grads)})
+    errs.update({n: rel_err(g, p) for n, g, p in live})
     abs2 = max((fwd[k].float() - p_fwd[k].float()).abs().max().item() for k in FWD_OUTPUTS)
-    abs3 = max((g.float() - p.float()).abs().max().item() for g, p in zip(grads, p_grads))
+    abs3 = max((g.float() - p.float()).abs().max().item() for _, g, p in live)
     return errs, abs2, abs3
 
 
@@ -467,36 +471,42 @@ def phase5(k2, k3):
     from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
 
     out, abs_err = {}, {"K2": 0.0, "K3": 0.0}
-    for B, T in ((2, 2048), (3, 2000)):
-        for name, store in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-            rng = np.random.default_rng(5 + B)
-            x, c, g_add, w, dils = glu_inputs(B, T, store, rng)
-            args = (x, c, g_add, w["wconv"], w["bconv"], w["wc"], w["wout"], w["bout"], w["wskip"],
-                    w["bskip"], dils)
-            dskips = torch.from_numpy(rng.standard_normal((B, T, 256)).astype(np.float32)).cuda().to(store)
-            with torch.no_grad():
-                skips, hfin, ab = K.glu_stack_forward(*args)
-                p_skips, p_hfin, p_ab = K.glu_stack_forward_reference(*args)
-                bargs = (c, ab, w["wconv"], w["wc"], w["wout"], w["bout"], w["wskip"], dils, True)
-                grads = K.glu_stack_backward(dskips, hfin, *bargs)
-                again = K.glu_stack_backward(dskips, hfin, *bargs)
-                plain = K.glu_stack_backward_reference(dskips, p_hfin, c, p_ab, *bargs[2:])
-            torch.cuda.synchronize()
-            errs, a2, a3 = glu_errors((skips, hfin, ab), (p_skips, p_hfin, p_ab), grads, plain)
-            abs_err["K2"], abs_err["K3"] = max(abs_err["K2"], a2), max(abs_err["K3"], a3)
-            bitwise = all(torch.equal(g, h) for g, h in zip(grads, again))
-            if store == torch.float32:
-                # K3 against autograd of the plain forward (leaves in GLU_GRADS order)
-                leaves = [t.detach().clone().requires_grad_(True) for t in args[:-1]]
-                s, _, _ = K.glu_stack_forward_reference(*leaves, dils)
-                (s * dskips).sum().backward()
-                errs.update({f"{n}_vs_autograd": rel_err(g, t.grad) for n, g, t in zip(GLU_GRADS, grads, leaves)})
-            log(f"phase 5: B={B} T={T} {name}: bitwise-equal K3 reruns {bitwise}; "
-                f"rel errors {json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}")
-            check_glu(errs, name, f"B={B} T={T}")
-            if not bitwise:
-                raise AssertionError("two K3 calls on the same inputs differ")
-            out[f"B{B}_T{T}_{name}"] = errs
+    # the last case has no conditioning: K = 3C in the gate product, N = C in dx
+    cases = [(B, T, n, s, True) for B, T in ((2, 2048), (3, 2000))
+             for n, s in (("float32", torch.float32), ("bfloat16", torch.bfloat16))]
+    cases.append((2, 2048, "bfloat16", torch.bfloat16, False))
+    for B, T, name, store, cond in cases:
+        rng = np.random.default_rng(5 + B)
+        x, c, g_add, w, dils = glu_inputs(B, T, store, rng)
+        if not cond:
+            c = g_add = w["wc"] = None
+        args = (x, c, g_add, w["wconv"], w["bconv"], w["wc"], w["wout"], w["bout"], w["wskip"],
+                w["bskip"], dils)
+        dskips = torch.from_numpy(rng.standard_normal((B, T, 256)).astype(np.float32)).cuda().to(store)
+        with torch.no_grad():
+            skips, hfin, ab = K.glu_stack_forward(*args)
+            p_skips, p_hfin, p_ab = K.glu_stack_forward_reference(*args)
+            bargs = (c, ab, w["wconv"], w["wc"], w["wout"], w["bout"], w["wskip"], dils, cond)
+            grads = K.glu_stack_backward(dskips, hfin, *bargs)
+            again = K.glu_stack_backward(dskips, hfin, *bargs)
+            plain = K.glu_stack_backward_reference(dskips, p_hfin, c, p_ab, *bargs[2:])
+        torch.cuda.synchronize()
+        errs, a2, a3 = glu_errors((skips, hfin, ab), (p_skips, p_hfin, p_ab), grads, plain)
+        abs_err["K2"], abs_err["K3"] = max(abs_err["K2"], a2), max(abs_err["K3"], a3)
+        bitwise = all(g is None or torch.equal(g, h) for g, h in zip(grads, again))
+        if store == torch.float32:
+            # K3 against autograd of the plain forward (leaves in GLU_GRADS order)
+            leaves = [t.detach().clone().requires_grad_(True) for t in args[:-1]]
+            s, _, _ = K.glu_stack_forward_reference(*leaves, dils)
+            (s * dskips).sum().backward()
+            errs.update({f"{n}_vs_autograd": rel_err(g, t.grad) for n, g, t in zip(GLU_GRADS, grads, leaves)})
+        case = f"B={B} T={T} {name}" + ("" if cond else " c=None g_add=None")
+        log(f"phase 5: {case}: bitwise-equal K3 reruns {bitwise}; "
+            f"rel errors {json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}")
+        check_glu(errs, name, case)
+        if not bitwise:
+            raise AssertionError("two K3 calls on the same inputs differ")
+        out[f"B{B}_T{T}_{name}" + ("" if cond else "_nocond")] = errs
     k2["max_rel_err"] = {case: max(e[k] for k in FWD_OUTPUTS) for case, e in out.items()}
     k3["max_rel_err"] = {case: max(v for k, v in e.items() if k not in FWD_OUTPUTS) for case, e in out.items()}
     k2["max_abs_err"], k3["max_abs_err"] = abs_err["K2"], abs_err["K3"]
@@ -616,7 +626,18 @@ def glu_bound(B, T, C=256, G=368, S=256, cin=64, L=20):
     return f2, by2, f3, by3
 
 
-GLU_PASSES = ("GateOp", "OutOp", "RebuildOp", "DactOp", "W1Op", "W2Op", "DxOp", "reduce_kernel<W", "colsum_")
+GLU_PASSES = ("GateOp", "OutOp", "gate_act_kernel", "RebuildOp", "DactOp", "W1Op", "W2Op", "DxOp",
+              "reduce_kernel<W", "colsum_")
+
+
+def glu_pass_flop(B, T, C=256, G=368, S=256, cin=64, L=20):
+    """FLOP of each K2/K3 product pass over all layers (what the function
+    needs; DxOp's dc columns also run over the two zero taps of wx, which
+    are not counted)."""
+    G2, rows = G // 2, 2.0 * B * T * L
+    return {"GateOp": rows * (3 * C + cin) * G, "OutOp": rows * G2 * (C + S), "RebuildOp": rows * G2 * C,
+            "DactOp": rows * (C + S) * G2, "W1Op": rows * G2 * (C + S), "W2Op": rows * (3 * C + cin) * G,
+            "DxOp": rows * (3 * C + cin) * G}
 
 
 def kernel_breakdown(fn):
@@ -715,18 +736,22 @@ def phase7(k2, k3):
         f"= {sps['fused']:,.0f} vs {sps['unfused']:,.0f} samples/s; fused step minus K2+K3 {rest:.1f} ms; "
         f"peak memory fused {peak_f:.1f} GiB, unfused {peak_u:.1f} GiB")
     # where a step's device time goes, by kernel (one more step each)
-    breakdown = {}
+    breakdown, pass_flop = {}, glu_pass_flop(B, T)
+    log(f"phase 7: K2/K3 FLOP per pass {json.dumps({p: f'{v:.4g}' for p, v in pass_flop.items()})}")
     for name, run in (("fused", fused), ("unfused", unfused)):
         t0 = time.perf_counter()
         rows = kernel_breakdown(lambda: run(1))
         wall = (time.perf_counter() - t0) * 1e3
         busy = sum(r[1] for r in rows)
         passes = {p: sum(ms for k, ms, _ in rows if p in k) for p in GLU_PASSES}
+        tflops = {p: pass_flop[p] / (passes[p] / 1e3) / 1e12 for p in pass_flop if passes[p] > 0}
         breakdown[name] = {"device_ms": busy, "wall_ms_profiled": wall,
                            "top": [(k[:100], ms, n) for k, ms, n in rows[:12]],
-                           "glu_passes_ms": {p: v for p, v in passes.items() if v > 0}}
+                           "glu_passes_ms": {p: v for p, v in passes.items() if v > 0},
+                           "glu_passes_tflop_s": tflops}
         log(f"phase 7: {name} step under the profiler: device busy {busy:.1f} ms of {wall:.1f} ms wall; "
-            f"K2/K3 passes {json.dumps({p: round(v, 2) for p, v in passes.items() if v > 0})}")
+            f"K2/K3 passes ms {json.dumps({p: round(v, 2) for p, v in passes.items() if v > 0})}, "
+            f"TFLOP/s {json.dumps({p: round(v, 1) for p, v in tflops.items()})}")
         for k, ms, n in rows[:12]:
             log(f"  {ms:9.3f} ms {n:5d}x  {k[:110]}")
     for rec, ms, plain, flop, nbytes in ((k2, k2_ms, p2_ms, f2, by2), (k3, k3_ms, p3_ms, f3, by3)):

@@ -25,8 +25,12 @@ from _torch_port_util import nets  # noqa: E402
 from wavenet_autoencoders_tpu.kernels.glu_stack import fused_glu_stack  # noqa: E402
 from wavenet_autoencoders_tpu_torch.kernels.glu_stack import (  # noqa: E402
     FusedGLUStack,
+    check_widths,
+    gate_perm,
     glu_stack_forward,
     glu_stack_forward_reference,
+    pack_weights,
+    unpack_weights,
 )
 
 NAMES = ("x", "c", "g_add", "wconv", "bconv", "wc", "wout", "bout", "wskip", "bskip")
@@ -188,3 +192,108 @@ def test_wavenet_apply_fused_matches_unfused_outputs_and_gradients():
         got = grads[name].grad
         got = torch.zeros_like(p) if got is None else got
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4, rtol=2e-3, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' weight layouts, emulated in plain f32 on the CPU
+# ---------------------------------------------------------------------------
+
+
+def torch_inputs(seed, **kw):
+    vals, probe = make_inputs(seed, **kw)
+    return [None if v is None else torch.tensor(v) for v in vals], torch.tensor(probe)
+
+
+@pytest.mark.parametrize("cond", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_weight_packing_inverts_exactly(cond, dtype):
+    (_, c, _, wconv, _, wc, wout, _, wskip, _), _ = torch_inputs(8, C=16, G=24, S=8, cin=8, cond=cond)
+    G = wconv.shape[-1]
+    perm = gate_perm(G)
+    assert sorted(perm.tolist()) == list(range(G))
+    assert perm[0::2].tolist() == list(range(G // 2)) and perm[1::2].tolist() == list(range(G // 2, G))
+    packed = pack_weights(wconv, wc, wout, wskip, dtype)
+    assert all(v.dtype == dtype and v.is_contiguous() for v in packed.values())
+    back = unpack_weights(packed, wconv.shape[2])
+    for got, want in zip(back, (wconv, wc, wout, wskip)):
+        if want is None:
+            assert got is None
+        else:
+            assert torch.equal(got, want.to(dtype))
+
+
+def packed_forward(x, c, g_add, packed, bconv, bout, bskip, dils):
+    """K2's products as the CUDA kernel runs them: one gate product over
+    [h[t-2d] | h[t-d] | h[t] | c] against the packed, column-permuted ``wg``,
+    whose columns 2i, 2i+1 are the gate pair (i, G/2+i), then one out/skip
+    product against ``wo``. Returns (ab, act) of every layer, skips, hfin."""
+    wg, wo = packed["wg"], packed["wo"]
+    B, T, C = x.shape
+    G2 = wg.shape[1] // 2
+    h, skip, abs_, acts = x, 0.0, [], []
+    for l, d in enumerate(dils):
+        hp = torch.nn.functional.pad(h, (0, 0, 2 * d, 0))
+        a = torch.cat([hp[:, :T], hp[:, d : d + T], h] + ([] if c is None else [c]), -1)
+        y = a @ wg[l].T
+        bias = bconv[l] if g_add is None else bconv[l] + g_add[:, l, None, :]
+        ga, gb = y[..., 0::2] + bias[..., :G2], y[..., 1::2] + bias[..., G2:]
+        act = torch.tanh(ga) * torch.sigmoid(gb)
+        abs_.append(torch.cat([ga, gb], -1))
+        acts.append(act)
+        y = act @ wo[l].T
+        skip = skip + y[..., C:] + bskip[l]
+        h = (y[..., :C] + bout[l] + h) * (0.5 ** 0.5)
+    return torch.stack(abs_, 1), torch.stack(acts, 1), skip, h
+
+
+@pytest.mark.parametrize("cond", [True, False])
+def test_gate_product_on_packed_weights_matches_the_plain_forward(cond):
+    (x, c, g_add, wconv, bconv, wc, wout, bout, wskip, bskip), _ = torch_inputs(
+        9, B=2, T=40, C=16, G=24, S=8, cin=8, cond=cond)
+    packed = pack_weights(wconv, wc, wout, wskip, torch.float32)
+    ab, act, skips, hfin = packed_forward(x, c, g_add, packed, bconv, bout, bskip, DILS4)
+    p_skips, p_hfin, p_ab = glu_stack_forward_reference(x, c, g_add, wconv, bconv, wc, wout, bout, wskip,
+                                                         bskip, DILS4)
+    G2 = ab.shape[-1] // 2
+    p_act = torch.tanh(p_ab[..., :G2]) * torch.sigmoid(p_ab[..., G2:])
+    for got, want in ((ab, p_ab), (act, p_act), (skips, p_skips), (hfin, p_hfin)):
+        assert rel(got.numpy(), want.numpy()) < 1e-6
+
+
+@pytest.mark.parametrize("cond", [True, False])
+def test_backward_products_on_packed_weights_match_the_plain_backward(cond):
+    """K3's rebuild, dact and dx/dc products against ``wo``, ``wd`` and
+    ``wx`` equal the plain backward's products on the unpacked weights."""
+    (_, c, _, wconv, _, wc, wout, _, wskip, _), _ = torch_inputs(10, C=16, G=24, S=8, cin=8, cond=cond)
+    packed = pack_weights(wconv, wc, wout, wskip, torch.float32)
+    rng = np.random.default_rng(10)
+    B, T, C, G, d, l = 2, 40, 16, 24, 4, 2
+    act, gy, dskip, dab = (torch.from_numpy(rng.standard_normal((B, T, n)).astype(np.float32))
+                           for n in (G // 2, C, 8, G))
+    assert rel((act @ packed["wo"][l][:C].T).numpy(), (act @ wout[l]).numpy()) < 1e-6
+    got = torch.cat([gy, dskip], -1) @ packed["wd"][l].T
+    assert rel(got.numpy(), (gy @ wout[l].T + dskip @ wskip[l].T).numpy()) < 1e-6
+    dabp = torch.nn.functional.pad(dab, (0, 0, 0, 2 * d))
+    taps = [dabp[:, (2 - j) * d : (2 - j) * d + T] for j in range(3)]
+    got = torch.cat(taps, -1) @ packed["wx"][l].T
+    want = sum(taps[j] @ wconv[l, j].T for j in range(3))
+    assert rel(got[..., :C].numpy(), want.numpy()) < 1e-6
+    if cond:
+        assert rel(got[..., C:].numpy(), (dab @ wc[l].T).numpy()) < 1e-6
+    else:
+        assert got.shape[-1] == C
+
+
+@pytest.mark.parametrize("bad", ["C", "G/2", "S", "cin", "none"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_width_check_refuses_what_16_byte_loads_cannot_take(bad, dtype):
+    e = 8 if dtype == torch.bfloat16 else 4
+    dims = {"C": 32, "G/2": 24, "S": 16, "cin": 8}
+    if bad != "none":
+        dims[bad] += e // 2
+    args = (dims["C"], 2 * dims["G/2"], dims["S"], dims["cin"], dtype)
+    if bad == "none":
+        check_widths(*args)
+    else:
+        with pytest.raises(ValueError, match="multiples of"):
+            check_widths(*args)

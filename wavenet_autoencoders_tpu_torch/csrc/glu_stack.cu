@@ -13,22 +13,36 @@
 // the skip sum (f32) and the pre-activations ab (storage type) in device
 // memory between layers.
 //
+// Every operand of a product is a plain row-major matrix in the storage type
+// S, written once by the pass that produces it (its epilogue) or packed once
+// per call by the wrapper (the weights, kernels/glu_stack.py:pack_weights):
+//   hb  = S(h)                 (B*T, C)    written by out / rebuild
+//   act = S(gate(ab_s))        (B*T, G/2)  written by gate (K2), gate_act (K3)
+//   dabs = S(dab)              (B*T, G)    written by dact
+//   gy  = S(dx / sqrt 2)       (B*T, C)    written by dx
+// Some are read shifted by d or 2d rows inside a batch row, zero past its
+// edge (the dilated taps). The buffers are reused across layers.
+//
 // K2, per layer l with dilation d (two launches):
-//   gate: ab = sum_j S(h[t-(2-j)d]) @ wconv[l,j] + S(c) @ wc[l] + bconv[l]
-//              + g_add[b,l], stored as ab_s = S(ab)          (K = 3C+cin)
-//   out:  act = S(tanh(ab_s[:G/2]) * sigmoid(ab_s[G/2:])) from the STORED ab,
-//         skip += act @ wskip[l] + bskip[l], h = (act @ wout[l] + bout[l] + h) / sqrt 2
+//   gate: ab = [hb[t-2d] | hb[t-d] | hb[t] | S(c)] @ wg[l] + bconv[l] + g_add[b,l]
+//         (K = 3C+cin); wg's columns are permuted so that columns 2i, 2i+1 of
+//         the product are the gate pair (i, G/2+i), which one thread holds:
+//         the epilogue stores ab_s = S(ab) at the original columns and
+//         act = S(tanh(ab_s[i]) * sigmoid(ab_s[G/2+i])).
+//   out:  skip += act @ wskip[l] + bskip[l], h = (act @ wout[l] + bout[l] + h) / sqrt 2,
+//         hb = S(h)
 // The final h is written in f32 (the JAX kernel writes it in the storage
 // type; in bf16 the backward's inversion, which multiplies the error of h by
 // sqrt 2 per layer, then turns that rounding into noise by layer 0).
-// K3, walking l = L-1 .. 0 (ten launches per layer):
-//   rebuild: h = h*sqrt 2 - (act @ wout[l] + bout[l])                (in place)
-//   dact:    dab = gate'(S(dx/sqrt 2) @ wout[l]^T + S(dskip) @ wskip[l]^T)
-//   sums:    dgadd[b,l] = sum_t dab, dbconv, dbout, dbskip  (column sums)
-//   dW1:     [dwout | dwskip][l] = act^T [S(dx/sqrt 2) | S(dskip)]
-//   dW2:     [dwconv | dwc][l]   = [S(h[t-(2-j)d]) | S(c)]^T S(dab)
-//   dx:      dx = dx/sqrt 2 + sum_j S(dab[t+(2-j)d]) @ wconv[l,j]^T,
-//            dc += S(dab) @ wc[l]^T   (one product, K = 3G)
+// K3, walking l = L-1 .. 0 (eleven launches per layer):
+//   gate_act: act = S(gate(ab_s[l]))                                (elementwise)
+//   rebuild:  h = h*sqrt 2 - (act @ wout[l] + bout[l]), hb = S(h)   (in place)
+//   dact:     dab = gate'([gy | S(dskip)] @ [wout | wskip][l]^T), dabs = S(dab)
+//   sums:     dgadd[b,l] = sum_t dab, dbconv, dbout, dbskip  (column sums)
+//   dW1:      [dwout | dwskip][l] = act^T [gy | S(dskip)]
+//   dW2:      [dwconv | dwc][l]   = [hb[t-2d] | hb[t-d] | hb[t] | S(c)]^T dabs
+//   dx:       dx = dx/sqrt 2 + [dabs[t+2d] | dabs[t+d] | dabs[t]] @ wx[l],
+//             gy = S(dx/sqrt 2); dc += dabs @ wc[l]^T (more columns of wx)
 // dx reads dab of FUTURE rows (t + d, t + 2d), which other blocks produce,
 // hence the separate launch. The weight gradients are reductions over all
 // B*T rows: each block sums a chunk of rows into its own slot of a
@@ -40,17 +54,17 @@
 // layer, 3.28 TFLOP in all, 3.32 ms at the 989 TFLOP/s bf16 tensor-core
 // peak; the bytes it must write (ab) take 0.90 ms at 3.35 TB/s. K3 does
 // 6.95 TFLOP, 7.02 ms. Both are bound by operations. Every product is one
-// generic 128x128-tiled GEMM whose operands are produced element by element
-// by the pass's loaders (shifts, masks, the gate, storage rounding) into
-// shared memory. In bf16 storage every operand is already a bf16 value, so
-// the inner loop runs on the tensor cores (mma.sync m16n8k16, bf16 in, f32
-// accumulate: the same products as f32 FMAs, summed in another order); in
-// f32 storage it runs on CUDA cores in f32 (8x8 outputs per thread). What
-// bounds this design is the per-element loaders, not the products;
-// wgmma, TMA and vectorised loads are later work.
+// pipelined core (gemm_pipe): 128 x 128 output tiles, a ring of k-stages in
+// dynamic shared memory filled by 16-byte cp.async (zero-fill at the edges
+// and past a batch row's edge), fragments by ldmatrix (.trans for operands
+// whose reduction index is the row), mma.sync m16n8k16 bf16 -> f32 on the
+// tensor cores. f32 storage (the accuracy check) runs the same loads and
+// epilogues with f32 FMAs on CUDA cores. wgmma fed by TMA is later work.
 //
-// Storage S is f32 or bf16 (template): x, c, weights, ab, skips, dskips.
-// Biases, g_add, h, skip, dx, dab, dc and all gradients are f32.
+// Storage S is f32 or bf16 (template): x, c, weights, ab, skips, dskips and
+// the operand buffers above. Biases, g_add, h, skip, dx, dab, dc and all
+// gradients are f32. Every width (C, G/2, S, cin) is a multiple of 16 bytes
+// of S, which the wrapper checks.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -59,12 +73,10 @@
 #include <type_traits>
 
 #define MAXL 64
-#define NT 256    // threads per GEMM block: a 16 x 16 grid, 8 x 8 outputs each
+#define NT 256    // threads per GEMM block
 #define BM 128    // rows of a GEMM tile
 #define BN 128    // columns of a GEMM tile
-#define BK 16     // depth of one shared-memory stage (f32 path)
-#define BKT 32    // depth of one shared-memory stage (tensor-core path)
-#define PADS 4    // padding of the shared tiles' rows
+#define BK 32     // depth of one k-stage
 #define CT 128    // threads of a column-sum block
 #define CHUNK_ROWS 4096  // rows of (b, t) one block of a weight-gradient product sums
 #define T_CHUNK 256      // time steps one block of a column sum sums
@@ -78,20 +90,24 @@ struct GluArgs {
   const void* x;
   const void* c;
   const float* g_add;
-  const void* wconv;
+  const void* wg;  // (L, G, 3C+cin): gate weights, columns permuted, k contiguous
+  const void* wo;  // (L, C+S, G/2): [wout | wskip]^T
+  const void* wd;  // (L, G/2, C+S): [wout | wskip]
+  const void* wx;  // (L, C+cin, 3G): the dx/dc product's weights, k contiguous
   const float* bconv;
-  const void* wc;
-  const void* wout;
   const float* bout;
-  const void* wskip;
   const float* bskip;
   float* h;
   float* skip;
   void* skips;
   void* ab;
+  void* hb;
+  void* act;
   const void* dskips;
   float* dx;
   float* dab;
+  void* dabs;
+  void* gy;
   float* dc;
   float* dgadd;
   float* dwconv;
@@ -124,6 +140,18 @@ __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ void st(float* p, float v) { *p = v; }
 __device__ __forceinline__ void st(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ void ld2(const float* p, float& a, float& b) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  a = v.x, b = v.y;
+}
+__device__ __forceinline__ void ld2(const __nv_bfloat16* p, float& a, float& b) {
+  const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  a = v.x, b = v.y;
+}
+__device__ __forceinline__ void st2(float* p, float a, float b) { *reinterpret_cast<float2*>(p) = make_float2(a, b); }
+__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
 template <typename S>
 __device__ __forceinline__ float rnd(float v);  // round to storage precision
 template <>
@@ -133,77 +161,170 @@ __device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 __device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+// ---- operands: row-major matrices in segments of columns --------------------
+// Column c of an operand lies in segment j (start[j] <= c < start[j+1]) and
+// row r reads p[j][(r - shift[j]) * ld[j] + c - start[j]]. A segment with a
+// shift reads zero where t - shift, t = r mod T, leaves [0, T): the rows are
+// (b, t) and a shifted tap does not cross into another batch row. Segment
+// widths are multiples of 16 bytes, so one 16-byte chunk never straddles two.
 template <typename S>
-__device__ __forceinline__ float gate_act(float a, float b) {
-  return rnd<S>(tanhf(a) * sigmoidf(b));
+struct Operand {
+  const S* p[4];
+  int64_t ld[4];
+  int start[5];  // start[nseg] = width
+  int shift[4];
+  int nseg, width, T;
+};
+
+template <typename S>
+static void add_seg(Operand<S>& o, const void* p, int64_t ld, int w, int shift) {
+  const int j = o.nseg++;
+  o.p[j] = (const S*)p, o.ld[j] = ld, o.start[j] = o.width, o.shift[j] = shift;
+  o.width += w;
+  o.start[j + 1] = o.width;
 }
 
-// ---- one generic tiled product ---------------------------------------------
-// C[m, n] = sum_k A(m, k) * B(k, n) over the k range of blockIdx.z, then
-// op.epi(z, m, n, C[m, n]) for every valid (m, n). A and B are read through
-// op.a / op.b, which apply the shifts, masks and storage roundings, into
-// shared tiles. A_K_CONTIG / B_N_CONTIG say along which index the operand is
-// contiguous in memory, so that neighbouring threads load neighbours.
-// (Staging a whole stage's loads in registers with a prefetch of the next
-// stage was measured slower: it doubled the registers, halving the blocks
-// per SM.)
+template <typename S>
+static Operand<S> operand(int T) {
+  Operand<S> o{};
+  o.T = T;
+  return o;
+}
 
-template <class Op>
-__global__ void __launch_bounds__(NT) gemm_kernel(const Op op) {
-  __shared__ __align__(16) float As[BK][BM + PADS];
-  __shared__ __align__(16) float Bs[BK][BN + PADS];
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  int k0, k1;
-  op.k_range(blockIdx.z, k0, k1);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float acc[8][8];
+// Shared-memory geometry of one k-stage. A tile stored with the reduction
+// index contiguous is [128][BK + pad] (A of a row-major product, or the
+// packed weights as B); one whose reduction index is the row is [BK][128 +
+// pad] (read with ldmatrix.trans). The pad of one 16-byte chunk puts the 8
+// rows an ldmatrix reads on 8 different bank quads.
+template <typename S>
+struct Tile {
+  static constexpr int E = 16 / sizeof(S);  // elements per 16-byte chunk
+  static constexpr int ROW_K = BK + E;      // row stride of a [128][BK] tile
+  static constexpr int ROW_W = BM + E;      // row stride of a [BK][128] tile
+  static constexpr int OPER = BM * ROW_K > BK * ROW_W ? BM * ROW_K : BK * ROW_W;
+  static constexpr int STAGES = sizeof(S) == 2 ? 4 : 2;
+  static constexpr int SMEM = STAGES * 2 * OPER * (int)sizeof(S);
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
+
+// 16 bytes from global to shared memory, asynchronously; zeros when !ok.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The fields of segment j of o, selected without indexing the parameter
+// arrays by a runtime value.
+template <typename S>
+struct SegView {
+  const S* p;
+  int64_t ld;
+  int start, width, shift;
+};
+template <typename S>
+__device__ __forceinline__ SegView<S> seg_of(const Operand<S>& o, int j) {
+  SegView<S> v{o.p[0], o.ld[0], 0, o.start[1], o.shift[0]};
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int s = 1; s < 4; ++s)
+    if (s == j) v.p = o.p[s], v.ld = o.ld[s], v.start = o.start[s], v.width = o.start[s + 1] - o.start[s],
+               v.shift = o.shift[s];
+  return v;
+}
+// The segment that holds column c.
+template <typename S>
+__device__ __forceinline__ int seg_at(const Operand<S>& o, int c) {
+  int j = 0;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-  for (int kb = k0; kb < k1; kb += BK) {
-    for (int i = threadIdx.x; i < BM * BK; i += NT) {
-      const int kk = Op::A_K_CONTIG ? i % BK : i / BM;
-      const int mm = Op::A_K_CONTIG ? i / BK : i % BM;
-      const int m = m0 + mm, k = kb + kk;
-      As[kk][mm] = (m < op.M && k < k1) ? op.a(m, k) : 0.0f;
+  for (int s = 1; s < 4; ++s) j += s < o.nseg && c >= o.start[s];
+  return j;
+}
+
+// One thread's share of a [128 rows][BK columns] tile whose rows stay fixed
+// while the columns (the reduction index) advance: A of a row pass (rows m)
+// and its packed weights (rows n). The row pointers are set once per
+// segment; a stage then costs one add and one compare per 16-byte chunk.
+template <typename S>
+struct RowSide {
+  static constexpr int E = Tile<S>::E, CPR = BK / E, U = BM * CPR / NT;
+  const S* p[U];
+  bool ok[U];
+  __device__ __forceinline__ static int rr(int u) { return (int)(threadIdx.x + u * NT) / CPR; }
+  __device__ __forceinline__ static int cc(int u) { return (int)(threadIdx.x % CPR) * E; }
+  // rows r0 + rr(u) of segment v; t[u] = their time index (for a shifted segment)
+  __device__ __forceinline__ void point(const SegView<S>& v, int T, int r0, int rlim, const int* t) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = r0 + rr(u);
+      ok[u] = r < rlim && (v.shift == 0 || (unsigned)(t[u] - v.shift) < (unsigned)T);
+      p[u] = v.p + (ok[u] ? (int64_t)(r - v.shift) * v.ld + cc(u) : 0);
     }
-    for (int i = threadIdx.x; i < BK * BN; i += NT) {
-      const int nn = Op::B_N_CONTIG ? i % BN : i / BK;
-      const int kk = Op::B_N_CONTIG ? i / BN : i % BK;
-      const int n = n0 + nn, k = kb + kk;
-      Bs[kk][nn] = (n < op.N && k < k1) ? op.b(k, n) : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
   }
+  // columns [c, c + BK) of the segment, those at or past w read as zeros
+  __device__ __forceinline__ void load(S* sm, int c, int w) const {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? ty * 4 + i : 60 + ty * 4 + i);
-    if (m >= op.M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + (j < 4 ? tx * 4 + j : 60 + tx * 4 + j);
-      if (n < op.N) op.epi(blockIdx.z, m, n, acc[i][j]);
+    for (int u = 0; u < U; ++u) {
+      const bool v = ok[u] && c + cc(u) < w;
+      cp_async16(sm + rr(u) * Tile<S>::ROW_K + cc(u), v ? p[u] + c : p[u], v);
     }
   }
+};
+
+// One thread's share of a [BK rows][128 columns] tile whose columns stay
+// fixed while the rows (the reduction index) advance: both operands of a
+// weight-gradient pass. A thread's columns lie in one segment for the whole
+// block; its pointer and time index step by BK rows a stage.
+template <typename S>
+struct ColSide {
+  static constexpr int E = Tile<S>::E, CPR = BM / E, U = BK * CPR / NT, RSTEP = NT / CPR;
+  const S* p;  // row k0 + rr(0) - shift of this thread's column chunk
+  int64_t ld;
+  int t[U], shift, T;
+  bool cok;
+  __device__ __forceinline__ static int rr(int u) { return (int)threadIdx.x / CPR + u * RSTEP; }
+  __device__ __forceinline__ static int cc() { return (int)(threadIdx.x % CPR) * E; }
+  __device__ __forceinline__ void init(const Operand<S>& o, int c0, int k0) {
+    const int c = c0 + cc();
+    cok = c < o.width;
+    const SegView<S> v = seg_of(o, seg_at(o, c));
+    p = v.p + (cok ? (int64_t)(k0 + rr(0) - v.shift) * v.ld + (c - v.start) : 0);
+    ld = v.ld, shift = v.shift, T = o.T;
+#pragma unroll
+    for (int u = 0; u < U; ++u) t[u] = (k0 + rr(u)) % T;
+  }
+  // rows [r0, r0 + BK), those at or past k1 read as zeros; then step BK rows
+  __device__ __forceinline__ void load(S* sm, int r0, int k1) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const bool v = cok && r0 + rr(u) < k1 && (unsigned)(t[u] - shift) < (unsigned)T;
+      cp_async16(sm + rr(u) * Tile<S>::ROW_W + cc(), v ? p + (int64_t)u * RSTEP * ld : p, v);
+      t[u] += BK;
+      while (t[u] >= T) t[u] -= T;
+    }
+    p += BK * ld;
+  }
+};
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
 }
 
 // D += A(16x16, row-major) * B(16x8, column-major), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t (&a)[4], const uint32_t* b) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
       "{%0,%1,%2,%3};\n"
@@ -211,178 +332,252 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// The same product on the tensor cores, for operands that are bf16 values
-// (bf16 storage): the loaders' f32 results are stored to shared memory as
-// bf16 without loss, A as As[m][k] and B as Bs[n][k] (k contiguous, so a
-// 32-bit load gives the two k-neighbours an mma fragment register holds).
-// 8 warps in a 2 x 4 grid, each a 64 x 32 tile of 4 x 4 m16n8 fragments.
+// ---- the pipelined product core --------------------------------------------
+// C[m, n] = sum_k A[m, k] B[k, n], then op.epi(z, op.row(m), m, n, C[m, n],
+// C[m, n + 1]) for every valid m and even n (every N is even). Two kinds of
+// pass (Op::WGRAD):
+// - a row pass: A's rows are data rows m, its columns the reduction index k,
+//   walked segment by segment (each padded with zeros to a multiple of BK);
+//   B is packed weights, rows n and columns k.
+// - a weight-gradient pass: the reduction index is the data row r, over the
+//   chunk [k0, k1) of blockIdx.z; A's columns are m (stored [k][m], read with
+//   ldmatrix.trans) and B's columns n.
+// bf16: 8 warps in a 2 x 4 grid, each a 64 x 32 tile of 4 x 4 m16n8
+// fragments, on the tensor cores. f32: a 16 x 16 thread grid, 8 x 8 outputs
+// each, FMAs on CUDA cores.
 template <class Op>
-__global__ void __launch_bounds__(NT) gemm_tc_kernel(const Op op) {
-  __shared__ __align__(16) __nv_bfloat16 As[BM][BKT + 8];
-  __shared__ __align__(16) __nv_bfloat16 Bs[BN][BKT + 8];
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  int k0, k1;
-  op.k_range(blockIdx.z, k0, k1);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3, wm = warp >> 2, wn = warp & 3;
-  float acc[4][4][4];
+__global__ void __launch_bounds__(NT, sizeof(typename Op::Store) == 2 ? 2 : 1) gemm_pipe(const Op op) {
+  using S = typename Op::Store;
+  using TL = Tile<S>;
+  constexpr int STAGES = TL::STAGES, OPER = TL::OPER;
+  constexpr bool TC = std::is_same<S, __nv_bfloat16>::value, WG = Op::WGRAD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  S* sm = reinterpret_cast<S*>(smem_raw);
+  // a row pass's column tiles are neighbours in launch order, so that they
+  // find their A rows in L2
+  const int m0 = (WG ? blockIdx.x : blockIdx.y) * BM, n0 = (WG ? blockIdx.y : blockIdx.x) * BN;
+
+  // the loaders and the number of k-stages
+  RowSide<S> ra, rb;
+  ColSide<S> ca, cb;
+  int nk = 0, k0 = 0, k1 = 0, tA[RowSide<S>::U];
+  if constexpr (WG) {
+    k0 = blockIdx.z * op.chunk;
+    k1 = min(op.K, k0 + op.chunk);
+    nk = (k1 - k0 + BK - 1) / BK;
+    ca.init(op.A, m0, k0);
+    cb.init(op.B, n0, k0);
+  } else {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int s = 0; s < 4; ++s)
+      if (s >= op.first_seg(n0) && s < op.A.nseg) nk += (seg_of(op.A, s).width + BK - 1) / BK;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.0f;
-  for (int kb = k0; kb < k1; kb += BKT) {
-    for (int i = threadIdx.x; i < BM * BKT; i += NT) {
-      const int kk = Op::A_K_CONTIG ? i % BKT : i / BM;
-      const int mm = Op::A_K_CONTIG ? i / BKT : i % BM;
-      const int m = m0 + mm, k = kb + kk;
-      As[mm][kk] = __float2bfloat16((m < op.M && k < k1) ? op.a(m, k) : 0.0f);
-    }
-    for (int i = threadIdx.x; i < BKT * BN; i += NT) {
-      const int nn = Op::B_N_CONTIG ? i % BN : i / BKT;
-      const int kk = Op::B_N_CONTIG ? i / BN : i % BKT;
-      const int n = n0 + nn, k = kb + kk;
-      Bs[nn][kk] = __float2bfloat16((n < op.N && k < k1) ? op.b(k, n) : 0.0f);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < BKT; ks += 16) {
-      uint32_t af[4][4], bf[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = wm * 64 + i * 16 + gid;
-        af[i][0] = ld32(&As[r][ks + tig * 2]);
-        af[i][1] = ld32(&As[r + 8][ks + tig * 2]);
-        af[i][2] = ld32(&As[r][ks + tig * 2 + 8]);
-        af[i][3] = ld32(&As[r + 8][ks + tig * 2 + 8]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = wn * 32 + j * 8 + gid;
-        bf[j][0] = ld32(&Bs[n][ks + tig * 2]);
-        bf[j][1] = ld32(&Bs[n][ks + tig * 2 + 8]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], af[i], bf[j]);
-    }
-    __syncthreads();
+    for (int u = 0; u < RowSide<S>::U; ++u) tA[u] = (m0 + RowSide<S>::rr(u)) % op.A.T;
+    rb.point(seg_of(op.B, 0), op.B.T, n0, op.N, tA);
   }
+  // the next stage to load: A's segment lj, its columns from loff
+  int lj = WG ? 0 : op.first_seg(n0), loff = 0, lk = k0;
+  SegView<S> lseg = seg_of(op.A, lj);
+  auto load = [&](int it) {
+    S* a = sm + (it % STAGES) * 2 * OPER;
+    S* b = a + OPER;
+    if constexpr (WG) {
+      ca.load(a, lk, k1);
+      cb.load(b, lk, k1);
+      lk += BK;
+    } else {
+      if (loff == 0) ra.point(lseg, op.A.T, m0, op.M, tA);
+      ra.load(a, loff, lseg.width);
+      rb.load(b, lseg.start + loff, op.B.width);
+      loff += BK;
+      if (loff >= lseg.width) lseg = seg_of(op.A, ++lj), loff = 0;
+    }
+  };
+
+  float acc[64];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp >> 2, wn = warp & 3;                 // tensor-core warp grid
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;  // CUDA-core thread grid
+
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wm * 64 + i * 16 + gid + 8 * h;
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load(s);
+    cp_commit();
+  }
+  for (int it = 0; it < nk; ++it) {
+    cp_wait<STAGES - 2>();
+    __syncthreads();  // stage it has landed; every warp is done with stage it - 1
+    if (it + STAGES - 1 < nk) load(it + STAGES - 1);
+    cp_commit();
+    const S* As = sm + (it % STAGES) * 2 * OPER;
+    const S* Bs = As + OPER;
+    if constexpr (TC) {
+#pragma unroll
+      for (int ks = 0; ks < BK; ks += 16) {
+        uint32_t af[4][4], bf[4][2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int mb = wm * 64 + i * 16;
+          if (WG)
+            ldsm_x4_t(af[i], As + (ks + (lane & 7) + ((lane >> 4) << 3)) * TL::ROW_W + mb + ((lane >> 3) & 1) * 8);
+          else
+            ldsm_x4(af[i], As + (mb + (lane & 15)) * TL::ROW_K + ks + (lane >> 4) * 8);
+        }
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          const int nb = wn * 32 + jp * 16;
+          uint32_t r[4];
+          if (WG)
+            ldsm_x4_t(r, Bs + (ks + (lane & 7) + (((lane >> 3) & 1) << 3)) * TL::ROW_W + nb + (lane >> 4) * 8);
+          else
+            ldsm_x4(r, Bs + (nb + (lane & 7) + ((lane >> 4) << 3)) * TL::ROW_K + ks + ((lane >> 3) & 1) * 8);
+          bf[2 * jp][0] = r[0], bf[2 * jp][1] = r[1], bf[2 * jp + 1][0] = r[2], bf[2 * jp + 1][1] = r[3];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_bf16(acc + (i * 4 + j) * 4, af[i], bf[j]);
+      }
+    } else {
+#pragma unroll 4
+      for (int kk = 0; kk < BK; ++kk) {
+        float a[8], b[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int mm = (i < 4 ? 0 : 64) + ty * 4 + (i & 3);
+          const int nn = (i < 4 ? 0 : 64) + tx * 4 + (i & 3);
+          a[i] = ld(WG ? As + kk * TL::ROW_W + mm : As + mm * TL::ROW_K + kk);
+          b[i] = ld(WG ? Bs + kk * TL::ROW_W + nn : Bs + nn * TL::ROW_K + kk);
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i * 8 + j] = fmaf(a[i], b[j], acc[i * 8 + j]);
+      }
+    }
+  }
+
+  if constexpr (TC) {
+    const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm * 64 + i * 16 + gid + 8 * h;
+        if (m >= op.M) continue;
+        const auto row = op.row(m);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = n0 + wn * 32 + j * 8 + tig * 2;
+          const float* v = acc + (i * 4 + j) * 4 + 2 * h;
+          if (n < op.N) op.epi(blockIdx.z, row, m, n, v[0], v[1]);
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + (i < 4 ? 0 : 64) + ty * 4 + (i & 3);
       if (m >= op.M) continue;
+      const auto row = op.row(m);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + wn * 32 + j * 8 + tig * 2;
-        if (n < op.N) op.epi(blockIdx.z, m, n, acc[i][j][2 * h]);
-        if (n + 1 < op.N) op.epi(blockIdx.z, m, n + 1, acc[i][j][2 * h + 1]);
+      for (int j = 0; j < 8; j += 2) {
+        const int n = n0 + (j < 4 ? 0 : 64) + tx * 4 + (j & 3);
+        if (n < op.N) op.epi(blockIdx.z, row, m, n, acc[i * 8 + j], acc[i * 8 + j + 1]);
       }
     }
   }
 }
 
-// bf16 storage runs on the tensor cores, f32 storage on CUDA cores.
 template <class Op>
 static cudaError_t launch_gemm(const Op& op, int nz, cudaStream_t st) {
-  dim3 grid((op.M + BM - 1) / BM, (op.N + BN - 1) / BN, nz);
-  if constexpr (std::is_same<typename Op::Store, __nv_bfloat16>::value)
-    gemm_tc_kernel<Op><<<grid, NT, 0, st>>>(op);
-  else
-    gemm_kernel<Op><<<grid, NT, 0, st>>>(op);
+  constexpr int smem = Tile<typename Op::Store>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(gemm_pipe<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const unsigned mt = (op.M + BM - 1) / BM, nt = (op.N + BN - 1) / BN;
+  const dim3 grid = Op::WGRAD ? dim3(mt, nt, nz) : dim3(nt, mt, 1);
+  gemm_pipe<Op><<<grid, NT, smem, st>>>(op);
   return cudaGetLastError();
 }
 
-// The whole depth K in one block (no split).
-struct FullK {
-  int K;
-  __device__ __forceinline__ void k_range(int, int& k0, int& k1) const { k0 = 0, k1 = K; }
-};
-// Chunk z of the rows (the reduction index of a weight gradient).
-struct ChunkK {
-  int K, chunk;
-  __device__ __forceinline__ void k_range(int z, int& k0, int& k1) const {
-    k0 = z * chunk;
-    k1 = min(K, k0 + chunk);
-  }
+// What every pass has: the product's shape and its operands. A
+// weight-gradient pass (WGRAD) sums the reduction rows [z * chunk, min(K, (z
+// + 1) * chunk)) in block z; a row pass takes all of K in one block.
+template <typename S>
+struct Pass {
+  using Store = S;
+  int M, N, K, chunk;
+  Operand<S> A, B;
+  __device__ __forceinline__ int64_t row(int) const { return 0; }
+  // the first of A's segments that a column tile from n0 needs (row passes)
+  __device__ __forceinline__ int first_seg(int) const { return 0; }
 };
 
-// Row m of layer l's ab: ab[b, l, t, :].
-template <typename S>
-__device__ __forceinline__ const S* ab_row(const S* ab, int m, int T, int L, int l, int G) {
+// Offset of row m = (b, t) of layer l in ab (B, L, T, G).
+__device__ __forceinline__ int64_t ab_offset(int m, int T, int L, int l, int G) {
   const int b = m / T, t = m - b * T;
-  return ab + (((int64_t)b * L + l) * T + t) * G;
+  return (((int64_t)b * L + l) * T + t) * G;
 }
 
 // ---- K2 ---------------------------------------------------------------------
+// Columns 2i, 2i+1 of the product are the gate pair (i, G/2 + i).
 template <typename S>
-struct GateOp : FullK {
-  static constexpr bool A_K_CONTIG = true, B_N_CONTIG = true;
-  using Store = S;
-  int M, N, T, C, CIN, G, L, l, d;
-  const float* h;
-  const S* c;
-  const S* w;   // wconv[l] as (3C, G)
-  const S* wc;  // wc[l] (CIN, G)
-  const float* bconv;
-  const float* gadd;  // (B, L, G) or null
+struct GateOp : Pass<S> {
+  static constexpr bool WGRAD = false;
+  int T, L, l, G;
+  const float* bconv;  // layer l's (G)
+  const float* gadd;   // (B, L, G) or null
   S* ab;
-  __device__ float a(int m, int k) const {
-    if (k < 3 * C) {
-      const int j = k / C, cc = k - j * C, t = m % T, tt = t - (2 - j) * d;
-      return tt >= 0 ? rnd<S>(h[(int64_t)(m - t + tt) * C + cc]) : 0.0f;
-    }
-    return ld(c + (int64_t)m * CIN + (k - 3 * C));
+  S* act;
+  struct Row {
+    int64_t ab, g;
+  };
+  __device__ __forceinline__ Row row(int m) const {
+    const int b = m / T, t = m - b * T;
+    const int64_t bl = (int64_t)b * L + l;
+    return {(bl * T + t) * G, bl * G};
   }
-  __device__ float b(int k, int n) const {
-    return k < 3 * C ? ld(w + (int64_t)k * G + n) : ld(wc + (int64_t)(k - 3 * C) * G + n);
-  }
-  __device__ void epi(int, int m, int n, float acc) const {
-    const int bb = m / T, t = m - bb * T;
-    float v = acc + bconv[n];
-    if (gadd) v += gadd[((int64_t)bb * L + l) * G + n];
-    st(ab + (((int64_t)bb * L + l) * T + t) * G + n, v);
+  __device__ __forceinline__ void epi(int, Row r, int m, int n, float va, float vb) const {
+    const int i = n >> 1, G2 = G >> 1;
+    va += bconv[i], vb += bconv[G2 + i];
+    if (gadd) va += gadd[r.g + i], vb += gadd[r.g + G2 + i];
+    st(ab + r.ab + i, va);
+    st(ab + r.ab + G2 + i, vb);
+    st(act + (int64_t)m * G2 + i, tanhf(rnd<S>(va)) * sigmoidf(rnd<S>(vb)));
   }
 };
 
+// Columns [0, C): h = (act @ wout + bout + h) / sqrt 2, hb = S(h);
+// columns [C, C+SK): the skip sum (stored in S after the last layer).
 template <typename S>
-struct OutOp : FullK {
-  static constexpr bool A_K_CONTIG = true, B_N_CONTIG = true;
-  using Store = S;
-  int M, N, T, C, SK, G, L, l, first, last;
-  const S* ab;
-  const S* wout;   // (G/2, C)
-  const S* wskip;  // (G/2, SK)
+struct OutOp : Pass<S> {
+  static constexpr bool WGRAD = false;
+  int C, SK, first, last;
   const float* bout;
   const float* bskip;
   float* h;
+  S* hb;
   float* skip;
   S* skips;
-  __device__ float a(int m, int k) const {
-    const S* row = ab_row(ab, m, T, L, l, G);
-    return gate_act<S>(ld(row + k), ld(row + k + G / 2));
-  }
-  __device__ float b(int k, int n) const {
-    return n < C ? ld(wout + (int64_t)k * C + n) : ld(wskip + (int64_t)k * SK + (n - C));
-  }
-  __device__ void epi(int, int m, int n, float acc) const {
+  __device__ __forceinline__ void epi(int, int64_t, int m, int n, float v0, float v1) const {
     if (n < C) {
-      float* p = h + (int64_t)m * C + n;
-      *p = (acc + bout[n] + *p) * RS;
+      const int64_t o = (int64_t)m * C + n;
+      float2 p = *reinterpret_cast<float2*>(h + o);
+      p.x = (v0 + bout[n] + p.x) * RS, p.y = (v1 + bout[n + 1] + p.y) * RS;
+      *reinterpret_cast<float2*>(h + o) = p;
+      st2(hb + o, p.x, p.y);
     } else {
       const int s = n - C;
-      float* p = skip + (int64_t)m * SK + s;
-      const float v = first ? acc + bskip[s] : *p + (acc + bskip[s]);
-      *p = v;
-      if (last) st(skips + (int64_t)m * SK + s, v);
+      const int64_t o = (int64_t)m * SK + s;
+      float2 p = make_float2(v0 + bskip[s], v1 + bskip[s + 1]);
+      if (!first) {
+        const float2 q = *reinterpret_cast<float2*>(skip + o);
+        p.x += q.x, p.y += q.y;
+      }
+      *reinterpret_cast<float2*>(skip + o) = p;
+      if (last) st2(skips + o, p.x, p.y);
     }
   }
 };
@@ -391,27 +586,35 @@ template <typename S>
 static cudaError_t forward_impl(const GluArgs& a) {
   cudaStream_t st = (cudaStream_t)a.stream;
   const int B = (int)a.B, T = (int)a.T, L = (int)a.L, C = (int)a.C, G = (int)a.G;
-  const int G2 = G / 2, SK = (int)a.S, CIN = a.has_c ? (int)a.CIN : 0, M = B * T;
+  const int G2 = G / 2, SK = (int)a.S, CIN = a.has_c ? (int)a.CIN : 0, M = B * T, K = 3 * C + CIN;
   for (int l = 0; l < L; ++l) {
+    const int d = (int)a.dil[l];
+    const void* hb = l == 0 ? a.x : a.hb;  // hb = S(x) before the first layer
     GateOp<S> g;
-    g.K = 3 * C + CIN, g.M = M, g.N = G, g.T = T, g.C = C, g.CIN = CIN, g.G = G, g.L = L, g.l = l;
-    g.d = (int)a.dil[l];
-    g.h = a.h, g.c = (const S*)a.c;
-    g.w = (const S*)a.wconv + (int64_t)l * 3 * C * G;
-    g.wc = CIN ? (const S*)a.wc + (int64_t)l * CIN * G : nullptr;
+    g.M = M, g.N = G, g.K = K, g.chunk = 0;
+    g.A = operand<S>(T);
+    add_seg(g.A, hb, C, C, 2 * d);
+    add_seg(g.A, hb, C, C, d);
+    add_seg(g.A, hb, C, C, 0);
+    if (CIN) add_seg(g.A, a.c, CIN, CIN, 0);
+    g.B = operand<S>(T);
+    add_seg(g.B, (const S*)a.wg + (int64_t)l * G * K, K, K, 0);
+    g.T = T, g.L = L, g.l = l, g.G = G;
     g.bconv = a.bconv + (int64_t)l * G;
     g.gadd = a.has_g ? a.g_add : nullptr;
-    g.ab = (S*)a.ab;
+    g.ab = (S*)a.ab, g.act = (S*)a.act;
     cudaError_t e = launch_gemm(g, 1, st);
     if (e != cudaSuccess) return e;
+
     OutOp<S> o;
-    o.K = G2, o.M = M, o.N = C + SK, o.T = T, o.C = C, o.SK = SK, o.G = G, o.L = L, o.l = l;
-    o.first = l == 0, o.last = l == L - 1;
-    o.ab = (const S*)a.ab;
-    o.wout = (const S*)a.wout + (int64_t)l * G2 * C;
-    o.wskip = (const S*)a.wskip + (int64_t)l * G2 * SK;
+    o.M = M, o.N = C + SK, o.K = G2, o.chunk = 0;
+    o.A = operand<S>(T);
+    add_seg(o.A, a.act, G2, G2, 0);
+    o.B = operand<S>(T);
+    add_seg(o.B, (const S*)a.wo + (int64_t)l * (C + SK) * G2, G2, G2, 0);
+    o.C = C, o.SK = SK, o.first = l == 0, o.last = l == L - 1;
     o.bout = a.bout + (int64_t)l * C, o.bskip = a.bskip + (int64_t)l * SK;
-    o.h = a.h, o.skip = a.skip, o.skips = (S*)a.skips;
+    o.h = a.h, o.hb = (S*)a.hb, o.skip = a.skip, o.skips = (S*)a.skips;
     e = launch_gemm(o, 1, st);
     if (e != cudaSuccess) return e;
   }
@@ -419,131 +622,110 @@ static cudaError_t forward_impl(const GluArgs& a) {
 }
 
 // ---- K3 ---------------------------------------------------------------------
-// rebuild: h = h * sqrt 2 - (act @ wout + bout), in place.
+// act = S(tanh(ab_s[:G/2]) * sigmoid(ab_s[G/2:])) of layer l, 16 bytes a thread.
 template <typename S>
-struct RebuildOp : FullK {
-  static constexpr bool A_K_CONTIG = true, B_N_CONTIG = true;
-  using Store = S;
-  int M, N, T, C, G, L, l;
-  const S* ab;
-  const S* wout;
+__global__ void gate_act_kernel(const S* ab, S* act, int M, int T, int L, int l, int G) {
+  constexpr int E = Tile<S>::E;
+  const int G2 = G / 2, per_row = G2 / E;
+  const int64_t q = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= (int64_t)M * per_row) return;
+  const int m = (int)(q / per_row), i = (int)(q - (int64_t)m * per_row) * E;
+  const S* row = ab + ab_offset(m, T, L, l, G);
+  alignas(16) S va[E], vb[E], vo[E];
+  *reinterpret_cast<uint4*>(va) = *reinterpret_cast<const uint4*>(row + i);
+  *reinterpret_cast<uint4*>(vb) = *reinterpret_cast<const uint4*>(row + G2 + i);
+#pragma unroll
+  for (int e = 0; e < E; ++e) st(vo + e, tanhf(ld(va + e)) * sigmoidf(ld(vb + e)));
+  *reinterpret_cast<uint4*>(act + (int64_t)m * G2 + i) = *reinterpret_cast<const uint4*>(vo);
+}
+
+// rebuild: h = h * sqrt 2 - (act @ wout + bout), in place; hb = S(h).
+template <typename S>
+struct RebuildOp : Pass<S> {
+  static constexpr bool WGRAD = false;
+  int C;
   const float* bout;
   float* h;
-  __device__ float a(int m, int k) const {
-    const S* row = ab_row(ab, m, T, L, l, G);
-    return gate_act<S>(ld(row + k), ld(row + k + G / 2));
-  }
-  __device__ float b(int k, int n) const { return ld(wout + (int64_t)k * C + n); }
-  __device__ void epi(int, int m, int n, float acc) const {
-    float* p = h + (int64_t)m * C + n;
-    *p = *p * IRS - (acc + bout[n]);
+  S* hb;
+  __device__ __forceinline__ void epi(int, int64_t, int m, int n, float v0, float v1) const {
+    const int64_t o = (int64_t)m * C + n;
+    float2 p = *reinterpret_cast<float2*>(h + o);
+    p.x = p.x * IRS - (v0 + bout[n]), p.y = p.y * IRS - (v1 + bout[n + 1]);
+    *reinterpret_cast<float2*>(h + o) = p;
+    st2(hb + o, p.x, p.y);
   }
 };
 
-// dact = S(dx/sqrt 2) @ wout^T + S(dskip) @ wskip^T, then the gate backward
-// into both halves of dab (lane n owns the gate pair n, n + G/2).
+// dact = [gy | S(dskip)] @ [wout | wskip]^T, then the gate backward into both
+// halves of dab (f32) and dabs = S(dab): column n owns the gate pair
+// (n, n + G/2).
 template <typename S>
-struct DactOp : FullK {
-  static constexpr bool A_K_CONTIG = true, B_N_CONTIG = false;
-  using Store = S;
-  int M, N, T, C, SK, G, L, l;
-  const float* dx;
-  const S* dskips;
+struct DactOp : Pass<S> {
+  static constexpr bool WGRAD = false;
+  int T, L, l, G;
   const S* ab;
-  const S* wout;
-  const S* wskip;
   float* dab;
-  __device__ float a(int m, int k) const {
-    return k < C ? rnd<S>(dx[(int64_t)m * C + k] * RS) : ld(dskips + (int64_t)m * SK + (k - C));
-  }
-  __device__ float b(int k, int n) const {
-    return k < C ? ld(wout + (int64_t)n * C + k) : ld(wskip + (int64_t)n * SK + (k - C));
-  }
-  __device__ void epi(int, int m, int n, float acc) const {
-    const S* row = ab_row(ab, m, T, L, l, G);
-    const float ta = tanhf(ld(row + n)), sb = sigmoidf(ld(row + n + G / 2));
-    float* q = dab + (int64_t)m * G;
-    q[n] = acc * (sb * (1.0f - ta * ta));
-    q[n + G / 2] = acc * (ta * sb * (1.0f - sb));
+  S* dabs;
+  __device__ __forceinline__ int64_t row(int m) const { return ab_offset(m, T, L, l, G); }
+  __device__ __forceinline__ void epi(int, int64_t r, int m, int n, float v0, float v1) const {
+    const int G2 = G >> 1;
+    float a0, a1, b0, b1;
+    ld2(ab + r + n, a0, a1);
+    ld2(ab + r + G2 + n, b0, b1);
+    const float ta0 = tanhf(a0), sb0 = sigmoidf(b0), ta1 = tanhf(a1), sb1 = sigmoidf(b1);
+    const float da0 = v0 * (sb0 * (1.0f - ta0 * ta0)), da1 = v1 * (sb1 * (1.0f - ta1 * ta1));
+    const float db0 = v0 * (ta0 * sb0 * (1.0f - sb0)), db1 = v1 * (ta1 * sb1 * (1.0f - sb1));
+    const int64_t o = (int64_t)m * G + n;
+    *reinterpret_cast<float2*>(dab + o) = make_float2(da0, da1);
+    *reinterpret_cast<float2*>(dab + o + G2) = make_float2(db0, db1);
+    st2(dabs + o, da0, da1);
+    st2(dabs + o + G2, db0, db1);
   }
 };
 
-// Partial [dwout | dwskip] over one chunk of rows: rows i of act^T, columns
-// [S(dx/sqrt 2) | S(dskip)].
+// A weight gradient's partial sum over one chunk of rows, into the chunk's
+// slot of the workspace. W1: [dwout | dwskip] = act^T [gy | S(dskip)];
+// W2: [dwconv | dwc] = [hb taps | S(c)]^T dabs.
 template <typename S>
-struct W1Op : ChunkK {
-  static constexpr bool A_K_CONTIG = false, B_N_CONTIG = true;
-  using Store = S;
-  int M, N, T, C, SK, G, L, l;
-  const S* ab;
-  const float* dx;
-  const S* dskips;
+struct WorkPass : Pass<S> {
+  static constexpr bool WGRAD = true;
   float* work;
-  __device__ float a(int i, int r) const {
-    const S* row = ab_row(ab, r, T, L, l, G);
-    return gate_act<S>(ld(row + i), ld(row + i + G / 2));
-  }
-  __device__ float b(int r, int n) const {
-    return n < C ? rnd<S>(dx[(int64_t)r * C + n] * RS) : ld(dskips + (int64_t)r * SK + (n - C));
-  }
-  __device__ void epi(int z, int i, int n, float acc) const {
-    work[((int64_t)z * M + i) * N + n] = acc;
+  __device__ __forceinline__ void epi(int z, int64_t, int i, int n, float v0, float v1) const {
+    *reinterpret_cast<float2*>(work + ((int64_t)z * this->M + i) * this->N + n) = make_float2(v0, v1);
   }
 };
-
-// Partial [dwconv | dwc] over one chunk of rows: rows i of [S(h shifted by
-// (2-j)d) | S(c)]^T, columns S(dab).
 template <typename S>
-struct W2Op : ChunkK {
-  static constexpr bool A_K_CONTIG = false, B_N_CONTIG = true;
-  using Store = S;
-  int M, N, T, C, CIN, G, d;
-  const float* h;
-  const S* c;
-  const float* dab;
-  float* work;
-  __device__ float a(int i, int r) const {
-    if (i < 3 * C) {
-      const int j = i / C, cc = i - j * C, t = r % T, tt = t - (2 - j) * d;
-      return tt >= 0 ? rnd<S>(h[(int64_t)(r - t + tt) * C + cc]) : 0.0f;
-    }
-    return ld(c + (int64_t)r * CIN + (i - 3 * C));
-  }
-  __device__ float b(int r, int n) const { return rnd<S>(dab[(int64_t)r * G + n]); }
-  __device__ void epi(int z, int i, int n, float acc) const {
-    work[((int64_t)z * M + i) * N + n] = acc;
-  }
-};
-
-// dx = dx/sqrt 2 + sum_j S(dab[t+(2-j)d]) @ wconv[l,j]^T (zero past T) in
-// columns [0, C); dc += S(dab[t]) @ wc^T in columns [C, C+CIN), which is the
-// j = 2 (unshifted) block of the same A.
+struct W1Op : WorkPass<S> {};
 template <typename S>
-struct DxOp : FullK {
-  static constexpr bool A_K_CONTIG = true, B_N_CONTIG = false;
-  using Store = S;
-  int M, N, T, C, CIN, G, d, first;
-  const float* dab;
-  const S* w;   // wconv[l] (3, C, G)
-  const S* wc;  // wc[l] (CIN, G)
+struct W2Op : WorkPass<S> {};
+
+// Columns [0, C): dx = dx/sqrt 2 + [dabs[t+2d] | dabs[t+d] | dabs[t]] @ wx,
+// gy = S(dx/sqrt 2); columns [C, C+CIN): dc += dabs @ wc^T (wx holds wc^T in
+// its unshifted third of k and zeros in the other two).
+template <typename S>
+struct DxOp : Pass<S> {
+  static constexpr bool WGRAD = false;
+  int C, CIN, first;
   float* dx;
+  S* gy;
   float* dc;
-  __device__ float a(int m, int k) const {
-    const int j = k / G, g = k - j * G, t = m % T, tt = t + (2 - j) * d;
-    return tt < T ? rnd<S>(dab[(int64_t)(m - t + tt) * G + g]) : 0.0f;
-  }
-  __device__ float b(int k, int n) const {
-    const int j = k / G, g = k - j * G;
-    if (n < C) return ld(w + ((int64_t)j * C + n) * G + g);
-    return j == 2 ? ld(wc + (int64_t)(n - C) * G + g) : 0.0f;
-  }
-  __device__ void epi(int, int m, int n, float acc) const {
+  // a tile of dc columns only: wx is zero in the two shifted taps
+  __device__ __forceinline__ int first_seg(int n0) const { return n0 >= C ? 2 : 0; }
+  __device__ __forceinline__ void epi(int, int64_t, int m, int n, float v0, float v1) const {
     if (n < C) {
-      float* p = dx + (int64_t)m * C + n;
-      *p = *p * RS + acc;
+      const int64_t o = (int64_t)m * C + n;
+      float2 p = *reinterpret_cast<float2*>(dx + o);
+      p.x = p.x * RS + v0, p.y = p.y * RS + v1;
+      *reinterpret_cast<float2*>(dx + o) = p;
+      st2(gy + o, p.x * RS, p.y * RS);
     } else {
-      float* q = dc + (int64_t)m * CIN + (n - C);
-      *q = first ? acc : *q + acc;
+      float2* q = reinterpret_cast<float2*>(dc + (int64_t)m * CIN + (n - C));
+      if (first) {
+        *q = make_float2(v0, v1);
+      } else {
+        const float2 p = *q;
+        *q = make_float2(p.x + v0, p.y + v1);
+      }
     }
   }
 };
@@ -663,17 +845,29 @@ static cudaError_t backward_impl(const GluArgs& a) {
   CHECK(colsum(ds, a, part, nullptr, 0, dbskip_last, st));
   for (int l = L - 1; l >= 0; --l) {
     const int d = (int)a.dil[l];
-    const S* wout = (const S*)a.wout + (int64_t)l * G2 * C;
-    const S* wskip = (const S*)a.wskip + (int64_t)l * G2 * SK;
+    const S* wo = (const S*)a.wo + (int64_t)l * (C + SK) * G2;
+
+    const int64_t n_act = (int64_t)M * (G2 / Tile<S>::E);
+    gate_act_kernel<S><<<(unsigned)((n_act + 255) / 256), 256, 0, st>>>(ab, (S*)a.act, M, T, L, l, G);
+    CHECK(cudaGetLastError());
 
     RebuildOp<S> rb;
-    rb.K = G2, rb.M = M, rb.N = C, rb.T = T, rb.C = C, rb.G = G, rb.L = L, rb.l = l;
-    rb.ab = ab, rb.wout = wout, rb.bout = a.bout + (int64_t)l * C, rb.h = a.h;
+    rb.M = M, rb.N = C, rb.K = G2, rb.chunk = 0;
+    rb.A = operand<S>(T);
+    add_seg(rb.A, a.act, G2, G2, 0);
+    rb.B = operand<S>(T);
+    add_seg(rb.B, wo, G2, G2, 0);  // the wout rows of [wout | wskip]^T
+    rb.C = C, rb.bout = a.bout + (int64_t)l * C, rb.h = a.h, rb.hb = (S*)a.hb;
     CHECK(launch_gemm(rb, 1, st));
 
     DactOp<S> da;
-    da.K = C + SK, da.M = M, da.N = G2, da.T = T, da.C = C, da.SK = SK, da.G = G, da.L = L, da.l = l;
-    da.dx = a.dx, da.dskips = dskips, da.ab = ab, da.wout = wout, da.wskip = wskip, da.dab = a.dab;
+    da.M = M, da.N = G2, da.K = C + SK, da.chunk = 0;
+    da.A = operand<S>(T);
+    add_seg(da.A, a.gy, C, C, 0);
+    add_seg(da.A, dskips, SK, SK, 0);
+    da.B = operand<S>(T);
+    add_seg(da.B, (const S*)a.wd + (int64_t)l * G2 * (C + SK), C + SK, C + SK, 0);
+    da.T = T, da.L = L, da.l = l, da.G = G, da.ab = ab, da.dab = a.dab, da.dabs = (S*)a.dabs;
     CHECK(launch_gemm(da, 1, st));
 
     DabCol dc;
@@ -688,8 +882,13 @@ static cudaError_t backward_impl(const GluArgs& a) {
                             cudaMemcpyDeviceToDevice, st));
 
     W1Op<S> w1;
-    w1.K = M, w1.chunk = chunk, w1.M = G2, w1.N = C + SK, w1.T = T, w1.C = C, w1.SK = SK, w1.G = G;
-    w1.L = L, w1.l = l, w1.ab = ab, w1.dx = a.dx, w1.dskips = dskips, w1.work = a.work;
+    w1.M = G2, w1.N = C + SK, w1.K = M, w1.chunk = chunk;
+    w1.A = operand<S>(T);
+    add_seg(w1.A, a.act, G2, G2, 0);
+    w1.B = operand<S>(T);
+    add_seg(w1.B, a.gy, C, C, 0);
+    add_seg(w1.B, dskips, SK, SK, 0);
+    w1.work = a.work;
     CHECK(launch_gemm(w1, nz, st));
     W1Store s1;
     s1.M = G2, s1.N = C + SK, s1.C = C, s1.SK = SK;
@@ -697,8 +896,15 @@ static cudaError_t backward_impl(const GluArgs& a) {
     CHECK(launch_reduce(s1, a.work, nz, st));
 
     W2Op<S> w2;
-    w2.K = M, w2.chunk = chunk, w2.M = 3 * C + CIN, w2.N = G, w2.T = T, w2.C = C, w2.CIN = CIN;
-    w2.G = G, w2.d = d, w2.h = a.h, w2.c = (const S*)a.c, w2.dab = a.dab, w2.work = a.work;
+    w2.M = 3 * C + CIN, w2.N = G, w2.K = M, w2.chunk = chunk;
+    w2.A = operand<S>(T);
+    add_seg(w2.A, a.hb, C, C, 2 * d);
+    add_seg(w2.A, a.hb, C, C, d);
+    add_seg(w2.A, a.hb, C, C, 0);
+    if (CIN) add_seg(w2.A, a.c, CIN, CIN, 0);
+    w2.B = operand<S>(T);
+    add_seg(w2.B, a.dabs, G, G, 0);
+    w2.work = a.work;
     CHECK(launch_gemm(w2, nz, st));
     W2Store s2;
     s2.M = 3 * C + CIN, s2.N = G, s2.C = C, s2.G = G;
@@ -707,11 +913,15 @@ static cudaError_t backward_impl(const GluArgs& a) {
     CHECK(launch_reduce(s2, a.work, nz, st));
 
     DxOp<S> dxo;
-    dxo.K = 3 * G, dxo.M = M, dxo.N = C + CIN, dxo.T = T, dxo.C = C, dxo.CIN = CIN, dxo.G = G;
-    dxo.d = d, dxo.first = l == L - 1, dxo.dab = a.dab;
-    dxo.w = (const S*)a.wconv + (int64_t)l * 3 * C * G;
-    dxo.wc = CIN ? (const S*)a.wc + (int64_t)l * CIN * G : nullptr;
-    dxo.dx = a.dx, dxo.dc = a.dc;
+    dxo.M = M, dxo.N = C + CIN, dxo.K = 3 * G, dxo.chunk = 0;
+    dxo.A = operand<S>(T);
+    add_seg(dxo.A, a.dabs, G, G, -2 * d);
+    add_seg(dxo.A, a.dabs, G, G, -d);
+    add_seg(dxo.A, a.dabs, G, G, 0);
+    dxo.B = operand<S>(T);
+    add_seg(dxo.B, (const S*)a.wx + (int64_t)l * (C + CIN) * 3 * G, 3 * G, 3 * G, 0);
+    dxo.C = C, dxo.CIN = CIN, dxo.first = l == L - 1;
+    dxo.dx = a.dx, dxo.gy = (S*)a.gy, dxo.dc = a.dc;
     CHECK(launch_gemm(dxo, 1, st));
   }
 #undef CHECK

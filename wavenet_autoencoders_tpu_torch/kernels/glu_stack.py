@@ -155,6 +155,68 @@ def glu_stack_backward_reference(dskips, hfin, c, ab, wconv, wc, wout, bout, wsk
 # ---------------------------------------------------------------------------
 
 
+def gate_perm(G: int) -> torch.Tensor:
+    """Column order of the packed gate weights: packed column 2i holds gate
+    column i (the tanh half) and 2i+1 holds column G/2 + i (the sigmoid
+    half), so that the two land in one thread's adjacent accumulators."""
+    i = torch.arange(G // 2)
+    return torch.stack([i, i + G // 2], 1).reshape(-1)
+
+
+def pack_weights(wconv, wc, wout, wskip, store):
+    """The weights in the layouts the kernels' B operands read (reduction
+    index contiguous where the product's rows are the data rows), in the
+    storage dtype ``store``:
+
+    - ``wg`` (L, G, 3C+cin): the gate product, rows in :func:`gate_perm`
+      order, row n = [wconv[l, 0][:, n] | wconv[l, 1][:, n] | wconv[l, 2][:, n] | wc[l][:, n]];
+    - ``wo`` (L, C+S, G/2): [wout | wskip]^T, for the out and rebuild products;
+    - ``wd`` (L, G/2, C+S): [wout | wskip], for the dact product;
+    - ``wx`` (L, C+cin, 3G): row n < C = [wconv[l, 0][n] | wconv[l, 1][n] |
+      wconv[l, 2][n]], row C + j = [0 | 0 | wc[l][j]], for the dx/dc product.
+    """
+    L, _, C, G = wconv.shape
+    wk = wconv.reshape(L, 3 * C, G)
+    wx = wconv.permute(0, 2, 1, 3).reshape(L, C, 3 * G)
+    if wc is not None:
+        wk = torch.cat([wk, wc.to(wk.dtype)], 1)
+        wcx = torch.cat([torch.zeros(L, wc.shape[1], 2 * G, dtype=wc.dtype, device=wc.device), wc], -1)
+        wx = torch.cat([wx, wcx.to(wx.dtype)], 1)
+    wd = torch.cat([wout, wskip], -1)
+    packed = {"wg": wk[:, :, gate_perm(G).to(wk.device)].transpose(1, 2), "wo": wd.transpose(1, 2), "wd": wd, "wx": wx}
+    return {k: v.to(store).contiguous() for k, v in packed.items()}
+
+
+def unpack_weights(packed, C):
+    """Inverse of :func:`pack_weights`: (wconv, wc or None, wout, wskip), each
+    taken from every packed tensor that holds it, which must agree."""
+    wg, wo, wd, wx = packed["wg"], packed["wo"], packed["wd"], packed["wx"]
+    L, G, K = wg.shape
+    cin = K - 3 * C
+    wk = torch.empty(L, K, G, dtype=wg.dtype, device=wg.device)
+    wk[:, :, gate_perm(G).to(wg.device)] = wg.transpose(1, 2)
+    wconv = wk[:, : 3 * C].reshape(L, 3, C, G)
+    wc = wk[:, 3 * C :] if cin else None
+    wout, wskip = wd[..., :C], wd[..., C:]
+    same = [torch.equal(wo, wd.transpose(1, 2)),
+            torch.equal(wx[:, :C].reshape(L, C, 3, G).permute(0, 2, 1, 3), wconv)]
+    if cin:
+        same += [torch.equal(wx[:, C:, 2 * G :], wc), not wx[:, C:, : 2 * G].any()]
+    if not all(same):
+        raise ValueError("packed weights disagree with each other")
+    return wconv, wc, wout, wskip
+
+
+def check_widths(C, G, Sk, cin, store):
+    """Every operand row of the kernels is read in 16-byte chunks, so C, G/2,
+    S and cin must be multiples of 16 bytes of the storage dtype (8 bf16 or
+    4 f32 values). There is no padding that would hide another width."""
+    e = 16 // torch.empty((), dtype=store).element_size()
+    bad = {n: v for n, v in (("C", C), ("G/2", G // 2), ("S", Sk), ("cin", cin)) if v % e}
+    if bad:
+        raise ValueError(f"glu_stack kernels need widths that are multiples of {e} in {store}: {bad}")
+
+
 class _GluArgs(ctypes.Structure):
     """Field for field the ``GluArgs`` struct of ``csrc/glu_stack.cu``."""
 
@@ -164,8 +226,8 @@ class _GluArgs(ctypes.Structure):
         )]
         + [("dil", ctypes.c_int64 * _MAXL)]
         + [(n, ctypes.c_void_p) for n in (
-            "x", "c", "g_add", "wconv", "bconv", "wc", "wout", "bout", "wskip", "bskip",
-            "h", "skip", "skips", "ab", "dskips", "dx", "dab", "dc", "dgadd",
+            "x", "c", "g_add", "wg", "wo", "wd", "wx", "bconv", "bout", "bskip",
+            "h", "skip", "skips", "ab", "hb", "act", "dskips", "dx", "dab", "dabs", "gy", "dc", "dgadd",
             "dwconv", "dbconv", "dwc", "dwout", "dbout", "dwskip", "dbskip", "work", "stream",
         )]
     )
@@ -196,16 +258,17 @@ def _check(name, x, shape, dtype, dev):
         raise ValueError(f"{name} is not contiguous")
 
 
-def _dims(x_shape, wconv, wskip, c, dilations):
+def _dims(x_shape, wconv, wskip, c, dilations, store):
     B, T, C = x_shape
     L, three, Cw, G = wconv.shape
     if three != 3 or Cw != C or G % 2:
         raise ValueError(f"wconv {tuple(wconv.shape)} does not fit x {tuple(x_shape)}")
     if len(dilations) != L or L > _MAXL:
         raise ValueError(f"{len(dilations)} dilations for {L} layers (at most {_MAXL})")
-    if B * T >= 2**31:
-        raise ValueError("B*T must be below 2**31")
+    if B * T > 65535 * 128:
+        raise ValueError("B*T must be at most 65535*128 (row tiles on one grid axis)")
     cin = 0 if c is None else c.shape[-1]
+    check_widths(C, G, wskip.shape[-1], cin, store)
     return B, T, C, L, G, wskip.shape[-1], cin
 
 
@@ -222,31 +285,38 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
+def _aligned(x):
+    """x contiguous at a 16-byte aligned address (the kernels' loads are
+    16-byte copies); a copy only where a view starts elsewhere."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _storage(x):
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"storage dtype must be float32 or bfloat16, got {x.dtype}")
     return x.dtype
 
 
+def _packed_shapes(L, C, G, Sk, cin, store):
+    return {"wg": ((L, G, 3 * C + cin), store), "wo": ((L, C + Sk, G // 2), store),
+            "wd": ((L, G // 2, C + Sk), store), "wx": ((L, C + cin, 3 * G), store)}
+
+
 def _forward_cuda(x, c, g_add, wconv, bconv, wc, wout, bout, wskip, bskip, dilations):
     global LAUNCHES_FWD
     store = _storage(x)
     dev = x.device
-    B, T, C, L, G, Sk, cin = _dims(x.shape, wconv, wskip, c, dilations)
+    B, T, C, L, G, Sk, cin = _dims(x.shape, wconv, wskip, c, dilations, store)
     G2 = G // 2
     f32 = dict(dtype=torch.float32, device=dev)
-    t = {
-        "x": x.contiguous(),
-        "wconv": wconv.to(store).contiguous(), "bconv": bconv.float().contiguous(),
-        "wout": wout.to(store).contiguous(), "bout": bout.float().contiguous(),
-        "wskip": wskip.to(store).contiguous(), "bskip": bskip.float().contiguous(),
-    }
-    shapes = {"x": ((B, T, C), store), "wconv": ((L, 3, C, G), store), "bconv": ((L, G), torch.float32),
-              "wout": ((L, G2, C), store), "bout": ((L, C), torch.float32),
-              "wskip": ((L, G2, Sk), store), "bskip": ((L, Sk), torch.float32)}
+    t = {"x": _aligned(x), "bconv": bconv.float().contiguous(), "bout": bout.float().contiguous(),
+         "bskip": bskip.float().contiguous(), **pack_weights(wconv, wc, wout, wskip, store)}
+    shapes = {"x": ((B, T, C), store), "bconv": ((L, G), torch.float32), "bout": ((L, C), torch.float32),
+              "bskip": ((L, Sk), torch.float32), **_packed_shapes(L, C, G, Sk, cin, store)}
     if c is not None:
-        t["c"], t["wc"] = c.to(store).contiguous(), wc.to(store).contiguous()
-        shapes.update(c=((B, T, cin), store), wc=((L, cin, G), store))
+        t["c"] = _aligned(c.to(store))
+        shapes["c"] = ((B, T, cin), store)
     if g_add is not None:
         t["g_add"] = g_add.float().contiguous()
         shapes["g_add"] = ((B, L, G), torch.float32)
@@ -256,13 +326,15 @@ def _forward_cuda(x, c, g_add, wconv, bconv, wc, wout, bout, wskip, bskip, dilat
     skip = torch.empty(B, T, Sk, **f32)
     skips = torch.empty(B, T, Sk, dtype=store, device=dev)
     ab = torch.empty(B, L, T, G, dtype=store, device=dev)
+    hb = torch.empty(B, T, C, dtype=store, device=dev)
+    act = torch.empty(B, T, G2, dtype=store, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         a = _args(store, B, T, C, L, G, Sk, cin, g_add is not None, dilations,
                   torch.cuda.current_stream(dev).cuda_stream)
         for k, v in t.items():
             setattr(a, k, _ptr(v))
-        a.h, a.skip, a.skips, a.ab = map(_ptr, (h, skip, skips, ab))
+        a.h, a.skip, a.skips, a.ab, a.hb, a.act = map(_ptr, (h, skip, skips, ab, hb, act))
         err = lib.wae_glu_forward(ctypes.byref(a))
     if err != 0:
         raise RuntimeError(f"glu_stack forward launch failed: {lib.wae_glu_error_string(err).decode()}")
@@ -275,19 +347,16 @@ def _backward_cuda(dskips, hfin, c, ab, wconv, wc, wout, bout, wskip, dilations,
     store = _storage(ab)
     dev = ab.device
     B, T, Sk = dskips.shape
-    _, _, C, L, G, _, cin = _dims((B, T, hfin.shape[-1]), wconv, wskip, c, dilations)
+    _, _, C, L, G, _, cin = _dims((B, T, hfin.shape[-1]), wconv, wskip, c, dilations, store)
     G2 = G // 2
     f32 = dict(dtype=torch.float32, device=dev)
-    t = {
-        "dskips": dskips.to(store).contiguous(), "ab": ab.contiguous(),
-        "wconv": wconv.to(store).contiguous(), "wout": wout.to(store).contiguous(),
-        "bout": bout.float().contiguous(), "wskip": wskip.to(store).contiguous(),
-    }
-    shapes = {"dskips": ((B, T, Sk), store), "ab": ((B, L, T, G), store), "wconv": ((L, 3, C, G), store),
-              "wout": ((L, G2, C), store), "bout": ((L, C), torch.float32), "wskip": ((L, G2, Sk), store)}
+    t = {"dskips": _aligned(dskips.to(store)), "ab": _aligned(ab), "bout": bout.float().contiguous(),
+         **pack_weights(wconv, wc, wout, wskip, store)}
+    shapes = {"dskips": ((B, T, Sk), store), "ab": ((B, L, T, G), store), "bout": ((L, C), torch.float32),
+              **_packed_shapes(L, C, G, Sk, cin, store)}
     if c is not None:
-        t["c"], t["wc"] = c.to(store).contiguous(), wc.to(store).contiguous()
-        shapes.update(c=((B, T, cin), store), wc=((L, cin, G), store))
+        t["c"] = _aligned(c.to(store))
+        shapes["c"] = ((B, T, cin), store)
     for k, (shp, dt) in shapes.items():
         _check(k, t[k], shp, dt, dev)
     _check("hfin", hfin, (B, T, C), torch.float32, dev)
@@ -301,15 +370,19 @@ def _backward_cuda(dskips, hfin, c, ab, wconv, wc, wout, bout, wskip, dilations,
         "dwc": torch.empty(L, cin, G, **f32) if c is not None else None,
         "dgadd": torch.empty(B, L, G, **f32) if has_g else None,
     }
+    # the operand buffers, reused across layers; gy = S(dx/sqrt 2) starts at 0
+    bufs = {"hb": torch.empty(B, T, C, dtype=store, device=dev),
+            "act": torch.empty(B, T, G2, dtype=store, device=dev),
+            "dabs": torch.empty(B, T, G, dtype=store, device=dev),
+            "gy": torch.zeros(B, T, C, dtype=store, device=dev)}
     lib = _lib()
     with torch.cuda.device(dev):
         a = _args(store, B, T, C, L, G, Sk, cin, has_g, dilations, torch.cuda.current_stream(dev).cuda_stream)
         # sized by the C side, which alone knows the passes' partial-sum layout
         work = torch.empty(lib.wae_glu_workspace_floats(ctypes.byref(a)), **f32)
-        for k, v in t.items():
-            setattr(a, k, _ptr(v))
-        for k, v in out.items():
-            setattr(a, k, _ptr(v))
+        for d in (t, out, bufs):
+            for k, v in d.items():
+                setattr(a, k, _ptr(v))
         a.h, a.work = _ptr(h), _ptr(work)
         err = lib.wae_glu_backward(ctypes.byref(a))
     if err != 0:
