@@ -27,10 +27,12 @@ Phases (each raises on failure, so the script exits non-zero):
    B=256, T=5120, bf16 storage, beside the bound.
 5. K2/K3 (the fused GLU-stack forward and backward) against their plain
    versions at svqwae width (20 layers, residual 256, gate 368, skip 256,
-   cin 64), B=2 x T=2048 and B=3 x T=2000 (ragged), f32 with TF32 off and
-   bf16 storage: skips, ab, the final residual and all ten gradients; K3 in
-   f32 against autograd of the plain forward; two K3 calls bitwise equal.
-   (Phase 7 repeats the bf16 check at the main path's B=40 x T=5120.)
+   cin 64), B=2 x T=2048 and B=3 x T=2000 (a row tile straddles two batch
+   rows), f32 with TF32 off and bf16 storage, and B=2 x T=2048 bf16 without
+   conditioning (c and g_add None): skips, ab, the final residual and all
+   gradients; K3 in f32 against autograd of the plain forward; two K3 calls
+   bitwise equal. (Phase 7 repeats the bf16 check at the main path's B=40 x
+   T=5120.)
 6. Training through the port's CLI on ``cuda``: ``train --preset svqwae
    --hparams fused_stack=true --max-steps 3`` at B=40 x T=5120 in bf16 on a
    synthetic dump (48 utterances of 200 frames, 2 speakers). The K2/K3
@@ -42,7 +44,9 @@ Phases (each raises on failure, so the script exits non-zero):
    same inputs (skips, ab, the final residual and all ten gradients, at
    phase 5's bf16 tolerances); then their times and the plain versions'
    with CUDA events beside their bounds; whole train steps, fused and
-   unfused, in turns (host clock after a synchronize), in samples/s.
+   unfused, in turns (host clock after a synchronize), in samples/s; one
+   step of each under torch.profiler: device time by kernel, and K2/K3's
+   time and TFLOP/s by pass.
 
 Prints the kernel table (K1, K2, K3) as one JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and

@@ -59,12 +59,14 @@
 // and past a batch row's edge), fragments by ldmatrix (.trans for operands
 // whose reduction index is the row), mma.sync m16n8k16 bf16 -> f32 on the
 // tensor cores. f32 storage (the accuracy check) runs the same loads and
-// epilogues with f32 FMAs on CUDA cores. wgmma fed by TMA is later work.
+// epilogues with f32 FMAs on CUDA cores. (wgmma m64n128k16 on the same
+// cp.async ring was measured slower for the row passes; TMA-fed,
+// warp-specialised wgmma is later work.)
 //
 // Storage S is f32 or bf16 (template): x, c, weights, ab, skips, dskips and
 // the operand buffers above. Biases, g_add, h, skip, dx, dab, dc and all
-// gradients are f32. Every width (C, G/2, S, cin) is a multiple of 16 bytes
-// of S, which the wrapper checks.
+// gradients are f32. Every width (C, G/2, S, cin) is a multiple of 8 (16-byte
+// loads of bf16 operands, 8-column epilogue chunks), which the wrapper checks.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -130,9 +132,12 @@ static int64_t work_floats(const GluArgs& a) {
   const int64_t w1 = a.G / 2 * (a.C + a.S), w2 = (3 * a.C + cin) * a.G;  // W1Op, W2Op: M x N
   return n_row_chunks(a) * (w1 > w2 ? w1 : w2);
 }
-static int64_t part_floats(const GluArgs& a) {
-  const int64_t n = a.G > a.C ? a.G : a.C;  // widest column sum: dab, dres or dskip
-  return a.B * n_t_chunks(a) * (n > a.S ? n : a.S);
+static int64_t col_width(const GluArgs& a) {  // widest column sum: dab, dres or dskip
+  const int64_t n = a.G > a.C ? a.G : a.C;
+  return n > a.S ? n : a.S;
+}
+static int64_t part_floats(const GluArgs& a) {  // per (b, time chunk), then per b
+  return a.B * (n_t_chunks(a) + 1) * col_width(a);
 }
 
 // ---- storage-type helpers -------------------------------------------------
@@ -140,17 +145,34 @@ __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ void st(float* p, float v) { *p = v; }
 __device__ __forceinline__ void st(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-__device__ __forceinline__ void ld2(const float* p, float& a, float& b) {
-  const float2 v = *reinterpret_cast<const float2*>(p);
-  a = v.x, b = v.y;
+// 8 (or 4) consecutive values in the storage type: 16 (8) bytes in bf16
+__device__ __forceinline__ void ld8(const float* p, float* v) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
 }
-__device__ __forceinline__ void ld2(const __nv_bfloat16* p, float& a, float& b) {
-  const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  a = v.x, b = v.y;
+__device__ __forceinline__ void ld8(const __nv_bfloat16* p, float* v) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[k]));
+    v[2 * k] = f.x, v[2 * k + 1] = f.y;
+  }
 }
-__device__ __forceinline__ void st2(float* p, float a, float b) { *reinterpret_cast<float2*>(p) = make_float2(a, b); }
-__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+__device__ __forceinline__ void st4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void st8(float* p, const float* v) { st4(p, v), st4(p + 4, v + 4); }
+__device__ __forceinline__ uint32_t pack_bf2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ void st4(__nv_bfloat16* p, const float* v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf2(v[0], v[1]), pack_bf2(v[2], v[3]));
+}
+__device__ __forceinline__ void st8(__nv_bfloat16* p, const float* v) {
+  *reinterpret_cast<uint4*>(p) =
+      make_uint4(pack_bf2(v[0], v[1]), pack_bf2(v[2], v[3]), pack_bf2(v[4], v[5]), pack_bf2(v[6], v[7]));
 }
 template <typename S>
 __device__ __forceinline__ float rnd(float v);  // round to storage precision
@@ -167,7 +189,7 @@ __device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(
 // row r reads p[j][(r - shift[j]) * ld[j] + c - start[j]]. A segment with a
 // shift reads zero where t - shift, t = r mod T, leaves [0, T): the rows are
 // (b, t) and a shifted tap does not cross into another batch row. Segment
-// widths are multiples of 16 bytes, so one 16-byte chunk never straddles two.
+// widths are multiples of 8 values, so one 16-byte chunk never straddles two.
 template <typename S>
 struct Operand {
   const S* p[4];
@@ -192,19 +214,28 @@ static Operand<S> operand(int T) {
   return o;
 }
 
-// Shared-memory geometry of one k-stage. A tile stored with the reduction
-// index contiguous is [128][BK + pad] (A of a row-major product, or the
-// packed weights as B); one whose reduction index is the row is [BK][128 +
+// Shared-memory geometry of one k-stage of depth KD. A tile stored with the
+// reduction index contiguous is [128][KD + pad] (A of a row pass, or the
+// packed weights as B); one whose reduction index is the row is [KD][128 +
 // pad] (read with ldmatrix.trans). The pad of one 16-byte chunk puts the 8
 // rows an ldmatrix reads on 8 different bank quads.
-template <typename S>
+template <typename S, int KD = BK>
 struct Tile {
   static constexpr int E = 16 / sizeof(S);  // elements per 16-byte chunk
-  static constexpr int ROW_K = BK + E;      // row stride of a [128][BK] tile
-  static constexpr int ROW_W = BM + E;      // row stride of a [BK][128] tile
-  static constexpr int OPER = BM * ROW_K > BK * ROW_W ? BM * ROW_K : BK * ROW_W;
-  static constexpr int STAGES = sizeof(S) == 2 ? 4 : 2;
+  static constexpr int ROW_K = KD + E;      // row stride of a [128][KD] tile
+  static constexpr int ROW_W = BM + E;      // row stride of a [KD][128] tile
+  static constexpr int OPER = BM * ROW_K > KD * ROW_W ? BM * ROW_K : KD * ROW_W;
+  static constexpr int STAGES = sizeof(S) == 2 ? (KD == BK ? 4 : 3) : 2;
   static constexpr int SMEM = STAGES * 2 * OPER * (int)sizeof(S);
+};
+// A pass's stage depth: bf16 row passes read 2 BK = 128 bytes (a cache
+// line) of each A and B row a stage; the weight gradients read 256 bytes of
+// each of BK rows.
+template <class Op>
+struct Geo {
+  using S = typename Op::Store;
+  static constexpr int KD = std::is_same<S, __nv_bfloat16>::value && !Op::WGRAD ? 2 * BK : BK;
+  using T = Tile<S, KD>;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
@@ -247,32 +278,41 @@ __device__ __forceinline__ int seg_at(const Operand<S>& o, int c) {
   return j;
 }
 
-// One thread's share of a [128 rows][BK columns] tile whose rows stay fixed
+// One thread's share of a [128 rows][KD columns] tile whose rows stay fixed
 // while the columns (the reduction index) advance: A of a row pass (rows m)
-// and its packed weights (rows n). The row pointers are set once per
-// segment; a stage then costs one add and one compare per 16-byte chunk.
-template <typename S>
+// and its packed weights (rows n). The row pointer and the rows' validity
+// are set once per segment; a stage then costs one add and one compare per
+// 16-byte chunk.
+template <typename S, int KD>
 struct RowSide {
-  static constexpr int E = Tile<S>::E, CPR = BK / E, U = BM * CPR / NT;
-  const S* p[U];
+  static constexpr int E = Tile<S, KD>::E, CPR = KD / E, U = BM * CPR / NT, RSTEP = NT / CPR;
+  const S* base;  // column cc() of row r0 + rr(0) - shift of the segment
+  int64_t step;   // RSTEP rows
   bool ok[U];
-  __device__ __forceinline__ static int rr(int u) { return (int)(threadIdx.x + u * NT) / CPR; }
-  __device__ __forceinline__ static int cc(int u) { return (int)(threadIdx.x % CPR) * E; }
-  // rows r0 + rr(u) of segment v; t[u] = their time index (for a shifted segment)
-  __device__ __forceinline__ void point(const SegView<S>& v, int T, int r0, int rlim, const int* t) {
+  __device__ __forceinline__ static int rr(int u) { return (int)threadIdx.x / CPR + u * RSTEP; }
+  __device__ __forceinline__ static int cc() { return (int)(threadIdx.x % CPR) * E; }
+  // rows r0 + rr(u) of segment v
+  __device__ __forceinline__ void point(const SegView<S>& v, int T, int r0, int rlim) {
+    const int t0 = v.shift != 0 ? r0 % T : 0;
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const int r = r0 + rr(u);
-      ok[u] = r < rlim && (v.shift == 0 || (unsigned)(t[u] - v.shift) < (unsigned)T);
-      p[u] = v.p + (ok[u] ? (int64_t)(r - v.shift) * v.ld + cc(u) : 0);
+      ok[u] = r0 + rr(u) < rlim;
+      if (v.shift != 0) {
+        int t = t0 + rr(u);
+        while (t >= T) t -= T;
+        ok[u] = ok[u] && (unsigned)(t - v.shift) < (unsigned)T;
+      }
     }
+    base = v.p + (int64_t)(r0 + rr(0) - v.shift) * v.ld + cc();
+    step = (int64_t)RSTEP * v.ld;
   }
-  // columns [c, c + BK) of the segment, those at or past w read as zeros
-  __device__ __forceinline__ void load(S* sm, int c, int w) const {
+  // columns [c, c + KD) of the segment, those at or past w read as zeros
+  // (safe: any valid address, for the chunks that read nothing)
+  __device__ __forceinline__ void load(S* sm, int c, int w, const S* safe) const {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const bool v = ok[u] && c + cc(u) < w;
-      cp_async16(sm + rr(u) * Tile<S>::ROW_K + cc(u), v ? p[u] + c : p[u], v);
+      const bool v = ok[u] && c + cc() < w;
+      cp_async16(sm + rr(u) * Tile<S, KD>::ROW_K + cc(), v ? base + u * step + c : safe, v);
     }
   }
 };
@@ -294,17 +334,18 @@ struct ColSide {
     const int c = c0 + cc();
     cok = c < o.width;
     const SegView<S> v = seg_of(o, seg_at(o, c));
-    p = v.p + (cok ? (int64_t)(k0 + rr(0) - v.shift) * v.ld + (c - v.start) : 0);
+    p = v.p + (int64_t)(k0 + rr(0) - v.shift) * v.ld + (c - v.start);
     ld = v.ld, shift = v.shift, T = o.T;
 #pragma unroll
     for (int u = 0; u < U; ++u) t[u] = (k0 + rr(u)) % T;
   }
-  // rows [r0, r0 + BK), those at or past k1 read as zeros; then step BK rows
-  __device__ __forceinline__ void load(S* sm, int r0, int k1) {
+  // rows [r0, r0 + BK), those at or past k1 read as zeros (from safe, any
+  // valid address); then step BK rows
+  __device__ __forceinline__ void load(S* sm, int r0, int k1, const S* safe) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const bool v = cok && r0 + rr(u) < k1 && (unsigned)(t[u] - shift) < (unsigned)T;
-      cp_async16(sm + rr(u) * Tile<S>::ROW_W + cc(), v ? p + (int64_t)u * RSTEP * ld : p, v);
+      cp_async16(sm + rr(u) * Tile<S>::ROW_W + cc(), v ? p + (int64_t)u * RSTEP * ld : safe, v);
       t[u] += BK;
       while (t[u] >= T) t[u] -= T;
     }
@@ -333,11 +374,12 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t (&a)[4], const
 }
 
 // ---- the pipelined product core --------------------------------------------
-// C[m, n] = sum_k A[m, k] B[k, n], then op.epi(z, op.row(m), m, n, C[m, n],
-// C[m, n + 1]) for every valid m and even n (every N is even). Two kinds of
-// pass (Op::WGRAD):
+// C[m, n] = sum_k A[m, k] B[k, n], then op.epi(z, op.row(m), m, n, &C[m, n])
+// for every valid m and every valid n that is a multiple of 8, on the 8
+// values C[m, n .. n + 7] (every N is a multiple of 8). Two kinds of pass
+// (Op::WGRAD):
 // - a row pass: A's rows are data rows m, its columns the reduction index k,
-//   walked segment by segment (each padded with zeros to a multiple of BK);
+//   walked segment by segment (each padded with zeros to a multiple of KD);
 //   B is packed weights, rows n and columns k.
 // - a weight-gradient pass: the reduction index is the data row r, over the
 //   chunk [k0, k1) of blockIdx.z; A's columns are m (stored [k][m], read with
@@ -348,8 +390,8 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t (&a)[4], const
 template <class Op>
 __global__ void __launch_bounds__(NT, sizeof(typename Op::Store) == 2 ? 2 : 1) gemm_pipe(const Op op) {
   using S = typename Op::Store;
-  using TL = Tile<S>;
-  constexpr int STAGES = TL::STAGES, OPER = TL::OPER;
+  using TL = typename Geo<Op>::T;
+  constexpr int KD = Geo<Op>::KD, STAGES = TL::STAGES, OPER = TL::OPER;
   constexpr bool TC = std::is_same<S, __nv_bfloat16>::value, WG = Op::WGRAD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   S* sm = reinterpret_cast<S*>(smem_raw);
@@ -358,9 +400,9 @@ __global__ void __launch_bounds__(NT, sizeof(typename Op::Store) == 2 ? 2 : 1) g
   const int m0 = (WG ? blockIdx.x : blockIdx.y) * BM, n0 = (WG ? blockIdx.y : blockIdx.x) * BN;
 
   // the loaders and the number of k-stages
-  RowSide<S> ra, rb;
+  RowSide<S, KD> ra, rb;
   ColSide<S> ca, cb;
-  int nk = 0, k0 = 0, k1 = 0, tA[RowSide<S>::U];
+  int nk = 0, k0 = 0, k1 = 0;
   if constexpr (WG) {
     k0 = blockIdx.z * op.chunk;
     k1 = min(op.K, k0 + op.chunk);
@@ -370,10 +412,8 @@ __global__ void __launch_bounds__(NT, sizeof(typename Op::Store) == 2 ? 2 : 1) g
   } else {
 #pragma unroll
     for (int s = 0; s < 4; ++s)
-      if (s >= op.first_seg(n0) && s < op.A.nseg) nk += (seg_of(op.A, s).width + BK - 1) / BK;
-#pragma unroll
-    for (int u = 0; u < RowSide<S>::U; ++u) tA[u] = (m0 + RowSide<S>::rr(u)) % op.A.T;
-    rb.point(seg_of(op.B, 0), op.B.T, n0, op.N, tA);
+      if (s >= op.first_seg(n0) && s < op.A.nseg) nk += (seg_of(op.A, s).width + KD - 1) / KD;
+    rb.point(seg_of(op.B, 0), op.B.T, n0, op.N);
   }
   // the next stage to load: A's segment lj, its columns from loff
   int lj = WG ? 0 : op.first_seg(n0), loff = 0, lk = k0;
@@ -382,14 +422,14 @@ __global__ void __launch_bounds__(NT, sizeof(typename Op::Store) == 2 ? 2 : 1) g
     S* a = sm + (it % STAGES) * 2 * OPER;
     S* b = a + OPER;
     if constexpr (WG) {
-      ca.load(a, lk, k1);
-      cb.load(b, lk, k1);
+      ca.load(a, lk, k1, op.A.p[0]);
+      cb.load(b, lk, k1, op.B.p[0]);
       lk += BK;
     } else {
-      if (loff == 0) ra.point(lseg, op.A.T, m0, op.M, tA);
-      ra.load(a, loff, lseg.width);
-      rb.load(b, lseg.start + loff, op.B.width);
-      loff += BK;
+      if (loff == 0) ra.point(lseg, op.A.T, m0, op.M);
+      ra.load(a, loff, lseg.width, op.A.p[0]);
+      rb.load(b, lseg.start + loff, op.B.width, op.B.p[0]);
+      loff += KD;
       if (loff >= lseg.width) lseg = seg_of(op.A, ++lj), loff = 0;
     }
   };
@@ -415,7 +455,7 @@ __global__ void __launch_bounds__(NT, sizeof(typename Op::Store) == 2 ? 2 : 1) g
     const S* Bs = As + OPER;
     if constexpr (TC) {
 #pragma unroll
-      for (int ks = 0; ks < BK; ks += 16) {
+      for (int ks = 0; ks < KD; ks += 16) {
         uint32_t af[4][4], bf[4][2];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -442,7 +482,7 @@ __global__ void __launch_bounds__(NT, sizeof(typename Op::Store) == 2 ? 2 : 1) g
       }
     } else {
 #pragma unroll 4
-      for (int kk = 0; kk < BK; ++kk) {
+      for (int kk = 0; kk < KD; ++kk) {
         float a[8], b[8];
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
@@ -459,41 +499,47 @@ __global__ void __launch_bounds__(NT, sizeof(typename Op::Store) == 2 ? 2 : 1) g
     }
   }
 
+  // the accumulators go through shared memory, so that the epilogue walks
+  // whole rows: 8 columns (16 or 32 bytes of each output) a thread, two rows
+  // a warp
+  cp_wait<0>();
+  __syncthreads();
+  float* cs = reinterpret_cast<float*>(smem_raw);
+  constexpr int CS = BN + 4;
   if constexpr (TC) {
     const int gid = lane >> 2, tig = lane & 3;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm * 64 + i * 16 + gid + 8 * h;
-        if (m >= op.M) continue;
-        const auto row = op.row(m);
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const int n = n0 + wn * 32 + j * 8 + tig * 2;
           const float* v = acc + (i * 4 + j) * 4 + 2 * h;
-          if (n < op.N) op.epi(blockIdx.z, row, m, n, v[0], v[1]);
+          *reinterpret_cast<float2*>(cs + (wm * 64 + i * 16 + gid + 8 * h) * CS + wn * 32 + j * 8 + tig * 2) =
+              make_float2(v[0], v[1]);
         }
-      }
-    }
   } else {
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const int m = m0 + (i < 4 ? 0 : 64) + ty * 4 + (i & 3);
-      if (m >= op.M) continue;
-      const auto row = op.row(m);
-#pragma unroll
-      for (int j = 0; j < 8; j += 2) {
-        const int n = n0 + (j < 4 ? 0 : 64) + tx * 4 + (j & 3);
-        if (n < op.N) op.epi(blockIdx.z, row, m, n, acc[i * 8 + j], acc[i * 8 + j + 1]);
-      }
+      float* row = cs + ((i < 4 ? 0 : 64) + ty * 4 + (i & 3)) * CS + tx * 4;
+      st4(row, acc + i * 8);
+      st4(row + 64, acc + i * 8 + 4);
     }
+  }
+  __syncthreads();
+#pragma unroll 2
+  for (int q = threadIdx.x; q < BM * BN / 8; q += NT) {
+    const int ml = q / (BN / 8), nl = q % (BN / 8) * 8, m = m0 + ml, n = n0 + nl;
+    if (m >= op.M || n >= op.N) continue;
+    float v[8];
+    ld8(cs + ml * CS + nl, v);
+    op.epi(blockIdx.z, op.row(m), m, n, v);
   }
 }
 
 template <class Op>
 static cudaError_t launch_gemm(const Op& op, int nz, cudaStream_t st) {
-  constexpr int smem = Tile<typename Op::Store>::SMEM;
+  constexpr int smem = Geo<Op>::T::SMEM > BM * (BN + 4) * 4 ? Geo<Op>::T::SMEM : BM * (BN + 4) * 4;
   cudaError_t e = cudaFuncSetAttribute(gemm_pipe<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   const unsigned mt = (op.M + BM - 1) / BM, nt = (op.N + BN - 1) / BN;
@@ -522,7 +568,8 @@ __device__ __forceinline__ int64_t ab_offset(int m, int T, int L, int l, int G) 
 }
 
 // ---- K2 ---------------------------------------------------------------------
-// Columns 2i, 2i+1 of the product are the gate pair (i, G/2 + i).
+// Columns 2i, 2i+1 of the product are the gate pair (i, G/2 + i): 8 columns
+// give 4 gate pairs, stored at columns [i, i+4) and [G/2+i, G/2+i+4) of ab.
 template <typename S>
 struct GateOp : Pass<S> {
   static constexpr bool WGRAD = false;
@@ -539,13 +586,18 @@ struct GateOp : Pass<S> {
     const int64_t bl = (int64_t)b * L + l;
     return {(bl * T + t) * G, bl * G};
   }
-  __device__ __forceinline__ void epi(int, Row r, int m, int n, float va, float vb) const {
+  __device__ __forceinline__ void epi(int, Row r, int m, int n, const float* v) const {
     const int i = n >> 1, G2 = G >> 1;
-    va += bconv[i], vb += bconv[G2 + i];
-    if (gadd) va += gadd[r.g + i], vb += gadd[r.g + G2 + i];
-    st(ab + r.ab + i, va);
-    st(ab + r.ab + G2 + i, vb);
-    st(act + (int64_t)m * G2 + i, tanhf(rnd<S>(va)) * sigmoidf(rnd<S>(vb)));
+    float va[4], vb[4], g[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      va[k] = v[2 * k] + bconv[i + k], vb[k] = v[2 * k + 1] + bconv[G2 + i + k];
+      if (gadd) va[k] += gadd[r.g + i + k], vb[k] += gadd[r.g + G2 + i + k];
+      g[k] = tanhf(rnd<S>(va[k])) * sigmoidf(rnd<S>(vb[k]));
+    }
+    st4(ab + r.ab + i, va);
+    st4(ab + r.ab + G2 + i, vb);
+    st4(act + (int64_t)m * G2 + i, g);
   }
 };
 
@@ -561,23 +613,28 @@ struct OutOp : Pass<S> {
   S* hb;
   float* skip;
   S* skips;
-  __device__ __forceinline__ void epi(int, int64_t, int m, int n, float v0, float v1) const {
+  __device__ __forceinline__ void epi(int, int64_t, int m, int n, const float* v) const {
+    float p[8];
     if (n < C) {
       const int64_t o = (int64_t)m * C + n;
-      float2 p = *reinterpret_cast<float2*>(h + o);
-      p.x = (v0 + bout[n] + p.x) * RS, p.y = (v1 + bout[n + 1] + p.y) * RS;
-      *reinterpret_cast<float2*>(h + o) = p;
-      st2(hb + o, p.x, p.y);
+      ld8(h + o, p);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) p[k] = (v[k] + bout[n + k] + p[k]) * RS;
+      st8(h + o, p);
+      st8(hb + o, p);
     } else {
       const int s = n - C;
       const int64_t o = (int64_t)m * SK + s;
-      float2 p = make_float2(v0 + bskip[s], v1 + bskip[s + 1]);
-      if (!first) {
-        const float2 q = *reinterpret_cast<float2*>(skip + o);
-        p.x += q.x, p.y += q.y;
+      if (first) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) p[k] = 0.0f;
+      } else {
+        ld8(skip + o, p);
       }
-      *reinterpret_cast<float2*>(skip + o) = p;
-      if (last) st2(skips + o, p.x, p.y);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) p[k] += v[k] + bskip[s + k];
+      st8(skip + o, p);
+      if (last) st8(skips + o, p);
     }
   }
 };
@@ -647,12 +704,14 @@ struct RebuildOp : Pass<S> {
   const float* bout;
   float* h;
   S* hb;
-  __device__ __forceinline__ void epi(int, int64_t, int m, int n, float v0, float v1) const {
+  __device__ __forceinline__ void epi(int, int64_t, int m, int n, const float* v) const {
     const int64_t o = (int64_t)m * C + n;
-    float2 p = *reinterpret_cast<float2*>(h + o);
-    p.x = p.x * IRS - (v0 + bout[n]), p.y = p.y * IRS - (v1 + bout[n + 1]);
-    *reinterpret_cast<float2*>(h + o) = p;
-    st2(hb + o, p.x, p.y);
+    float p[8];
+    ld8(h + o, p);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) p[k] = p[k] * IRS - (v[k] + bout[n + k]);
+    st8(h + o, p);
+    st8(hb + o, p);
   }
 };
 
@@ -667,19 +726,22 @@ struct DactOp : Pass<S> {
   float* dab;
   S* dabs;
   __device__ __forceinline__ int64_t row(int m) const { return ab_offset(m, T, L, l, G); }
-  __device__ __forceinline__ void epi(int, int64_t r, int m, int n, float v0, float v1) const {
+  __device__ __forceinline__ void epi(int, int64_t r, int m, int n, const float* v) const {
     const int G2 = G >> 1;
-    float a0, a1, b0, b1;
-    ld2(ab + r + n, a0, a1);
-    ld2(ab + r + G2 + n, b0, b1);
-    const float ta0 = tanhf(a0), sb0 = sigmoidf(b0), ta1 = tanhf(a1), sb1 = sigmoidf(b1);
-    const float da0 = v0 * (sb0 * (1.0f - ta0 * ta0)), da1 = v1 * (sb1 * (1.0f - ta1 * ta1));
-    const float db0 = v0 * (ta0 * sb0 * (1.0f - sb0)), db1 = v1 * (ta1 * sb1 * (1.0f - sb1));
+    float a[8], b[8];
+    ld8(ab + r + n, a);
+    ld8(ab + r + G2 + n, b);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float ta = tanhf(a[k]), sb = sigmoidf(b[k]);
+      a[k] = v[k] * (sb * (1.0f - ta * ta));
+      b[k] = v[k] * (ta * sb * (1.0f - sb));
+    }
     const int64_t o = (int64_t)m * G + n;
-    *reinterpret_cast<float2*>(dab + o) = make_float2(da0, da1);
-    *reinterpret_cast<float2*>(dab + o + G2) = make_float2(db0, db1);
-    st2(dabs + o, da0, da1);
-    st2(dabs + o + G2, db0, db1);
+    st8(dab + o, a);
+    st8(dab + o + G2, b);
+    st8(dabs + o, a);
+    st8(dabs + o + G2, b);
   }
 };
 
@@ -690,8 +752,8 @@ template <typename S>
 struct WorkPass : Pass<S> {
   static constexpr bool WGRAD = true;
   float* work;
-  __device__ __forceinline__ void epi(int z, int64_t, int i, int n, float v0, float v1) const {
-    *reinterpret_cast<float2*>(work + ((int64_t)z * this->M + i) * this->N + n) = make_float2(v0, v1);
+  __device__ __forceinline__ void epi(int z, int64_t, int i, int n, const float* v) const {
+    st8(work + ((int64_t)z * this->M + i) * this->N + n, v);
   }
 };
 template <typename S>
@@ -711,20 +773,26 @@ struct DxOp : Pass<S> {
   float* dc;
   // a tile of dc columns only: wx is zero in the two shifted taps
   __device__ __forceinline__ int first_seg(int n0) const { return n0 >= C ? 2 : 0; }
-  __device__ __forceinline__ void epi(int, int64_t, int m, int n, float v0, float v1) const {
+  __device__ __forceinline__ void epi(int, int64_t, int m, int n, const float* v) const {
+    float p[8];
     if (n < C) {
       const int64_t o = (int64_t)m * C + n;
-      float2 p = *reinterpret_cast<float2*>(dx + o);
-      p.x = p.x * RS + v0, p.y = p.y * RS + v1;
-      *reinterpret_cast<float2*>(dx + o) = p;
-      st2(gy + o, p.x * RS, p.y * RS);
+      ld8(dx + o, p);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) p[k] = p[k] * RS + v[k];
+      st8(dx + o, p);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) p[k] *= RS;
+      st8(gy + o, p);
     } else {
-      float2* q = reinterpret_cast<float2*>(dc + (int64_t)m * CIN + (n - C));
+      float* q = dc + (int64_t)m * CIN + (n - C);
       if (first) {
-        *q = make_float2(v0, v1);
+        st8(q, v);
       } else {
-        const float2 p = *q;
-        *q = make_float2(p.x + v0, p.y + v1);
+        ld8(q, p);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) p[k] += v[k];
+        st8(q, p);
       }
     }
   }
@@ -797,20 +865,23 @@ __global__ void colsum_partial(const X x, int T, int t_chunk, float* part) {
   part[((int64_t)b * gridDim.x + tc) * x.N + n] = s;
 }
 
-// per_b[b * stride + n] = sum_tc part[b, tc, n] (when per_b is set);
-// total[n] = sum_b of those.
-__global__ void colsum_final(const float* part, int B, int n_tc, int N, float* per_b, int64_t stride,
-                             float* total) {
+// pb[b, n] = sum_tc part[b, tc, n], also into per_b[b * stride + n] when set
+__global__ void colsum_batch(const float* part, int n_tc, int N, float* pb, float* per_b, int64_t stride) {
+  const int n = blockIdx.x * CT + threadIdx.x, b = blockIdx.y;
+  if (n >= N) return;
+  float s = 0.0f;
+  for (int tc = 0; tc < n_tc; ++tc) s += part[((int64_t)b * n_tc + tc) * N + n];
+  pb[(int64_t)b * N + n] = s;
+  if (per_b) per_b[(int64_t)b * stride + n] = s;
+}
+
+// total[n] = sum_b pb[b, n]
+__global__ void colsum_total(const float* pb, int B, int N, float* total) {
   const int n = blockIdx.x * CT + threadIdx.x;
   if (n >= N) return;
-  float tot = 0.0f;
-  for (int b = 0; b < B; ++b) {
-    float s = 0.0f;
-    for (int tc = 0; tc < n_tc; ++tc) s += part[((int64_t)b * n_tc + tc) * N + n];
-    if (per_b) per_b[(int64_t)b * stride + n] = s;
-    tot += s;
-  }
-  total[n] = tot;
+  float s = 0.0f;
+  for (int b = 0; b < B; ++b) s += pb[(int64_t)b * N + n];
+  total[n] = s;
 }
 
 template <class X>
@@ -821,7 +892,11 @@ static cudaError_t colsum(const X& x, const GluArgs& a, float* part, float* per_
   colsum_partial<X><<<grid, CT, 0, st>>>(x, (int)a.T, T_CHUNK, part);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  colsum_final<<<(x.N + CT - 1) / CT, CT, 0, st>>>(part, (int)a.B, n_tc, x.N, per_b, stride, total);
+  float* pb = part + a.B * n_tc * col_width(a);
+  const unsigned nb = (x.N + CT - 1) / CT;
+  colsum_batch<<<dim3(nb, (unsigned)a.B), CT, 0, st>>>(part, n_tc, x.N, pb, per_b, stride);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  colsum_total<<<nb, CT, 0, st>>>(pb, (int)a.B, x.N, total);
   return cudaGetLastError();
 }
 
