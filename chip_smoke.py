@@ -7,11 +7,15 @@
 Phases (each raises on failure, so the script exits non-zero):
 
 0. Card name and power limit (nvidia-smi), torch version; build every
-   kernel from ``wavenet_autoencoders_tpu_torch/csrc`` and print the time.
+   kernel from ``wavenet_autoencoders_tpu_torch/csrc`` and print the time,
+   each kernel's registers and spills (ptxas), and K1's bf16 block plan at
+   svqwae width (dynamic shared memory a block, resident weights).
 1. K1 (the fused decode kernel) against its plain versions at svqwae full
-   width, B=4, T=2560 (past the d=512 ring wrap), teacher mode, TF32 off:
-   f32 kernel vs ``WaveNet.apply`` and vs the plain decode; bf16-storage
-   kernel vs the bf16 plain decode and vs the f32 ``apply``.
+   width, teacher mode, TF32 off: at B=4, T=2560 (past the d=512 ring
+   wrap) the f32 kernel vs ``WaveNet.apply`` and vs the plain decode, and
+   the bf16-storage kernel vs the bf16 plain decode and vs the f32
+   ``apply``; the bf16 kernel likewise at B=256 and B=37 (T=1100), B=1,
+   and on a full-width net without c and g.
 2. Sampling. K1 in sampling mode at the serving shape (svqwae, B=4,
    T=32000, bf16 storage, with c and g): its logits against ``WaveNet.apply``
    run on its own sampled codes fed back one step later (127 first). The
@@ -24,7 +28,10 @@ Phases (each raises on failure, so the script exits non-zero):
    200 MFCC frames with a checkpoint written from seeded full-width svqwae
    weights. K1's launch counter is zeroed before and read after.
 4. Times with CUDA events after a warm-up: K1 and its plain version at
-   B=256, T=5120, bf16 storage, beside the bound.
+   B=256, T=5120, bf16 storage, beside the bound; K1's ms per step at
+   T=256 for B=256, 64, 4, 1 and a width-16 net at B=4; and, as a
+   yardstick the port never calls, a CUDA graph of one teacher-mode step
+   of the plain decode at B=4 and B=256.
 5. K2/K3 (the fused GLU-stack forward and backward) against their plain
    versions at svqwae width (20 layers, residual 256, gate 368, skip 256,
    cin 64), B=2 x T=2048 and B=3 x T=2000 (a row tile straddles two batch
@@ -137,10 +144,12 @@ def full_model(seed=0):
     return cfg, build_model(cfg, device="cuda", seed=seed)
 
 
-def teacher_inputs(net, B, T, rng):
+def teacher_inputs(net, B, T, rng, cond=True):
     import torch
 
     codes = torch.from_numpy(rng.integers(0, net.out_channels, (B, T))).cuda()
+    if not cond:
+        return codes, None, None
     frames = -(-T // 640)
     lat = torch.from_numpy(rng.standard_normal((B, frames, net.cin_channels)).astype(np.float32)).cuda()
     c_up = net._align_conditioning(lat, frames * 640)[:, :T].contiguous()
@@ -148,43 +157,64 @@ def teacher_inputs(net, B, T, rng):
     return codes, c_up, g
 
 
-def phase1(res):
+def k1_errors(net, B, T, rng, dtypes, cond=True):
+    """Teacher-mode logits of K1 at (B, T) against the plain decode in the
+    same storage and against the f32 ``apply``: {name: max abs error}."""
     import torch
 
     from wavenet_autoencoders_tpu_torch.kernels import decode as K
 
-    _cfg, model = full_model(seed=1)
-    net = model.wavenet
-    B, T = 4, 2560
     with torch.no_grad():
-        codes, c_up, g = teacher_inputs(net, B, T, np.random.default_rng(1))
+        codes, c_up, g = teacher_inputs(net, B, T, rng, cond)
         y_apply = net.apply(codes, c_up, g, upsampled=True)
         packed = K.pack_decode_weights(net)
         g_add = K.precompute_g_add(net, g)
         before = K.LAUNCHES
-        out = {}
-        for dt in ("float32", "bfloat16"):
-            _, out[dt] = K.wavenet_decode(net, packed, T, 0, c_up, g_add, codes, True, dt)
+        out = {dt: K.wavenet_decode(net, packed, T, 0, c_up, g_add, codes, True, dt)[1] for dt in dtypes}
         torch.cuda.synchronize()
-        if K.LAUNCHES != before + 2:
-            raise RuntimeError(f"launch counter moved by {K.LAUNCHES - before}, expected 2")
-        plain = {}
-        for dt in ("float32", "bfloat16"):
-            _, plain[dt] = K.wavenet_decode_reference(net, packed, T, 0, c_up, g_add, codes, True, dt)
-    errs = {
-        "f32_vs_apply": (out["float32"] - y_apply).abs().max().item(),
-        "f32_vs_plain": (out["float32"] - plain["float32"]).abs().max().item(),
-        "bf16_vs_plain_bf16": (out["bfloat16"] - plain["bfloat16"]).abs().max().item(),
-        "bf16_vs_apply_f32": (out["bfloat16"] - y_apply).abs().max().item(),
-    }
+        if K.LAUNCHES != before + len(dtypes):
+            raise RuntimeError(f"launch counter moved by {K.LAUNCHES - before}, expected {len(dtypes)}")
+        plain = {dt: K.wavenet_decode_reference(net, packed, T, 0, c_up, g_add, codes, True, dt)[1] for dt in dtypes}
+    errs = {}
+    if "float32" in dtypes:
+        errs["f32_vs_apply"] = (out["float32"] - y_apply).abs().max().item()
+        errs["f32_vs_plain"] = (out["float32"] - plain["float32"]).abs().max().item()
+    errs["bf16_vs_plain_bf16"] = (out["bfloat16"] - plain["bfloat16"]).abs().max().item()
+    errs["bf16_vs_apply_f32"] = (out["bfloat16"] - y_apply).abs().max().item()
+    return errs
+
+
+def phase1(res):
+    import torch
+
+    from wavenet_autoencoders_tpu_torch.models.wavenet import WaveNet
+
+    _cfg, model = full_model(seed=1)
+    net = model.wavenet
+    # full width without c and g (K = 3C in the gate product, no g_add)
+    bare = WaveNet(out_channels=256, layers=20, stacks=2, residual_channels=256, gate_channels=368,
+                   skip_out_channels=256, dropout=0.0, generator=torch.Generator().manual_seed(1)).cuda()
+    # the old case (f32 and bf16), then bf16 at B=256 and a ragged B=37 past
+    # the d=512 ring wrap (the large-batch schedule and the tile edges), B=1,
+    # and the net without conditioning
+    cases = [("B4_T2560", net, 4, 2560, ("float32", "bfloat16"), True),
+             ("B256_T1100", net, 256, 1100, ("bfloat16",), True),
+             ("B37_T1100", net, 37, 1100, ("bfloat16",), True),
+             ("B1_T1100", net, 1, 1100, ("bfloat16",), True),
+             ("nocond_B4_T1100", bare, 4, 1100, ("bfloat16",), False)]
     bounds = {"f32_vs_apply": TOL_F32, "f32_vs_plain": TOL_F32,
               "bf16_vs_plain_bf16": TOL_BF16_PLAIN, "bf16_vs_apply_f32": TOL_BF16_F32}
-    log(f"phase 1: B={B} T={T} max|kernel - plain| {json.dumps(errs)} bounds {json.dumps(bounds)}")
-    for k, e in errs.items():
-        if not np.isfinite(e) or e > bounds[k]:
-            raise AssertionError(f"K1 {k} = {e} exceeds {bounds[k]}")
-    res["max_abs_err"] = errs["f32_vs_apply"]
-    res["errors"] = errs
+    out = {}
+    for name, m, B, T, dts, cond in cases:
+        errs = k1_errors(m, B, T, np.random.default_rng(1), dts, cond)
+        log(f"phase 1: {name}: max|kernel - plain| {json.dumps(errs)} bounds {json.dumps(bounds)}")
+        for k, e in errs.items():
+            if not np.isfinite(e) or e > bounds[k]:
+                raise AssertionError(f"K1 {name} {k} = {e} exceeds {bounds[k]}")
+        out[name] = errs
+    # the main path's storage: the bf16 kernel against the bf16 plain decode
+    res["max_abs_err"] = max(e["bf16_vs_plain_bf16"] for e in out.values())
+    res["errors"] = out
     res["tolerances"] = bounds
 
 
@@ -364,20 +394,24 @@ def phase4(res):
             lambda: K.wavenet_decode_reference(net, packed, T, 0, c_up, g_add, dtype_str="bfloat16"),
             reps=1, warmup=False,
         )
-        # where a step's time goes: full width at B=256 and B=4, and a
+        # where a step's time goes: full width at B=256, 64, 4 and 1, and a
         # 20-layer net of width 16 at B=4, whose steps are almost all
-        # barriers and per-stage latency (2L+3 stages per step)
+        # stage hand-offs and per-stage latency (2L+3 stages per step)
         tiny = WaveNet(out_channels=256, layers=20, stacks=2, residual_channels=16, gate_channels=32,
                        skip_out_channels=16, cin_channels=16, dropout=0.0,
                        generator=torch.Generator().manual_seed(0)).cuda()
         short = 256
         breakdown = {}
-        for name, m, b in (("full_B256", net, 256), ("full_B4", net, 4), ("width16_B4", tiny, 4)):
+        for name, m, b in (("full_B256", net, 256), ("full_B64", net, 64), ("full_B4", net, 4), ("full_B1", net, 1),
+                           ("width16_B4", tiny, 4)):
             cu = c_up[:b, :short, : m.cin_channels].contiguous()
             pk = K.pack_decode_weights(m)
             breakdown[name] = cuda_time(lambda: K.wavenet_decode(m, pk, short, 0, cu, dtype_str="bfloat16"),
                                         reps=1) / short
         log(f"phase 4: ms per step at T={short}: {json.dumps(breakdown)}")
+        graph = {f"B{b}": reference_step_graph_ms(net, packed, b, rng) for b in (4, 256)}
+        log(f"phase 4: yardstick, ms per step of a CUDA graph of one teacher-mode step of the plain decode "
+            f"(bf16 storage, f32 products; the port never calls it): {json.dumps(graph)}")
     C, G, S, O, L = net.residual_channels, net.gate_channels, net.skip_out_channels, net.out_channels, net.n_layers
     cin = net.cin_channels
     mac_row_step = L * (3 * C * G + cin * G + (G // 2) * (C + S)) + S * S + S * O
@@ -401,7 +435,60 @@ def phase4(res):
         "flop": flop,
         "audio_s_per_s": audio_s / (ms / 1e3),
         "ms_per_step": breakdown,
+        "graph_step_ms": graph,
     })
+
+
+def reference_step_graph_ms(net, packed, B, rng, reps=50) -> float:
+    """ms per step of one teacher-mode step of ``wavenet_decode_reference``
+    (its loop body at t=700, without the sampling draw: weights, rings, c
+    and activations rounded to bf16, products in f32) captured in a CUDA
+    graph and replayed: what eager PyTorch gives for a step once launch
+    overhead is gone. A yardstick beside K1's ms per step."""
+    import torch
+
+    from wavenet_autoencoders_tpu_torch.kernels import decode as K
+
+    def q(x):
+        return x.to(torch.bfloat16).float()
+
+    L, C, G, O = net.n_layers, net.residual_channels, net.gate_channels, net.out_channels
+    G2, dev, t = G // 2, "cuda", 700
+    w = {k: q(v) for k, v in packed.items() if k in K._WEIGHTS}
+    offs = K._ring_offsets(net)
+    ring = torch.from_numpy(rng.standard_normal((offs[-1], B, C)).astype(np.float32)).to(dev, torch.bfloat16)
+    x = torch.from_numpy(rng.integers(0, O, (B,))).to(dev)
+    c_t = q(torch.from_numpy(rng.standard_normal((B, net.cin_channels)).astype(np.float32)).to(dev))
+    g_add = torch.from_numpy(0.1 * rng.standard_normal((L, B, G)).astype(np.float32)).to(dev)
+    logits = torch.empty(B, O, device=dev)
+
+    def step():
+        h = w["w1"][x] + packed["b1"]
+        skip = 0.0
+        for l in range(L):
+            d = net.dilation(l)
+            s0, s1 = offs[l] + t % (2 * d), offs[l] + (t + d) % (2 * d)
+            ab = (ring[s0].float() @ w["wconv"][l, 0] + ring[s1].float() @ w["wconv"][l, 1]
+                  + q(h) @ w["wconv"][l, 2] + packed["bconv"][l] + c_t @ w["wc"][l] + g_add[l])
+            act = q(torch.tanh(ab[:, :G2]) * torch.sigmoid(ab[:, G2:]))
+            skip = skip + act @ w["wskip"][l] + packed["bskip"][l]
+            out = act @ w["wout"][l] + packed["bout"][l]
+            ring[s0] = h.to(torch.bfloat16)
+            h = (out + h) * 0.7071067811865476
+        y = q(torch.relu(skip * (1.0 / L) ** 0.5))
+        y = q(torch.relu(y @ w["wp1"] + packed["bp1"]))
+        logits.copy_(y @ w["wp2"] + packed["bp2"])
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    return cuda_time(graph.replay, reps)
 
 
 def glu_inputs(B, T, store, rng):
@@ -801,8 +888,18 @@ def main(argv=None) -> int:
     log(f"phase 0: built {sorted(logs) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  {name}: {line.strip()}")
+    from wavenet_autoencoders_tpu_torch.config import load_preset
+    from wavenet_autoencoders_tpu_torch.kernels import decode as K1
+
+    cfg = load_preset("svqwae")
+    plan = K1.block_plan(cfg.layers, cfg.residual_channels, cfg.gate_channels, cfg.skip_out_channels,
+                         cfg.out_channels, cfg.cin_channels, torch.cuda.get_device_properties(0).multi_processor_count)
+    share = plan.blk[:, 3] * 16
+    log(f"phase 0: K1 bf16 (decode_tc_kernel) at svqwae width on {plan.n_blocks} blocks: dynamic shared memory "
+        f"{plan.smem} bytes a block (resident weights {int(share.min())}..{int(share.max())} bytes, "
+        f"{int(share.sum())} in all, + {plan.smem - int(share.max())} of partial sums); {len(plan.units)} tiles")
 
     res = {k: {"name": n, "route": "cuda", "source": f"wavenet_autoencoders_tpu_torch/csrc/{src}",
                "replaces": rep, "launches": None, "max_abs_err": None, "ms": None, "plain_ms": None,

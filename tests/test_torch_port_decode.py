@@ -9,6 +9,7 @@ tests/test_decode_kernel.py:53; 5e-2 for bf16 storage against f32 (bf16
 keeps 8 mantissa bits; the tiny nets' logits are O(1)).
 """
 import ctypes
+import math
 import re
 from pathlib import Path
 
@@ -174,3 +175,188 @@ def test_args_struct_mirrors_the_cuda_source():
         names += [re.sub(r"\[.*\]", "", n).strip() for n in decl.split(",") if n.strip()]
     assert names == [f[0] for f in K._DecodeArgs._fields_]
     assert ctypes.sizeof(K._DecodeArgs) == 8 * (len(names) - 2 + 2 * K._MAXL)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernel's block plan and packing (csrc/decode.cu, decode_tc_kernel)
+# ---------------------------------------------------------------------------
+
+# (L, C, G, S, O, cin): svqwae, a vqwae-like G=256, the test nets (cin=5,
+# zero-padded to 32), a scalar-input net without local conditioning
+PLAN_DIMS = {
+    "svqwae": (20, 256, 368, 256, 256, 64),
+    "vqwae": (20, 256, 256, 256, 256, 64),
+    "test_net_cin5": (4, 8, 12, 8, 256, 5),
+    "scalar_no_c": (4, 8, 12, 8, 30, 0),
+}
+
+
+def _random_packed(L, C, G, S, O, cin, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    shapes = {"wconv": (L, 3, C, G), "wout": (L, G // 2, C), "wskip": (L, G // 2, S), "wp1": (S, S), "wp2": (S, O)}
+    if cin:
+        shapes["wc"] = (L, cin, G)
+    return {k: torch.randn(shp, generator=g) for k, shp in shapes.items()}
+
+
+def _unpack_block_weights(buf, plan):
+    """The inverse of K.pack_block_weights: the weight tensors of
+    pack_decode_weights (wconv, wc, wout, wskip, wp1, wp2) rebuilt from the
+    packed shares."""
+    flat = torch.zeros(plan.zero + 1, dtype=buf.dtype)
+    flat[torch.from_numpy(plan.index)] = buf
+    return {n: flat[o : o + int(np.prod(shp))].reshape(shp) for n, o, shp in plan.shapes}
+
+
+def _unit_tiles(buf, plan):
+    """{(kind, layer, tile): (Kp, 16) weight tile} read back from the packed
+    shares through K.fragment_order (a skip unit gives one tile per layer):
+    column r of a gate tile is gate column 8 tile + r (r < 8) or G/2 + 8 tile
+    + r - 8; of any other tile, column 16 tile + r; row k is the physical k
+    of the kernel's input row (segments padded to 32; a gate tile's are
+    [tap0 | tap1 | c | h])."""
+    out = {}
+    L = plan.key[0]
+    for b0, b1, w0, _ in plan.blk:
+        for kind, l, t, woff in plan.units[b0:b1]:
+            start = (w0 + woff) * 8
+            if kind == K.U_GATE:
+                kps = [3 * plan.cp + plan.cinp]
+            elif kind in (K.U_OUT, K.U_SKIP):
+                kps = [plan.g2p] * (L if kind == K.U_SKIP else 1)
+            else:
+                kps = [plan.sp]
+            for i, kp in enumerate(kps):
+                kidx, col = K.fragment_order(kp // 32)
+                tile = torch.zeros(kp, 16, dtype=buf.dtype)
+                tile[torch.from_numpy(kidx), torch.from_numpy(col)] = buf[start : start + 16 * kp]
+                out[(int(kind), int(l) + i, int(t))] = tile
+                start += 16 * kp
+    return out
+
+
+@pytest.mark.parametrize("name", list(PLAN_DIMS))
+def test_block_packing_inverts_to_the_packed_weights(name):
+    """Every weight lands in some block's share, and unpacking the shares
+    gives back pack_decode_weights' tensors exactly (packed in f32)."""
+    dims = PLAN_DIMS[name]
+    packed = _random_packed(*dims)
+    plan = K.block_plan(*dims, 132)
+    buf = K.pack_block_weights(packed, plan, torch.float32)
+    assert buf.numel() == 8 * int(plan.blk[:, 3].sum())
+    back = _unpack_block_weights(buf, plan)
+    assert set(back) == set(packed)
+    for k, v in packed.items():
+        assert torch.equal(back[k], v), k
+    # the padding reads zeros only: as many nonzeros as weights (randn has no zeros)
+    assert int((buf != 0).sum()) == sum(v.numel() for v in packed.values()) + _dup_count(plan)
+
+
+def _dup_count(plan):
+    """Packed elements beyond one per weight (none: each weight is in one tile)."""
+    idx = plan.index[plan.index != plan.zero]
+    return idx.size - np.unique(idx).size
+
+
+@pytest.mark.parametrize("name", ["svqwae", "test_net_cin5"])
+def test_block_plan_spreads_each_stage_over_distinct_blocks(name):
+    plan = K.block_plan(*PLAN_DIMS[name], 132)
+    u = plan.units
+    owner = np.repeat(np.arange(plan.n_blocks), plan.blk[:, 1] - plan.blk[:, 0])
+    for kind in (K.U_GATE, K.U_OUT, K.U_POST1, K.U_LOGITS):
+        for l in np.unique(u[u[:, 0] == kind, 1]):
+            sel = (u[:, 0] == kind) & (u[:, 1] == l)
+            n = {K.U_GATE: plan.ngt, K.U_OUT: plan.nout, K.U_POST1: plan.npt, K.U_LOGITS: plan.nlt}[kind]
+            assert sorted(u[sel, 2]) == list(range(n))
+            assert len(set(owner[sel])) == n  # one tile per block in a stage
+    # skip blocks hold one skip tile each and nothing else; units in chain order
+    assert list(u[: plan.nst, 0]) == [K.U_SKIP] * plan.nst and set(owner[: plan.nst]) == set(range(plan.nst))
+    pos = np.where(u[:, 0] == K.U_GATE, 2 * u[:, 1], np.where(u[:, 0] == K.U_OUT, 2 * u[:, 1] + 1, 100 + u[:, 0]))
+    for b0, b1, _, _ in plan.blk:
+        assert list(pos[b0:b1]) == sorted(pos[b0:b1])
+        # no gate tile right behind one of the three stages before it on the chain
+        gates = pos[b0:b1][u[b0:b1, 0] == K.U_GATE]
+        assert not set(gates) & {p + d for p in pos[b0:b1] for d in (1, 2, 3)}
+
+
+@pytest.mark.parametrize("n_blocks", [20, 40])
+def test_block_plan_raises_where_the_grid_cannot_hold_the_weights(n_blocks):
+    """20 blocks are fewer than svqwae's 16 skip tiles plus 23 gate tiles; 40
+    blocks would need ~600 KB of shared memory each. The message gives the
+    sizes."""
+    with pytest.raises(ValueError, match="blocks|bytes"):
+        K.block_plan(*PLAN_DIMS["svqwae"], n_blocks)
+
+
+def _emulate_block_products(net, packed, T, c_up, g_add, teach):
+    """Teacher-mode logits computed as the bf16 kernel computes them, in
+    f32: every product from the packed per-block tiles (unit_tiles), inputs
+    laid out in the kernel's padded physical k order, the kernel's
+    epilogues per tile."""
+    L, B = net.n_layers, teach.shape[0]
+    C, G, S, O = net.residual_channels, net.gate_channels, net.skip_out_channels, net.out_channels
+    G2, cin = G // 2, 0 if c_up is None else c_up.shape[-1]
+    plan = K.block_plan(L, C, G, S, O, cin, 132)
+    tiles = _unit_tiles(K.pack_block_weights(packed, plan, torch.float32), plan)
+
+    def pad(x, n):
+        return torch.nn.functional.pad(x, (0, n - x.shape[-1]))
+
+    offs = K._ring_offsets(net)
+    ring = torch.zeros(offs[-1], B, plan.cp)
+    logits = torch.empty(B, T, O)
+    r8 = torch.arange(8)
+    for t in range(T):
+        x = teach[:, t].float()
+        if net.scalar_input:
+            h = x[:, None] * packed["w1"][0] + packed["b1"]
+        else:
+            h = packed["w1"][x.long().clamp(max=O - 1)] * (x < O)[:, None] + packed["b1"]
+        skip = torch.zeros(B, S)
+        for l in range(L):
+            d = net.dilation(l)
+            s0, s1 = offs[l] + t % (2 * d), offs[l] + (t + d) % (2 * d)
+            X = torch.cat([ring[s0], ring[s1]] + ([pad(c_up[:, t], plan.cinp)] if cin else []) + [pad(h, plan.cp)], -1)
+            act = torch.zeros(B, plan.g2p)
+            for tile in range(plan.ngt):
+                ab = X @ tiles[(K.U_GATE, l, tile)]
+                p = 8 * tile + r8
+                ok = p < G2
+                p = p[ok]
+                xa = ab[:, :8][:, ok] + packed["bconv"][l, p]
+                xb = ab[:, 8:][:, ok] + packed["bconv"][l, G2 + p]
+                if g_add is not None:
+                    xa, xb = xa + g_add[l][:, p], xb + g_add[l][:, G2 + p]
+                act[:, p] = torch.tanh(xa) * torch.sigmoid(xb)
+            out = torch.cat([act @ tiles[(K.U_OUT, l, j)] for j in range(plan.nout)], -1)[:, :C]
+            sk = torch.cat([act @ tiles[(K.U_SKIP, l, j)] for j in range(plan.nst)], -1)[:, :S]
+            skip = skip + sk + packed["bskip"][l]
+            ring[s0, :, :C] = h
+            h = (out + packed["bout"][l] + h) * math.sqrt(0.5)
+        ys = pad(torch.relu(skip * math.sqrt(1.0 / L)), plan.sp)
+        y1 = torch.cat([ys @ tiles[(K.U_POST1, 0, j)] for j in range(plan.npt)], -1)[:, :S]
+        y1 = pad(torch.relu(y1 + packed["bp1"]), plan.sp)
+        lg = torch.cat([y1 @ tiles[(K.U_LOGITS, 0, j)] for j in range(plan.nlt)], -1)[:, :O]
+        logits[:, t] = lg + packed["bp2"]
+    return logits
+
+
+@pytest.mark.parametrize("case", ["mulaw", "scalar", "mulaw_no_c_no_g"])
+def test_emulated_block_products_match_the_plain_teacher_logits(case):
+    """The packed per-block layout (gate pairs interleaved, K segments padded
+    to 32, k permuted within each 32) computes the plain version's
+    teacher-mode logits: f32, 1e-5 (only the summation order differs)."""
+    if case == "mulaw_no_c_no_g":
+        _, _, net = nets(seed=9, cin_channels=-1, gin_channels=-1, use_speaker_embedding=False, layers=6, stacks=2)
+        rng = np.random.default_rng(9)
+        c = g_add = None
+        teach = torch.from_numpy(rng.integers(0, 256, (3, 20)).astype(np.int32))
+    else:
+        _, _, net, c, g, teach = _teacher_case(case == "scalar", seed=10)
+        c, teach = torch.from_numpy(c), torch.from_numpy(teach)
+        g_add = K.precompute_g_add(net, torch.from_numpy(g))
+    packed = K.pack_decode_weights(net)
+    T = teach.shape[1]
+    _, want = K.wavenet_decode_reference(net, packed, T, 0, c, g_add, teach, True, "float32")
+    got = _emulate_block_products(net, packed, T, c, g_add, teach)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)

@@ -16,6 +16,12 @@ the sample.
 tensors go to ``wavenet_decode_reference``, CUDA tensors to the kernel. A
 CUDA tensor the kernel refuses raises; there is no fallback.
 
+In bf16 storage (the main path) the kernel keeps every weight resident in
+the grid's shared memory: :func:`block_plan` cuts the products into tiles of
+16 output columns and gives them to blocks, and :func:`pack_block_weights`
+packs each block's share once per call in the order the kernel's tensor-core
+fragments read it. f32 storage streams the weights from L2.
+
 Two TPU-only knobs of the JAX kernel have no counterpart: the batch pad to
 a multiple of 8 and ``hbm_min_dilation`` (the rings always live in one
 device-memory arena here).
@@ -23,9 +29,13 @@ device-memory arena here).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from dataclasses import dataclass
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from wavenet_autoencoders_tpu_torch.ops.conv import conv1d_weight
 
@@ -96,6 +106,202 @@ def _ring_offsets(net) -> list[int]:
         offs.append(o)
         o += 2 * net.dilation(l)
     return offs + [o]
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernel's block plan: which block holds which weight tile
+# ---------------------------------------------------------------------------
+
+#: Shared memory one block may use on sm_90 (227 KB), less the kernel's
+#: static shared memory.
+SMEM_LIMIT = 232448 - 1024
+_RED_BYTES = 4096 * 4  # the kernel's partial sums (RED_FLOATS)
+_CSTRIDE = 32  # counters 128 bytes apart (CSTRIDE)
+U_GATE, U_OUT, U_SKIP, U_POST1, U_LOGITS = range(5)
+_FLAT = ("wconv", "wc", "wout", "wskip", "wp1", "wp2")
+
+
+def _pad32(n: int) -> int:
+    return -(-n // 32) * 32
+
+
+def fragment_order(nkb: int) -> tuple[np.ndarray, np.ndarray]:
+    """Where the packed fragments of a (32 nkb) x 16 weight tile come from:
+    element e of the packing is tile[kp[e], col[e]], in the order (k block
+    kb, k step s, lane, register j, half). A lane (r, q) = (lane // 4,
+    lane % 4) holds, for mma.sync m16n8k16's A operand, rows r + 8 (j % 2)
+    and the logical k 2q + 8 (j // 2) + half of step s, which the packing
+    places at physical k 32 kb + 8q + 4s + 2 (j // 2) + half: a lane's input
+    fragments of both steps are then the 8 contiguous values at 32 kb + 8q."""
+    kb, s, lane, j, lo = np.meshgrid(*(np.arange(n) for n in (nkb, 2, 32, 4, 2)), indexing="ij")
+    kp = kb * 32 + 8 * (lane % 4) + 4 * s + 2 * (j // 2) + lo
+    col = lane // 4 + 8 * (j % 2)
+    return kp.reshape(-1), col.reshape(-1)
+
+
+@dataclass(frozen=True)
+class BlockPlan:
+    """Where each weight tile of the bf16 kernel lives (``csrc/decode.cu``).
+
+    ``units`` (n, 4) int32 rows (kind, layer, tile, offset of the tile's
+    fragments in its block's share, in 16-byte words), each block's rows in
+    chain order; ``blk`` (n_blocks, 4) int64 rows (first unit, end unit,
+    share offset, share length, both in 16-byte words); ``index`` the flat
+    source position of every packed element (``zero``: a zero). Blocks
+    0..nst-1 each own one skip column tile in every layer; the rest hold
+    the gate, out, post1 and logits tiles, and sample rows.
+    """
+
+    key: tuple
+    n_blocks: int
+    nst: int
+    ngt: int
+    nout: int
+    npt: int
+    nlt: int
+    cp: int
+    g2p: int
+    sp: int
+    cinp: int
+    smem: int
+    units: np.ndarray
+    blk: np.ndarray
+    index: np.ndarray
+    zero: int
+    shapes: tuple  # ((name, offset, shape), ...) of the flat source
+
+
+def _tile_src(base, ld_k, K, Kp, cols, valid, zero):
+    """(Kp, 16) flat source positions of rows k < K (ld_k apart) and the
+    given columns of one weight matrix; padding reads the zero."""
+    kk = np.arange(Kp)[:, None]
+    idx = base + kk * ld_k + cols[None, :]
+    return np.where((kk < K) & valid[None, :], idx, zero)
+
+
+@functools.lru_cache(maxsize=16)
+def block_plan(L: int, C: int, G: int, S: int, O: int, cin: int, n_blocks: int,
+               smem_limit: int = SMEM_LIMIT) -> BlockPlan:
+    """Tiles of 16 output columns for every product of the bf16 kernel,
+    given to ``n_blocks`` blocks (one per SM). The tiles of one stage go to
+    different blocks, each to the block with the fewest bytes so far, so
+    that a stage runs on as many blocks as it has tiles and the weights are
+    balanced over the SMs; a gate tile goes to a block that holds none of
+    the three stages before it, where there is one. Raises ValueError where the grid cannot take the
+    weights (a block's share past ``smem_limit``, or fewer blocks than a
+    stage's tiles)."""
+    G2 = G // 2
+    cp, g2p, sp, cinp = _pad32(C), _pad32(G2), _pad32(S), _pad32(cin)
+    ngt, nout, nst, npt, nlt = -(-G2 // 8), -(-C // 16), -(-S // 16), -(-S // 16), -(-O // 16)
+    rest = n_blocks - nst
+    if rest < max(ngt, nout, npt, nlt):
+        raise ValueError(
+            f"the decode kernel needs {nst} blocks for the skip tiles and {max(ngt, nout, npt, nlt)} for "
+            f"the widest stage, the grid has {n_blocks}"
+        )
+    shapes, o = [], 0
+    for name, shp in zip(_FLAT, ((L, 3, C, G), (L, cin, G), (L, G2, C), (L, G2, S), (S, S), (S, O))):
+        if name == "wc" and cin == 0:
+            continue
+        shapes.append((name, o, shp))
+        o += int(np.prod(shp))
+    off = {n: b for n, b, _ in shapes}
+    zero = o
+    kp_of = {}
+
+    def frag(src):
+        nkb = src.shape[0] // 32
+        if nkb not in kp_of:
+            kp_of[nkb] = fragment_order(nkb)
+        kp, col = kp_of[nkb]
+        return src[kp, col]
+
+    r16 = np.arange(16)
+    units = [[] for _ in range(n_blocks)]  # per block: (kind, layer, tile, packed elements)
+    load = [0] * n_blocks
+
+    def place(kind, l, tiles, avoid=(), last=()):
+        """Each tile to the least-loaded block; blocks holding a stage in
+        ``avoid``, and the blocks in ``last``, come last."""
+        busy = set(last) | {b for b in range(nst, n_blocks) if any((k, j) in avoid for k, j, _, _ in units[b])}
+        order = sorted(range(nst, n_blocks), key=lambda b: (b in busy, load[b], b))[: len(tiles)]
+        for t, (b, src) in enumerate(zip(order, tiles)):
+            units[b].append((kind, l, t, src))
+            load[b] += src.size * 2
+
+    for j in range(nst):  # skip tile j, every layer
+        n = 16 * j + r16
+        src = np.concatenate([
+            frag(_tile_src(off["wskip"] + l * G2 * S, S, G2, g2p, n, n < S, zero)) for l in range(L)])
+        units[j].append((U_SKIP, 0, j, src))
+        load[j] += src.size * 2
+    for l in range(L):
+        gates = []
+        for t in range(ngt):
+            p = 8 * t + r16 % 8
+            n, ok = p + G2 * (r16 >= 8), p < G2
+            # k segments [tap0 | tap1 | c | h], the kernel's input order
+            segs = [_tile_src(off["wconv"] + j * C * G + l * 3 * C * G, G, C, cp, n, ok, zero) for j in range(2)]
+            if cin:
+                segs.append(_tile_src(off["wc"] + l * cin * G, G, cin, cinp, n, ok, zero))
+            segs.append(_tile_src(off["wconv"] + 2 * C * G + l * 3 * C * G, G, C, cp, n, ok, zero))
+            gates.append(frag(np.concatenate(segs)))
+        # a gate tile's taps-and-c product runs while the three stages
+        # before it on the chain do; on a block that holds one of them it
+        # would wait for that tile instead (and the samplers at B <= 8,
+        # the first non-skip blocks, run just before gate_0)
+        place(U_GATE, l, gates, avoid={(U_OUT, l - 2), (U_GATE, l - 1), (U_OUT, l - 1)},
+              last=range(nst, nst + 8) if l == 0 else ())
+        place(U_OUT, l, [frag(_tile_src(off["wout"] + l * G2 * C, C, G2, g2p, 16 * t + r16, 16 * t + r16 < C, zero))
+                         for t in range(nout)])
+    place(U_POST1, 0, [frag(_tile_src(off["wp1"], S, S, sp, 16 * t + r16, 16 * t + r16 < S, zero))
+                       for t in range(npt)])
+    place(U_LOGITS, 0, [frag(_tile_src(off["wp2"], O, S, sp, 16 * t + r16, 16 * t + r16 < O, zero))
+                        for t in range(nlt)])
+
+    rows, blk, index, w = [], [], [], 0
+    for b in range(n_blocks):
+        u0, w0 = len(rows), w
+        for kind, l, t, src in units[b]:
+            rows.append((kind, l, t, (w - w0) // 8))
+            index.append(src)
+            w += src.size
+        blk.append((u0, len(rows), w0 // 8, (w - w0) // 8))
+    smem = _RED_BYTES + max(load)
+    if smem > smem_limit:
+        raise ValueError(
+            f"the decode kernel's resident weights need {max(load)} bytes of shared memory in one block "
+            f"({sum(load)} bytes over {n_blocks} blocks) plus {_RED_BYTES} of partial sums, "
+            f"above the {smem_limit} bytes a block can have"
+        )
+    return BlockPlan(
+        key=(L, C, G, S, O, cin, n_blocks), n_blocks=n_blocks, nst=nst, ngt=ngt, nout=nout, npt=npt, nlt=nlt,
+        cp=cp, g2p=g2p, sp=sp, cinp=cinp, smem=smem,
+        units=np.asarray(rows, np.int32).reshape(-1, 4), blk=np.asarray(blk, np.int64),
+        index=np.concatenate(index) if index else np.zeros(0, np.int64), zero=zero, shapes=tuple(shapes),
+    )
+
+
+_PLAN_TENSORS: dict = {}
+
+
+def _plan_tensors(plan: BlockPlan, dev) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(index, units, blk) of a plan on ``dev``, made once per device."""
+    k = (plan.key, str(dev))
+    if k not in _PLAN_TENSORS:
+        _PLAN_TENSORS[k] = tuple(torch.from_numpy(x).to(dev) for x in (plan.index, plan.units, plan.blk))
+    return _PLAN_TENSORS[k]
+
+
+def pack_block_weights(packed: dict, plan: BlockPlan, dtype=torch.bfloat16) -> torch.Tensor:
+    """Every block's share of the weights, in block order and, within a
+    block, in the order the kernel reads its fragments: one flat tensor of
+    ``dtype`` (the kernel takes bf16; a CPU test may pack f32 to check the
+    layout exactly)."""
+    dev = packed["wconv"].device
+    src = torch.cat([packed[n].reshape(-1).to(dtype) for n, _, _ in plan.shapes]
+                    + [torch.zeros(1, dtype=dtype, device=dev)])
+    return src[_plan_tensors(plan, dev)[0]]
 
 
 def wavenet_decode(
@@ -236,6 +442,10 @@ class _DecodeArgs(ctypes.Structure):
             "wp1", "bp1", "wp2", "bp2", "c_up", "g_add", "teach",
             "ring", "h", "act", "skip", "y1", "bar", "codes", "logits", "stream",
         )]
+        + [(n, ctypes.c_int64) for n in (
+            "NB", "NST", "NGT", "NOT", "NPT", "NLT", "CP", "G2P", "SP", "CINP", "smem",
+        )]
+        + [(n, ctypes.c_void_p) for n in ("wbuf", "units", "blk", "hb", "ys", "cnt")]
     )
 
 
@@ -305,14 +515,30 @@ def _decode_cuda(net, packed, T, seed, c_up, g_add, teach, teacher, dtype_str):
         _check("teach", teach, (B, T), teach.dtype, dev)
 
     offs = _ring_offsets(net)
-    ring = torch.zeros(offs[-1], B, C, dtype=store, device=dev)
-    h = torch.empty(B, C, dtype=torch.float32, device=dev)
-    act = torch.empty(B, G // 2, dtype=store, device=dev)
-    skip = torch.empty(B, S, dtype=torch.float32, device=dev)
-    y1 = torch.empty(B, S, dtype=store, device=dev)
-    bar = torch.zeros(2, dtype=torch.int32, device=dev)
     codes = torch.empty(B, T, dtype=torch.float32 if scalar else torch.int32, device=dev)
     logits = torch.empty(B, T, O, dtype=torch.float32, device=dev)
+    h = torch.empty(B, C, dtype=torch.float32, device=dev)
+    skip = torch.empty(B, S, dtype=torch.float32, device=dev)
+    tc = store == torch.bfloat16
+    if tc:  # resident weights; rows padded to 32 columns, zeros in the pad
+        n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = block_plan(L, C, G, S, O, cin, n_sms)
+        wbuf = pack_block_weights(packed, plan)
+        _, units, blk = _plan_tensors(plan, dev)
+        if plan.cinp != cin:
+            c_up = F.pad(c_up, (0, plan.cinp - cin)).contiguous()
+        ring = torch.zeros(offs[-1], B, plan.cp, dtype=store, device=dev)
+        hb = torch.zeros(B, plan.cp, dtype=store, device=dev)
+        act = torch.zeros(L, B, plan.g2p, dtype=store, device=dev)  # one per layer
+        ys = torch.zeros(B, plan.sp, dtype=store, device=dev)
+        y1 = torch.zeros(B, plan.sp, dtype=store, device=dev)
+        cnt = torch.zeros((2 * L + 4) * _CSTRIDE, dtype=torch.int32, device=dev)
+        bar = None
+    else:
+        ring = torch.zeros(offs[-1], B, C, dtype=store, device=dev)
+        act = torch.empty(B, G // 2, dtype=store, device=dev)
+        y1 = torch.empty(B, S, dtype=store, device=dev)
+        bar = torch.zeros(2, dtype=torch.int32, device=dev)
 
     a = _DecodeArgs(
         B=B, T=T, L=L, C=C, G=G, S=S, O=O, CIN=cin,
@@ -332,6 +558,11 @@ def _decode_cuda(net, packed, T, seed, c_up, g_add, teach, teacher, dtype_str):
     a.c_up, a.g_add, a.teach = ptr(c_up), ptr(g_add), ptr(teach if teacher else None)
     a.ring, a.h, a.act, a.skip, a.y1, a.bar = map(ptr, (ring, h, act, skip, y1, bar))
     a.codes, a.logits = ptr(codes), ptr(logits)
+    if tc:
+        a.NB, a.NST, a.NGT, a.NOT, a.NPT, a.NLT = (plan.n_blocks, plan.nst, plan.ngt, plan.nout, plan.npt,
+                                                   plan.nlt)
+        a.CP, a.G2P, a.SP, a.CINP, a.smem = plan.cp, plan.g2p, plan.sp, plan.cinp, plan.smem
+        a.wbuf, a.units, a.blk, a.hb, a.ys, a.cnt = map(ptr, (wbuf, units, blk, hb, ys, cnt))
     lib = _lib()
     with torch.cuda.device(dev):
         a.stream = torch.cuda.current_stream(dev).cuda_stream
