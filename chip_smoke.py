@@ -7,15 +7,19 @@
 Phases (each raises on failure, so the script exits non-zero):
 
 0. Card name and power limit (nvidia-smi), torch version; build every
-   kernel from ``wavenet_autoencoders_tpu_torch/csrc`` and print the time,
-   each kernel's registers and spills (ptxas), and K1's bf16 block plan at
-   svqwae width (dynamic shared memory a block, resident weights).
+   kernel from ``wavenet_autoencoders_tpu_torch/csrc``, and K1's jitter
+   build, and print the time, each kernel's registers and spills (ptxas),
+   and K1's bf16 block plan at svqwae width (dynamic shared memory a block,
+   resident weights).
 1. K1 (the fused decode kernel) against its plain versions at svqwae full
    width, teacher mode, TF32 off: at B=4, T=2560 (past the d=512 ring
    wrap) the f32 kernel vs ``WaveNet.apply`` and vs the plain decode, and
    the bf16-storage kernel vs the bf16 plain decode and vs the f32
    ``apply``; the bf16 kernel likewise at B=256 and B=37 (T=1100), B=1,
-   and on a full-width net without c and g.
+   and on a full-width net without c and g. In every bf16 case the jitter
+   build (``-DWAE_JITTER``: blocks sleep at random after their waits) must
+   give the plain build's logits bit for bit, which a wait short of its
+   stage breaks.
 2. Sampling. K1 in sampling mode at the serving shape (svqwae, B=4,
    T=32000, bf16 storage, with c and g): its logits against ``WaveNet.apply``
    run on its own sampled codes fed back one step later (127 first). The
@@ -62,6 +66,8 @@ prints no result. It imports only the port, never JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -90,6 +96,9 @@ import numpy as np
 #   (off by one step) moves the logits by ~0.35 at this init (measured on
 #   the CPU over 2560 steps), which the run also checks stays above 2x the
 #   bound.
+# - bf16 jitter build vs the plain build of K1: 0, bit for bit. Every sum
+#   is added in a fixed order, so only a read of data not yet written (a
+#   wait short of its stage) can move a bit.
 # - Gumbel-argmax frequencies vs softmax: 1e-2 abs per class over 65536
 #   draws, 5.4 standard errors at the largest p (0.34). The noise with the
 #   wrong sign moves a frequency by 0.11, exponential noise by 0.06, and
@@ -117,6 +126,20 @@ def smi() -> str:
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
     return out.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def k1_build(define: str):
+    """Run K1's wrapper on the build of ``csrc/decode.cu`` compiled with
+    ``-D<define>`` (``WAE_JITTER``, ``WAE_STAMPS``) inside the block."""
+    from wavenet_autoencoders_tpu_torch.kernels import decode as K
+
+    plain = K._lib
+    K._lib = functools.partial(plain, (define,))
+    try:
+        yield
+    finally:
+        K._lib = plain
 
 
 def cuda_time(fn, reps: int, warmup: bool = True) -> float:
@@ -159,7 +182,8 @@ def teacher_inputs(net, B, T, rng, cond=True):
 
 def k1_errors(net, B, T, rng, dtypes, cond=True):
     """Teacher-mode logits of K1 at (B, T) against the plain decode in the
-    same storage and against the f32 ``apply``: {name: max abs error}."""
+    same storage and against the f32 ``apply``, and in bf16 the jitter
+    build's against the plain build's: {name: max abs difference}."""
     import torch
 
     from wavenet_autoencoders_tpu_torch.kernels import decode as K
@@ -174,8 +198,10 @@ def k1_errors(net, B, T, rng, dtypes, cond=True):
         torch.cuda.synchronize()
         if K.LAUNCHES != before + len(dtypes):
             raise RuntimeError(f"launch counter moved by {K.LAUNCHES - before}, expected {len(dtypes)}")
+        with k1_build("WAE_JITTER"):
+            jittered = K.wavenet_decode(net, packed, T, 0, c_up, g_add, codes, True, "bfloat16")[1]
         plain = {dt: K.wavenet_decode_reference(net, packed, T, 0, c_up, g_add, codes, True, dt)[1] for dt in dtypes}
-    errs = {}
+    errs = {"bf16_jitter_vs_plain_build": (jittered - out["bfloat16"]).abs().max().item()}
     if "float32" in dtypes:
         errs["f32_vs_apply"] = (out["float32"] - y_apply).abs().max().item()
         errs["f32_vs_plain"] = (out["float32"] - plain["float32"]).abs().max().item()
@@ -203,7 +229,8 @@ def phase1(res):
              ("B1_T1100", net, 1, 1100, ("bfloat16",), True),
              ("nocond_B4_T1100", bare, 4, 1100, ("bfloat16",), False)]
     bounds = {"f32_vs_apply": TOL_F32, "f32_vs_plain": TOL_F32,
-              "bf16_vs_plain_bf16": TOL_BF16_PLAIN, "bf16_vs_apply_f32": TOL_BF16_F32}
+              "bf16_vs_plain_bf16": TOL_BF16_PLAIN, "bf16_vs_apply_f32": TOL_BF16_F32,
+              "bf16_jitter_vs_plain_build": 0.0}
     out = {}
     for name, m, B, T, dts, cond in cases:
         errs = k1_errors(m, B, T, np.random.default_rng(1), dts, cond)
@@ -884,7 +911,7 @@ def main(argv=None) -> int:
     card = smi()
     log(f"phase 0: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    logs = build.build()
+    logs = build.build(sorted(p.stem for p in build.CSRC.glob("*.cu")) + [("decode", ("WAE_JITTER",))])
     log(f"phase 0: built {sorted(logs) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():

@@ -3,11 +3,11 @@
 
     python3 k1_stages.py [--out stages.json]
 
-Builds a copy of the port outside the checkout (a temporary directory)
-whose ``csrc/decode.cu`` records ``%globaltimer`` stamps, and runs it; the
-checkout's kernel stays uninstrumented. In the copy each block's thread 0
-stamps, for every tile it runs in steps T0 .. T0+3: when it starts to wait
-for the stage's inputs, when its waits pass, and when it has released its
+Builds ``csrc/decode.cu`` with ``-DWAE_STAMPS`` into a library of its own
+(the port keeps loading the plain build) and runs the decode through it.
+In that build each block's thread 0 records ``%globaltimer``, for every
+tile it runs in steps STAMP_T0 .. STAMP_T0+3: when it starts to wait for
+the stage's inputs, when its waits pass, and when it has released its
 arrival; the sampler blocks likewise for the sample stage. Per stage of
 the chain (gate_l, out_l, post1, logits, sample) the script reports:
 
@@ -26,57 +26,14 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import shutil
-import subprocess
 import sys
-import tempfile
 from pathlib import Path
 
 import numpy as np
 
-ROOT = Path(__file__).resolve().parent
-T0, STEPS, MAXU = 64, 4, 48
+from chip_smoke import k1_build, smi
 
-# (anchor in csrc/decode.cu, text inserted after it)
-PATCHES = [
-    ("#include <stdint.h>\n",
-     f"#define STAMP_T0 {T0}\n#define STAMP_STEPS {STEPS}\n#define STAMP_U {MAXU}\n"
-     "__device__ unsigned long long g_stamp[256 * STAMP_STEPS * STAMP_U * 3];\n"
-     "__shared__ unsigned long long s_st[3];\n"
-     "__device__ __forceinline__ unsigned long long gtime() {\n"
-     "  unsigned long long v;\n  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(v));\n  return v;\n}\n"
-     "extern \"C\" int wae_stamps(unsigned long long* host, size_t n) {\n"
-     "  return (int)cudaMemcpyFromSymbol(host, g_stamp, n * sizeof(unsigned long long));\n}\n"),
-    ("__device__ __forceinline__ void wait2(const DecodeArgs& a, int c0, unsigned n0, int c1, unsigned n1) {\n"
-     "  if (threadIdx.x == 0) {\n",
-     "    s_st[0] = gtime();\n"),
-    ("      while (ld_acquire(p1) < n1) __nanosleep(20);\n    }\n",
-     "    s_st[1] = gtime();\n"),
-    ("    asm volatile(\"red.release.gpu.global.add.u32 [%0], 1;\\n\" ::\"l\"(counter(a, c)) : \"memory\");\n",
-     "    s_st[2] = gtime();\n"),
-    ("          arrive(a, c_logits);\n          break;\n      }\n",
-     "      if (threadIdx.x == 0 && t >= STAMP_T0 && t < STAMP_T0 + STAMP_STEPS && u - u0 < STAMP_U - 1)\n"
-     "        for (int i = 0; i < 3; ++i)\n"
-     "          g_stamp[((blockIdx.x * STAMP_STEPS + (t - STAMP_T0)) * STAMP_U + (u - u0)) * 3 + i] = s_st[i];\n"),
-    ("      stage_sample<bf16>(a, t, red, rb, R);\n      arrive(a, c_sample);\n",
-     "      if (threadIdx.x == 0 && t >= STAMP_T0 && t < STAMP_T0 + STAMP_STEPS)\n"
-     "        for (int i = 0; i < 3; ++i)\n"
-     "          g_stamp[((blockIdx.x * STAMP_STEPS + (t - STAMP_T0)) * STAMP_U + STAMP_U - 1) * 3 + i] = s_st[i];\n"),
-]
-
-
-def instrumented_copy(dst: Path) -> Path:
-    pkg = dst / "wavenet_autoencoders_tpu_torch"
-    shutil.copytree(ROOT / "wavenet_autoencoders_tpu_torch", pkg,
-                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    cu = pkg / "csrc" / "decode.cu"
-    src = cu.read_text()
-    for anchor, text in PATCHES:
-        if src.count(anchor) != 1:
-            raise RuntimeError(f"anchor not found once in decode.cu: {anchor!r}")
-        src = src.replace(anchor, anchor + text)
-    cu.write_text(src)
-    return dst
+STEPS, MAXU = 4, 48  # STAMP_STEPS and STAMP_U of csrc/decode.cu
 
 
 def analyse(plan, st, B):
@@ -124,8 +81,7 @@ def analyse(plan, st, B):
     return res
 
 
-def run(copy: Path) -> dict:
-    sys.path.insert(0, str(copy))
+def run() -> dict:
     import torch
 
     from wavenet_autoencoders_tpu_torch.config import load_preset
@@ -133,12 +89,11 @@ def run(copy: Path) -> dict:
     from wavenet_autoencoders_tpu_torch.models import build_model
     from wavenet_autoencoders_tpu_torch.models.wavenet import WaveNet
 
-    assert Path(K.__file__).resolve().is_relative_to(copy.resolve()), K.__file__
     net = build_model(load_preset("svqwae"), device="cuda", seed=4).wavenet
     tiny = WaveNet(out_channels=256, layers=20, stacks=2, residual_channels=16, gate_channels=32,
                    skip_out_channels=16, cin_channels=16, dropout=0.0,
                    generator=torch.Generator().manual_seed(0)).cuda()
-    lib = K._lib()
+    lib = K._lib(("WAE_STAMPS",))
     lib.wae_stamps.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
     lib.wae_stamps.restype = ctypes.c_int
     rng = np.random.default_rng(4)
@@ -147,7 +102,7 @@ def run(copy: Path) -> dict:
         c = torch.from_numpy(rng.standard_normal((B, T, m.cin_channels)).astype(np.float32)).cuda()
         teach = torch.from_numpy(rng.integers(0, 256, (B, T)).astype(np.int32)).cuda()
         pk = K.pack_decode_weights(m)
-        with torch.no_grad():
+        with torch.no_grad(), k1_build("WAE_STAMPS"):
             for _ in range(2):  # the second run is the one read
                 K.wavenet_decode(m, pk, T, 0, c, None, teach, True, "bfloat16")
         torch.cuda.synchronize()
@@ -175,10 +130,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("k1_stages: no CUDA device", file=sys.stderr)
         return 2
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60).stdout.strip()
-    with tempfile.TemporaryDirectory() as tmp:
-        res = run(instrumented_copy(Path(tmp)))
+    card = smi()
+    res = run()
     res["card"] = card
     if args.out:
         Path(args.out).write_text(json.dumps(res, indent=1))

@@ -192,19 +192,21 @@ PLAN_DIMS = {
 
 
 def _random_packed(L, C, G, S, O, cin, seed=0):
+    """Random weights already rounded to bf16, so the bf16 packing holds them
+    exactly."""
     g = torch.Generator().manual_seed(seed)
     shapes = {"wconv": (L, 3, C, G), "wout": (L, G // 2, C), "wskip": (L, G // 2, S), "wp1": (S, S), "wp2": (S, O)}
     if cin:
         shapes["wc"] = (L, cin, G)
-    return {k: torch.randn(shp, generator=g) for k, shp in shapes.items()}
+    return {k: torch.randn(shp, generator=g).to(torch.bfloat16).float() for k, shp in shapes.items()}
 
 
 def _unpack_block_weights(buf, plan):
     """The inverse of K.pack_block_weights: the weight tensors of
     pack_decode_weights (wconv, wc, wout, wskip, wp1, wp2) rebuilt from the
     packed shares."""
-    flat = torch.zeros(plan.zero + 1, dtype=buf.dtype)
-    flat[torch.from_numpy(plan.index)] = buf
+    flat = torch.zeros(plan.zero + 1)
+    flat[torch.from_numpy(plan.index)] = buf.float()
     return {n: flat[o : o + int(np.prod(shp))].reshape(shp) for n, o, shp in plan.shapes}
 
 
@@ -228,8 +230,8 @@ def _unit_tiles(buf, plan):
                 kps = [plan.sp]
             for i, kp in enumerate(kps):
                 kidx, col = K.fragment_order(kp // 32)
-                tile = torch.zeros(kp, 16, dtype=buf.dtype)
-                tile[torch.from_numpy(kidx), torch.from_numpy(col)] = buf[start : start + 16 * kp]
+                tile = torch.zeros(kp, 16)
+                tile[torch.from_numpy(kidx), torch.from_numpy(col)] = buf[start : start + 16 * kp].float()
                 out[(int(kind), int(l) + i, int(t))] = tile
                 start += 16 * kp
     return out
@@ -238,12 +240,12 @@ def _unit_tiles(buf, plan):
 @pytest.mark.parametrize("name", list(PLAN_DIMS))
 def test_block_packing_inverts_to_the_packed_weights(name):
     """Every weight lands in some block's share, and unpacking the shares
-    gives back pack_decode_weights' tensors exactly (packed in f32)."""
+    gives back pack_decode_weights' tensors exactly (bf16-valued weights)."""
     dims = PLAN_DIMS[name]
     packed = _random_packed(*dims)
     plan = K.block_plan(*dims, 132)
-    buf = K.pack_block_weights(packed, plan, torch.float32)
-    assert buf.numel() == 8 * int(plan.blk[:, 3].sum())
+    buf = K.pack_block_weights(packed, plan)
+    assert buf.dtype == torch.bfloat16 and buf.numel() == 8 * int(plan.blk[:, 3].sum())
     back = _unpack_block_weights(buf, plan)
     assert set(back) == set(packed)
     for k, v in packed.items():
@@ -292,12 +294,12 @@ def _emulate_block_products(net, packed, T, c_up, g_add, teach):
     """Teacher-mode logits computed as the bf16 kernel computes them, in
     f32: every product from the packed per-block tiles (unit_tiles), inputs
     laid out in the kernel's padded physical k order, the kernel's
-    epilogues per tile."""
+    epilogues per tile. ``packed``'s tile weights must be bf16-valued."""
     L, B = net.n_layers, teach.shape[0]
     C, G, S, O = net.residual_channels, net.gate_channels, net.skip_out_channels, net.out_channels
     G2, cin = G // 2, 0 if c_up is None else c_up.shape[-1]
     plan = K.block_plan(L, C, G, S, O, cin, 132)
-    tiles = _unit_tiles(K.pack_block_weights(packed, plan, torch.float32), plan)
+    tiles = _unit_tiles(K.pack_block_weights(packed, plan), plan)
 
     def pad(x, n):
         return torch.nn.functional.pad(x, (0, n - x.shape[-1]))
@@ -345,7 +347,8 @@ def _emulate_block_products(net, packed, T, c_up, g_add, teach):
 def test_emulated_block_products_match_the_plain_teacher_logits(case):
     """The packed per-block layout (gate pairs interleaved, K segments padded
     to 32, k permuted within each 32) computes the plain version's
-    teacher-mode logits: f32, 1e-5 (only the summation order differs)."""
+    teacher-mode logits: f32 on bf16-valued tile weights, 1e-5 (only the
+    summation order differs)."""
     if case == "mulaw_no_c_no_g":
         _, _, net = nets(seed=9, cin_channels=-1, gin_channels=-1, use_speaker_embedding=False, layers=6, stacks=2)
         rng = np.random.default_rng(9)
@@ -355,8 +358,33 @@ def test_emulated_block_products_match_the_plain_teacher_logits(case):
         _, _, net, c, g, teach = _teacher_case(case == "scalar", seed=10)
         c, teach = torch.from_numpy(c), torch.from_numpy(teach)
         g_add = K.precompute_g_add(net, torch.from_numpy(g))
-    packed = K.pack_decode_weights(net)
+    packed = {k: v.to(torch.bfloat16).float() if k in K._FLAT else v for k, v in K.pack_decode_weights(net).items()}
     T = teach.shape[1]
     _, want = K.wavenet_decode_reference(net, packed, T, 0, c, g_add, teach, True, "float32")
     got = _emulate_block_products(net, packed, T, c, g_add, teach)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+
+
+def test_block_packing_raises_on_a_weight_of_another_shape():
+    dims = PLAN_DIMS["test_net_cin5"]
+    packed = _random_packed(*dims)
+    packed["wout"] = packed["wout"][:, :-1]
+    with pytest.raises(ValueError, match="wout has shape"):
+        K.pack_block_weights(packed, K.block_plan(*dims, 132))
+
+
+def test_check_and_timing_builds_are_libraries_of_their_own():
+    """The WAE_JITTER / WAE_STAMPS builds of decode.cu never take the plain
+    build's place, and k1_stages.py reads the stamp layout decode.cu
+    writes."""
+    from wavenet_autoencoders_tpu_torch.kernels import build
+
+    paths = {d: build._lib_path("decode", d) for d in ((), ("WAE_JITTER",), ("WAE_STAMPS",))}
+    assert len(set(paths.values())) == 3
+    assert paths[()].name.startswith("libdecode-") and "+WAE_JITTER" in paths[("WAE_JITTER",)].name
+    src = (Path(K.__file__).resolve().parent.parent / "csrc" / "decode.cu").read_text()
+    for hook in ("WAE_JITTER", "WAE_STAMPS"):
+        assert len(re.findall(rf"^#ifdef {hook}$", src, re.M)) == 1
+    script = (Path(__file__).resolve().parent.parent / "k1_stages.py").read_text()
+    want = {n: re.search(rf"#define {n} (\d+)", src).group(1) for n in ("STAMP_STEPS", "STAMP_U")}
+    assert re.search(r"^STEPS, MAXU = (\d+), (\d+)", script, re.M).groups() == (want["STAMP_STEPS"], want["STAMP_U"])

@@ -65,6 +65,19 @@
 // (step, stage), so no wait can close a cycle; the cooperative launch keeps
 // every block resident.
 //
+// Two builds for checks and measurements only (compiled with -D into
+// libraries of their own; the port loads the plain build):
+//   WAE_JITTER: a block that passes a wait sleeps ~4 us one time in 8
+//     (a hash of block, counter and target), so a stage's producers arrive
+//     late and out of order. A wait short of its stage then lets the
+//     consumer read data not yet written, and the logits differ from the
+//     plain build's; since every sum is added in a fixed order, a sound
+//     kernel gives the same bits (chip_smoke phase 1 holds them equal).
+//   WAE_STAMPS: thread 0 of each block records %globaltimer when it starts
+//     to wait, when its waits pass and when it has released its arrival,
+//     for every tile of steps STAMP_T0 .. STAMP_T0 + 3; wae_stamps copies
+//     them out (k1_stages.py reads the per-stage split from them).
+//
 // f32 storage (the accuracy check, not the main path: its 32.8 MB of weights
 // do not fit the grid's shared memory; decode_f32_kernel). One block per SM
 // and a grid-wide barrier between stages; each block works on 2-D output
@@ -91,8 +104,50 @@
 #define RED_FLOATS 4096  // bf16 path: partial sums of one tile chunk (16 columns x 256 rows)
 #define CSTRIDE 32       // bf16 path: counters 128 bytes apart
 
+#ifdef WAE_STAMPS
+#define STAMP_T0 64
+#define STAMP_STEPS 4
+#define STAMP_U 48  // per block and step: STAMP_U - 1 tiles, then the sample stage
+__device__ unsigned long long g_stamp[256 * STAMP_STEPS * STAMP_U * 3];
+__shared__ unsigned long long s_stamp[3];
+__device__ __forceinline__ void stamp(int i) {
+  unsigned long long v;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(v));
+  s_stamp[i] = v;
+}
+__device__ __forceinline__ void stamp_save(int t, int slot) {
+  if (threadIdx.x == 0 && t >= STAMP_T0 && t < STAMP_T0 + STAMP_STEPS)
+    for (int i = 0; i < 3; ++i)
+      g_stamp[((blockIdx.x * STAMP_STEPS + (t - STAMP_T0)) * STAMP_U + slot) * 3 + i] = s_stamp[i];
+}
+__device__ __forceinline__ void stamp_unit(int t, int i) {
+  if (i < STAMP_U - 1) stamp_save(t, i);
+}
+__device__ __forceinline__ void stamp_sample(int t) { stamp_save(t, STAMP_U - 1); }
+extern "C" int wae_stamps(unsigned long long* host, size_t n) {
+  return (int)cudaMemcpyFromSymbol(host, g_stamp, n * sizeof(unsigned long long));
+}
+#else
+__device__ __forceinline__ void stamp(int) {}
+__device__ __forceinline__ void stamp_unit(int, int) {}
+__device__ __forceinline__ void stamp_sample(int) {}
+#endif
+
+#ifdef WAE_JITTER
+__device__ __forceinline__ void jitter(int c, unsigned n) {
+  unsigned h = blockIdx.x * 0x9E3779B1u ^ (unsigned)c * 0x85EBCA77u ^ n * 0xC2B2AE3Du;
+  h ^= h >> 15;
+  h *= 0x2C1B3C6Du;
+  h ^= h >> 12;
+  if ((h & 7) == 0) __nanosleep(4000);
+}
+#else
+__device__ __forceinline__ void jitter(int, unsigned) {}
+#endif
+
 // Mirrored field for field (all 8-byte) by _DecodeArgs in kernels/decode.py.
-// The fields after `stream` are read by the bf16 path only.
+// The weight pointers wconv .. wp2 and bar are read by the f32 path only
+// (null on the bf16 path); the fields after `stream` by the bf16 path only.
 struct DecodeArgs {
   int64_t B, T, L, C, G, S, O, CIN;
   int64_t store_bf16, scalar, teacher, normal, has_c, has_g, seed;
@@ -538,12 +593,15 @@ __device__ __forceinline__ unsigned* counter(const DecodeArgs& a, int c) { retur
 // thread spins with acquire loads, then the block passes.
 __device__ __forceinline__ void wait2(const DecodeArgs& a, int c0, unsigned n0, int c1, unsigned n1) {
   if (threadIdx.x == 0) {
+    stamp(0);
     const unsigned* p0 = counter(a, c0);
     while (ld_acquire(p0) < n0) __nanosleep(20);
     if (c1 >= 0) {
       const unsigned* p1 = counter(a, c1);
       while (ld_acquire(p1) < n1) __nanosleep(20);
     }
+    stamp(1);
+    jitter(c0, n0);
   }
   __syncthreads();
 }
@@ -554,6 +612,7 @@ __device__ __forceinline__ void arrive(const DecodeArgs& a, int c) {
   __syncthreads();
   if (threadIdx.x == 0) {
     asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(counter(a, c)) : "memory");
+    stamp(2);
   }
 }
 
@@ -865,11 +924,13 @@ __global__ void __launch_bounds__(NT, 1) decode_tc_kernel(const DecodeArgs a) {
           arrive(a, c_logits);
           break;
       }
+      stamp_unit(t, u - u0);
     }
     if (sampler) {  // after the logits and the last layer's reads of h
       wait2(a, c_logits, (unsigned)a.NLT * now, 2 * L - 1, nout * now);
       stage_sample<bf16>(a, t, red, rb, R);
       arrive(a, c_sample);
+      stamp_sample(t);
     }
   }
 }

@@ -4,6 +4,11 @@ Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so`` with a plain C
 interface, compiled by ``nvcc`` for ``sm_90a`` and loaded with ``ctypes``.
 The hash covers every file in ``csrc/``, so an edited source is rebuilt.
 Sources build in parallel, one ``nvcc`` each. Nothing here runs at import.
+
+A target is a source's name, or a (name, defines) pair: a variant of the
+source compiled with ``-D`` for each define into a library of its own (the
+checks and measurements build ``decode.cu`` with ``WAE_JITTER`` or
+``WAE_STAMPS``; the port itself loads the plain build).
 """
 from __future__ import annotations
 
@@ -41,41 +46,53 @@ def _sources_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def _lib_path(name: str) -> Path:
-    return BUILD / f"lib{name}-{_sources_hash()}.so"
+def _target(t) -> tuple[str, tuple[str, ...]]:
+    return (t, ()) if isinstance(t, str) else (t[0], tuple(t[1]))
 
 
-def build(names: list[str] | None = None) -> dict[str, str]:
-    """Compile the named sources (default: every ``csrc/*.cu``) that have no
-    library for the current hash yet. Returns {name: nvcc output}; raises
+def _label(name: str, defines: tuple[str, ...]) -> str:
+    return "+".join((name, *defines))
+
+
+def _lib_path(name: str, defines: tuple[str, ...] = ()) -> Path:
+    return BUILD / f"lib{_label(name, defines)}-{_sources_hash()}.so"
+
+
+def build(targets: list | None = None) -> dict[str, str]:
+    """Compile the targets (default: every ``csrc/*.cu``) that have no
+    library for the current hash yet. Returns {label: nvcc output}, the
+    label being the name followed by ``+define`` for each define; raises
     with the compiler's output when a build fails."""
-    names = names or sorted(p.stem for p in CSRC.glob("*.cu"))
+    targets = [_target(t) for t in (targets or sorted(p.stem for p in CSRC.glob("*.cu")))]
     BUILD.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in names:
-        out = _lib_path(name)
+    for name, defines in targets:
+        out = _lib_path(name, defines)
         if out.exists():
             continue
         fd, tmp = tempfile.mkstemp(dir=BUILD, suffix=".so.tmp")
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out)
+        cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", tmp, str(CSRC / f"{name}.cu")]
+        procs[_label(name, defines)] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out)
     logs = {}
-    for name, (proc, tmp, out) in procs.items():
+    for label, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
-        logs[name] = log
+        logs[label] = log
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+            raise RuntimeError(f"nvcc failed for {label}:\n{log}")
         os.replace(tmp, out)
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    if name not in _loaded:
-        path = _lib_path(name)
+def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (compiled with ``-D`` for
+    each define), built first if needed."""
+    label = _label(name, defines)
+    if label not in _loaded:
+        path = _lib_path(name, defines)
         if not path.exists():
-            build([name])
-        _loaded[name] = ctypes.CDLL(str(path))
-    return _loaded[name]
+            build([(name, defines)])
+        _loaded[label] = ctypes.CDLL(str(path))
+    return _loaded[label]

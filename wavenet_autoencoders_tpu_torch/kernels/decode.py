@@ -147,7 +147,7 @@ class BlockPlan:
     fragments in its block's share, in 16-byte words), each block's rows in
     chain order; ``blk`` (n_blocks, 4) int64 rows (first unit, end unit,
     share offset, share length, both in 16-byte words); ``index`` the flat
-    source position of every packed element (``zero``: a zero). Blocks
+    source position (int32) of every packed element (``zero``: a zero). Blocks
     0..nst-1 each own one skip column tile in every layer; the rest hold
     the gate, out, post1 and logits tiles, and sample rows.
     """
@@ -179,16 +179,15 @@ def _tile_src(base, ld_k, K, Kp, cols, valid, zero):
     return np.where((kk < K) & valid[None, :], idx, zero)
 
 
-@functools.lru_cache(maxsize=16)
-def block_plan(L: int, C: int, G: int, S: int, O: int, cin: int, n_blocks: int,
-               smem_limit: int = SMEM_LIMIT) -> BlockPlan:
+@functools.lru_cache(maxsize=4)
+def block_plan(L: int, C: int, G: int, S: int, O: int, cin: int, n_blocks: int) -> BlockPlan:
     """Tiles of 16 output columns for every product of the bf16 kernel,
     given to ``n_blocks`` blocks (one per SM). The tiles of one stage go to
     different blocks, each to the block with the fewest bytes so far, so
     that a stage runs on as many blocks as it has tiles and the weights are
     balanced over the SMs; a gate tile goes to a block that holds none of
     the three stages before it, where there is one. Raises ValueError where the grid cannot take the
-    weights (a block's share past ``smem_limit``, or fewer blocks than a
+    weights (a block's share past ``SMEM_LIMIT``, or fewer blocks than a
     stage's tiles)."""
     G2 = G // 2
     cp, g2p, sp, cinp = _pad32(C), _pad32(G2), _pad32(S), _pad32(cin)
@@ -268,40 +267,38 @@ def block_plan(L: int, C: int, G: int, S: int, O: int, cin: int, n_blocks: int,
             w += src.size
         blk.append((u0, len(rows), w0 // 8, (w - w0) // 8))
     smem = _RED_BYTES + max(load)
-    if smem > smem_limit:
+    if smem > SMEM_LIMIT:
         raise ValueError(
             f"the decode kernel's resident weights need {max(load)} bytes of shared memory in one block "
             f"({sum(load)} bytes over {n_blocks} blocks) plus {_RED_BYTES} of partial sums, "
-            f"above the {smem_limit} bytes a block can have"
+            f"above the {SMEM_LIMIT} bytes a block can have"
         )
     return BlockPlan(
         key=(L, C, G, S, O, cin, n_blocks), n_blocks=n_blocks, nst=nst, ngt=ngt, nout=nout, npt=npt, nlt=nlt,
         cp=cp, g2p=g2p, sp=sp, cinp=cinp, smem=smem,
         units=np.asarray(rows, np.int32).reshape(-1, 4), blk=np.asarray(blk, np.int64),
-        index=np.concatenate(index) if index else np.zeros(0, np.int64), zero=zero, shapes=tuple(shapes),
+        index=np.concatenate(index).astype(np.int32), zero=zero, shapes=tuple(shapes),
     )
 
 
-_PLAN_TENSORS: dict = {}
+@functools.lru_cache(maxsize=2)
+def _plan_tensors(key: tuple, dev: str) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(index, units, blk) of ``block_plan(*key)`` on device ``dev``."""
+    plan = block_plan(*key)
+    return tuple(torch.from_numpy(x).to(dev) for x in (plan.index, plan.units, plan.blk))
 
 
-def _plan_tensors(plan: BlockPlan, dev) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(index, units, blk) of a plan on ``dev``, made once per device."""
-    k = (plan.key, str(dev))
-    if k not in _PLAN_TENSORS:
-        _PLAN_TENSORS[k] = tuple(torch.from_numpy(x).to(dev) for x in (plan.index, plan.units, plan.blk))
-    return _PLAN_TENSORS[k]
-
-
-def pack_block_weights(packed: dict, plan: BlockPlan, dtype=torch.bfloat16) -> torch.Tensor:
-    """Every block's share of the weights, in block order and, within a
-    block, in the order the kernel reads its fragments: one flat tensor of
-    ``dtype`` (the kernel takes bf16; a CPU test may pack f32 to check the
-    layout exactly)."""
+def pack_block_weights(packed: dict, plan: BlockPlan) -> torch.Tensor:
+    """Every block's share of the weights in bf16, in block order and,
+    within a block, in the order the kernel reads its fragments: one flat
+    tensor. Raises ValueError where a weight's shape is not the plan's."""
     dev = packed["wconv"].device
-    src = torch.cat([packed[n].reshape(-1).to(dtype) for n, _, _ in plan.shapes]
-                    + [torch.zeros(1, dtype=dtype, device=dev)])
-    return src[_plan_tensors(plan, dev)[0]]
+    for n, _, shp in plan.shapes:
+        if tuple(packed[n].shape) != shp:
+            raise ValueError(f"{n} has shape {tuple(packed[n].shape)}, the block plan expects {shp}")
+    src = torch.cat([packed[n].reshape(-1).to(torch.bfloat16) for n, _, _ in plan.shapes]
+                    + [torch.zeros(1, dtype=torch.bfloat16, device=dev)])
+    return torch.index_select(src, 0, _plan_tensors(plan.key, str(dev))[0])
 
 
 def wavenet_decode(
@@ -449,10 +446,12 @@ class _DecodeArgs(ctypes.Structure):
     )
 
 
-def _lib():
+def _lib(defines: tuple[str, ...] = ()):
+    """The kernel's library; ``defines`` picks a check or timing build of
+    ``csrc/decode.cu`` (``WAE_JITTER``, ``WAE_STAMPS``)."""
     from wavenet_autoencoders_tpu_torch.kernels import build
 
-    lib = build.load("decode")
+    lib = build.load("decode", defines)
     lib.wae_decode.argtypes = [ctypes.POINTER(_DecodeArgs)]
     lib.wae_decode.restype = ctypes.c_int
     lib.wae_error_string.argtypes = [ctypes.c_int]
@@ -489,16 +488,19 @@ def _decode_cuda(net, packed, T, seed, c_up, g_add, teach, teacher, dtype_str):
     if has_c != ("wc" in packed):
         raise ValueError("c_up and the packed wc must come together")
 
-    w = {k: v.to(store).contiguous() for k, v in packed.items() if k in _WEIGHTS}
+    tc = store == torch.bfloat16
+    # the bf16 kernel reads w1 and the biases here and every other weight
+    # from its packed share; the f32 kernel reads them all here
+    shapes = {"w1": (net.in_channels, C), "b1": (C,), "bconv": (L, G), "bout": (L, C), "bskip": (L, S),
+              "bp1": (S,), "bp2": (O,)}
+    if not tc:
+        shapes.update({"wconv": (L, 3, C, G), "wout": (L, G // 2, C), "wskip": (L, G // 2, S), "wp1": (S, S),
+                       "wp2": (S, O)})
+        if has_c:
+            shapes["wc"] = (L, cin, G)
+    w = {k: packed[k].to(store).contiguous() for k in shapes if k in _WEIGHTS}
     if scalar:
         w["w1"] = packed["w1"].float().contiguous()
-    shapes = {
-        "w1": (net.in_channels, C), "b1": (C,), "wconv": (L, 3, C, G), "bconv": (L, G),
-        "wout": (L, G // 2, C), "bout": (L, C), "wskip": (L, G // 2, S), "bskip": (L, S),
-        "wp1": (S, S), "bp1": (S,), "wp2": (S, O), "bp2": (O,),
-    }
-    if has_c:
-        shapes["wc"] = (L, cin, G)
     args_t = {}
     for k, shp in shapes.items():
         x = w.get(k, packed[k])
@@ -519,12 +521,11 @@ def _decode_cuda(net, packed, T, seed, c_up, g_add, teach, teacher, dtype_str):
     logits = torch.empty(B, T, O, dtype=torch.float32, device=dev)
     h = torch.empty(B, C, dtype=torch.float32, device=dev)
     skip = torch.empty(B, S, dtype=torch.float32, device=dev)
-    tc = store == torch.bfloat16
     if tc:  # resident weights; rows padded to 32 columns, zeros in the pad
         n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
         plan = block_plan(L, C, G, S, O, cin, n_sms)
         wbuf = pack_block_weights(packed, plan)
-        _, units, blk = _plan_tensors(plan, dev)
+        _, units, blk = _plan_tensors(plan.key, str(dev))
         if plan.cinp != cin:
             c_up = F.pad(c_up, (0, plan.cinp - cin)).contiguous()
         ring = torch.zeros(offs[-1], B, plan.cp, dtype=store, device=dev)
@@ -542,7 +543,7 @@ def _decode_cuda(net, packed, T, seed, c_up, g_add, teach, teacher, dtype_str):
 
     a = _DecodeArgs(
         B=B, T=T, L=L, C=C, G=G, S=S, O=O, CIN=cin,
-        store_bf16=int(store == torch.bfloat16), scalar=int(scalar), teacher=int(teacher),
+        store_bf16=int(tc), scalar=int(scalar), teacher=int(teacher),
         normal=int(net.output_distribution == "Normal"), has_c=int(has_c),
         has_g=int(g_add is not None), seed=int(seed),
     )
