@@ -142,20 +142,6 @@ def k1_build(define: str):
         K._lib = plain
 
 
-@contextlib.contextmanager
-def k1_tile_sub(sub: int):
-    """Run K1's bf16 kernel with tiles of 16 ``sub`` columns at every B
-    inside the block (the wrapper otherwise picks them from B)."""
-    from wavenet_autoencoders_tpu_torch.kernels import decode as K
-
-    rule = K._tile_sub
-    K._tile_sub = lambda B: sub
-    try:
-        yield
-    finally:
-        K._tile_sub = rule
-
-
 def cuda_time(fn, reps: int, warmup: bool = True) -> float:
     """Mean ms per call with CUDA events (after one warm-up call unless
     ``warmup`` is false)."""
@@ -450,19 +436,6 @@ def phase4(res):
             breakdown[name] = cuda_time(lambda: K.wavenet_decode(m, pk, short, 0, cu, dtype_str="bfloat16"),
                                         reps=1) / short
         log(f"phase 4: ms per step at T={short}: {json.dumps(breakdown)}")
-        # the chain's tile width, 16 or 32 columns (block_plan's sub), in
-        # turns 16, 32, 32, 16 at each B: the measurement _tile_sub's rule
-        # is chosen from
-        widths = {}
-        for b in (256, 64, 4):
-            cu = c_up[:b, :short].contiguous()
-            widths[f"full_B{b}"] = {16: [], 32: []}
-            for sub in (1, 2, 2, 1):
-                with k1_tile_sub(sub):
-                    widths[f"full_B{b}"][16 * sub].append(
-                        cuda_time(lambda: K.wavenet_decode(net, packed, short, 0, cu, dtype_str="bfloat16"),
-                                  reps=1) / short)
-        log(f"phase 4: ms per step at T={short} by the chain's tile width in columns: {json.dumps(widths)}")
         graph = {f"B{b}": reference_step_graph_ms(net, packed, b, rng) for b in (4, 256)}
         log(f"phase 4: yardstick, ms per step of a CUDA graph of one teacher-mode step of the plain decode "
             f"(bf16 storage, f32 products; the port never calls it): {json.dumps(graph)}")
@@ -489,7 +462,6 @@ def phase4(res):
         "flop": flop,
         "audio_s_per_s": audio_s / (ms / 1e3),
         "ms_per_step": breakdown,
-        "ms_per_step_by_tile_cols": widths,
         "graph_step_ms": graph,
     })
 
@@ -949,15 +921,12 @@ def main(argv=None) -> int:
     from wavenet_autoencoders_tpu_torch.kernels import decode as K1
 
     cfg = load_preset("svqwae")
-    for b in (1, 256):
-        plan = K1.block_plan(cfg.layers, cfg.residual_channels, cfg.gate_channels, cfg.skip_out_channels,
-                             cfg.out_channels, cfg.cin_channels,
-                             torch.cuda.get_device_properties(0).multi_processor_count, K1._tile_sub(b))
-        share = plan.blk[:, 3] * 16
-        log(f"phase 0: K1 bf16 (decode_tc_kernel) at svqwae width, B={b}, on {plan.n_blocks} blocks, tiles of "
-            f"{16 * plan.sub} columns: dynamic shared memory {plan.smem} bytes a block (resident weights "
-            f"{int(share.min())}..{int(share.max())} bytes, {int(share.sum())} in all, + "
-            f"{plan.smem - int(share.max())} of partial sums); {len(plan.units)} tiles")
+    plan = K1.block_plan(cfg.layers, cfg.residual_channels, cfg.gate_channels, cfg.skip_out_channels,
+                         cfg.out_channels, cfg.cin_channels, torch.cuda.get_device_properties(0).multi_processor_count)
+    share = plan.blk[:, 3] * 16
+    log(f"phase 0: K1 bf16 (decode_tc_kernel) at svqwae width on {plan.n_blocks} blocks: dynamic shared memory "
+        f"{plan.smem} bytes a block (resident weights {int(share.min())}..{int(share.max())} bytes, "
+        f"{int(share.sum())} in all, + {plan.smem - int(share.max())} of partial sums); {len(plan.units)} tiles")
 
     res = {k: {"name": n, "route": "cuda", "source": f"wavenet_autoencoders_tpu_torch/csrc/{src}",
                "replaces": rep, "launches": None, "max_abs_err": None, "ms": None, "plain_ms": None,

@@ -112,8 +112,7 @@ def run() -> dict:
         if err:
             raise RuntimeError(f"wae_stamps: {err}")
         plan = K.block_plan(m.n_layers, m.residual_channels, m.gate_channels, m.skip_out_channels,
-                            m.out_channels, m.cin_channels, torch.cuda.get_device_properties(0).multi_processor_count,
-                            K._tile_sub(B))
+                            m.out_channels, m.cin_channels, torch.cuda.get_device_properties(0).multi_processor_count)
         if int((plan.blk[:, 1] - plan.blk[:, 0]).max()) >= MAXU:
             raise RuntimeError("a block runs more tiles than the stamp buffer holds")
         st = host[: plan.n_blocks * STEPS * MAXU * 3].reshape(plan.n_blocks, STEPS, MAXU, 3).astype(np.int64)

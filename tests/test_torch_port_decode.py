@@ -212,18 +212,16 @@ def _unpack_block_weights(buf, plan):
 
 def _unit_tiles(buf, plan):
     """{(kind, layer, tile): (Kp, 16) weight tile} read back from the packed
-    shares through K.fragment_order (a skip unit gives one tile per layer; a
-    unit of any other kind gives its plan.sub 16-column tiles, t sub ..
-    t sub + sub - 1): column r of gate tile j is gate column 8 j + r (r < 8)
-    or G/2 + 8 j + r - 8; of any other tile, column 16 j + r; row k is the
-    physical k of the kernel's input row (segments padded to 32; a gate
-    tile's are [tap0 | tap1 | c | h])."""
+    shares through K.fragment_order (a skip unit gives one tile per layer):
+    column r of a gate tile is gate column 8 tile + r (r < 8) or G/2 + 8 tile
+    + r - 8; of any other tile, column 16 tile + r; row k is the physical k
+    of the kernel's input row (segments padded to 32; a gate tile's are
+    [tap0 | tap1 | c | h])."""
     out = {}
     L = plan.key[0]
     for b0, b1, w0, _ in plan.blk:
         for kind, l, t, woff in plan.units[b0:b1]:
             start = (w0 + woff) * 8
-            sub = 1 if kind == K.U_SKIP else plan.sub
             if kind == K.U_GATE:
                 kps = [3 * plan.cp + plan.cinp]
             elif kind in (K.U_OUT, K.U_SKIP):
@@ -232,24 +230,20 @@ def _unit_tiles(buf, plan):
                 kps = [plan.sp]
             for i, kp in enumerate(kps):
                 kidx, col = K.fragment_order(kp // 32)
-                parts = buf[start : start + 16 * kp * sub].float().reshape(-1, sub, 256)
-                for m in range(sub):
-                    tile = torch.zeros(kp, 16)
-                    tile[torch.from_numpy(kidx), torch.from_numpy(col)] = parts[:, m].reshape(-1)
-                    out[(int(kind), int(l) + i, int(t) * sub + m)] = tile
-                start += 16 * kp * sub
+                tile = torch.zeros(kp, 16)
+                tile[torch.from_numpy(kidx), torch.from_numpy(col)] = buf[start : start + 16 * kp].float()
+                out[(int(kind), int(l) + i, int(t))] = tile
+                start += 16 * kp
     return out
 
 
-@pytest.mark.parametrize("sub", [1, 2])
 @pytest.mark.parametrize("name", list(PLAN_DIMS))
-def test_block_packing_inverts_to_the_packed_weights(name, sub):
+def test_block_packing_inverts_to_the_packed_weights(name):
     """Every weight lands in some block's share, and unpacking the shares
-    gives back pack_decode_weights' tensors exactly (bf16-valued weights),
-    with tiles of 16 and 32 columns."""
+    gives back pack_decode_weights' tensors exactly (bf16-valued weights)."""
     dims = PLAN_DIMS[name]
     packed = _random_packed(*dims)
-    plan = K.block_plan(*dims, 132, sub)
+    plan = K.block_plan(*dims, 132)
     buf = K.pack_block_weights(packed, plan)
     assert buf.dtype == torch.bfloat16 and buf.numel() == 8 * int(plan.blk[:, 3].sum())
     back = _unpack_block_weights(buf, plan)
@@ -266,10 +260,9 @@ def _dup_count(plan):
     return idx.size - np.unique(idx).size
 
 
-@pytest.mark.parametrize("sub", [1, 2])
 @pytest.mark.parametrize("name", ["svqwae", "test_net_cin5"])
-def test_block_plan_spreads_each_stage_over_distinct_blocks(name, sub):
-    plan = K.block_plan(*PLAN_DIMS[name], 132, sub)
+def test_block_plan_spreads_each_stage_over_distinct_blocks(name):
+    plan = K.block_plan(*PLAN_DIMS[name], 132)
     u = plan.units
     owner = np.repeat(np.arange(plan.n_blocks), plan.blk[:, 1] - plan.blk[:, 0])
     for kind in (K.U_GATE, K.U_OUT, K.U_POST1, K.U_LOGITS):
@@ -294,10 +287,10 @@ def test_block_plan_raises_where_the_grid_cannot_hold_the_weights(n_blocks):
     blocks would need ~600 KB of shared memory each. The message gives the
     sizes."""
     with pytest.raises(ValueError, match="blocks|bytes"):
-        K.block_plan(*PLAN_DIMS["svqwae"], n_blocks, 1)
+        K.block_plan(*PLAN_DIMS["svqwae"], n_blocks)
 
 
-def _emulate_block_products(net, packed, T, c_up, g_add, teach, sub):
+def _emulate_block_products(net, packed, T, c_up, g_add, teach):
     """Teacher-mode logits computed as the bf16 kernel computes them, in
     f32: every product from the packed per-block tiles (unit_tiles), inputs
     laid out in the kernel's padded physical k order, the kernel's
@@ -305,7 +298,7 @@ def _emulate_block_products(net, packed, T, c_up, g_add, teach, sub):
     L, B = net.n_layers, teach.shape[0]
     C, G, S, O = net.residual_channels, net.gate_channels, net.skip_out_channels, net.out_channels
     G2, cin = G // 2, 0 if c_up is None else c_up.shape[-1]
-    plan = K.block_plan(L, C, G, S, O, cin, 132, sub)
+    plan = K.block_plan(L, C, G, S, O, cin, 132)
     tiles = _unit_tiles(K.pack_block_weights(packed, plan), plan)
 
     def pad(x, n):
@@ -327,7 +320,7 @@ def _emulate_block_products(net, packed, T, c_up, g_add, teach, sub):
             s0, s1 = offs[l] + t % (2 * d), offs[l] + (t + d) % (2 * d)
             X = torch.cat([ring[s0], ring[s1]] + ([pad(c_up[:, t], plan.cinp)] if cin else []) + [pad(h, plan.cp)], -1)
             act = torch.zeros(B, plan.g2p)
-            for tile in range(plan.ngt * sub):
+            for tile in range(plan.ngt):
                 ab = X @ tiles[(K.U_GATE, l, tile)]
                 p = 8 * tile + r8
                 ok = p < G2
@@ -337,22 +330,21 @@ def _emulate_block_products(net, packed, T, c_up, g_add, teach, sub):
                 if g_add is not None:
                     xa, xb = xa + g_add[l][:, p], xb + g_add[l][:, G2 + p]
                 act[:, p] = torch.tanh(xa) * torch.sigmoid(xb)
-            out = torch.cat([act @ tiles[(K.U_OUT, l, j)] for j in range(plan.nout * sub)], -1)[:, :C]
+            out = torch.cat([act @ tiles[(K.U_OUT, l, j)] for j in range(plan.nout)], -1)[:, :C]
             sk = torch.cat([act @ tiles[(K.U_SKIP, l, j)] for j in range(plan.nst)], -1)[:, :S]
             skip = skip + sk + packed["bskip"][l]
             ring[s0, :, :C] = h
             h = (out + packed["bout"][l] + h) * math.sqrt(0.5)
         ys = pad(torch.relu(skip * math.sqrt(1.0 / L)), plan.sp)
-        y1 = torch.cat([ys @ tiles[(K.U_POST1, 0, j)] for j in range(plan.npt * sub)], -1)[:, :S]
+        y1 = torch.cat([ys @ tiles[(K.U_POST1, 0, j)] for j in range(plan.npt)], -1)[:, :S]
         y1 = pad(torch.relu(y1 + packed["bp1"]), plan.sp)
-        lg = torch.cat([y1 @ tiles[(K.U_LOGITS, 0, j)] for j in range(plan.nlt * sub)], -1)[:, :O]
+        lg = torch.cat([y1 @ tiles[(K.U_LOGITS, 0, j)] for j in range(plan.nlt)], -1)[:, :O]
         logits[:, t] = lg + packed["bp2"]
     return logits
 
 
-@pytest.mark.parametrize("sub", [1, 2])
 @pytest.mark.parametrize("case", ["mulaw", "scalar", "mulaw_no_c_no_g"])
-def test_emulated_block_products_match_the_plain_teacher_logits(case, sub):
+def test_emulated_block_products_match_the_plain_teacher_logits(case):
     """The packed per-block layout (gate pairs interleaved, K segments padded
     to 32, k permuted within each 32) computes the plain version's
     teacher-mode logits: f32 on bf16-valued tile weights, 1e-5 (only the
@@ -369,7 +361,7 @@ def test_emulated_block_products_match_the_plain_teacher_logits(case, sub):
     packed = {k: v.to(torch.bfloat16).float() if k in K._FLAT else v for k, v in K.pack_decode_weights(net).items()}
     T = teach.shape[1]
     _, want = K.wavenet_decode_reference(net, packed, T, 0, c, g_add, teach, True, "float32")
-    got = _emulate_block_products(net, packed, T, c, g_add, teach, sub)
+    got = _emulate_block_products(net, packed, T, c, g_add, teach)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
 
 
@@ -378,7 +370,7 @@ def test_block_packing_raises_on_a_weight_of_another_shape():
     packed = _random_packed(*dims)
     packed["wout"] = packed["wout"][:, :-1]
     with pytest.raises(ValueError, match="wout has shape"):
-        K.pack_block_weights(packed, K.block_plan(*dims, 132, 1))
+        K.pack_block_weights(packed, K.block_plan(*dims, 132))
 
 
 def test_check_and_timing_builds_are_libraries_of_their_own():

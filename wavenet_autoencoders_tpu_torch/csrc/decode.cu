@@ -101,7 +101,7 @@
 #define TM 16            // f32 path: batch rows per tile
 #define XS (TM + 1)      // f32 path: padded row stride of the staged input tile
 #define TN 64            // f32 path: output columns per tile: lane and lane + 32
-#define RED_FLOATS 4096  // bf16 path: partial sums of one tile chunk per 16 columns (x 256 rows)
+#define RED_FLOATS 4096  // bf16 path: partial sums of one tile chunk (16 columns x 256 rows)
 #define CSTRIDE 32       // bf16 path: counters 128 bytes apart
 
 #ifdef WAE_STAMPS
@@ -178,7 +178,7 @@ struct DecodeArgs {
   void* codes;
   float* logits;
   void* stream;
-  int64_t NB, NST, NGT, NOT, NPT, NLT, CP, G2P, SP, CINP, smem, SUB;
+  int64_t NB, NST, NGT, NOT, NPT, NLT, CP, G2P, SP, CINP, smem;
   const void* wbuf;
   const int* units;
   const int64_t* blk;
@@ -641,22 +641,20 @@ __device__ __forceinline__ uint4 ld16(const bf16* p) {
   return v;
 }
 
-// out[b, 16 SUB columns] = X[b, :] @ W for all B rows, in chunks of 256
-// rows, then epi(b, m, j, out[b, c], out[b, c + 8], pre(b, m, j)) with
-// c = 16 m + j for m < SUB, j < 8 and every row b. X's first kl k blocks
-// are ready before the call; the rest only after wait(), which every
-// thread calls. pre's loads (biases, h_in, the skip sum) are issued first,
-// so their latency hides under the product. w is the tile's packed
-// fragments in shared memory: fragment (kb, s) of 16-column part m at
-// w[((2 kb + s) SUB + m) * 32 + lane], so one input fragment feeds the
-// SUB parts' mma in a row. Warps split a chunk's 8-row groups
+// out[b, 16 columns] = X[b, :] @ W for all B rows, in chunks of 256 rows,
+// then epi(b, j, out[b, j], out[b, j + 8], pre(b, j)) for j < 8 and every
+// row b. X's first kl k blocks are ready before the call; the rest only
+// after wait(), which every thread calls. pre's loads (biases, h_in, the
+// skip sum) are issued first, so their latency hides under the product.
+// w is the tile's packed fragments in shared memory: fragment (kb, s) of
+// lane at w[(2 kb + s) * 32 + lane]. Warps split a chunk's 8-row groups
 // (WB ways) and, where there are fewer than 16 groups, the k range (WK
 // ways); each loads the input fragments of its next k block (16-byte L2
 // loads straight into registers) while the tensor cores take the current
 // one, and keeps two accumulators per fragment (k steps s = 0, 1), so the
 // mma chain is half as long; red holds the warps' sums, added in warp
 // order. (Deeper prefetch, 2 or 4 k blocks ahead, measured no faster.)
-template <int SUB, typename Wait, typename Pre, typename Epi>
+template <typename Wait, typename Pre, typename Epi>
 __device__ void tile_product(const uint4* w, const XSrc& x, int B, float* red, int kl, Wait wait, Pre pre,
                              Epi epi) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, r8 = lane >> 2, q = lane & 3;
@@ -665,23 +663,19 @@ __device__ void tile_product(const uint4* w, const XSrc& x, int B, float* red, i
     const int rows = min(256, B - b0), nf = (rows + 7) >> 3;
     const int WB = nf >= 16 ? 8 : nf >= 8 ? 4 : nf >= 4 ? 2 : 1, WK = NW / WB, F = (nf + WB - 1) / WB;
     const int wb = warp % WB, wk = warp / WB, RS = nf * 8;
-    float2 pf[SUB][8];
+    float2 pf[8];
 #pragma unroll
-    for (int m = 0; m < SUB; ++m)
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int u = threadIdx.x + i * NT;
-        pf[m][i] = u < rows * 8 ? pre(b0 + (u >> 3), m, u & 7) : make_float2(0.0f, 0.0f);
-      }
-    float acc[SUB][4][2][4];
+    for (int i = 0; i < 8; ++i) {
+      const int u = threadIdx.x + i * NT;
+      pf[i] = u < rows * 8 ? pre(b0 + (u >> 3), u & 7) : make_float2(0.0f, 0.0f);
+    }
+    float acc[4][2][4];
     int brow[4];
     bool ok[4];
 #pragma unroll
     for (int f = 0; f < 4; ++f) {
 #pragma unroll
-      for (int m = 0; m < SUB; ++m)
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc[m][f][i >> 2][i & 3] = 0.0f;
+      for (int i = 0; i < 8; ++i) acc[f][i >> 2][i & 3] = 0.0f;
       brow[f] = b0 + (wb * F + f) * 8 + r8;
       ok[f] = f < F && wb * F + f < nf && brow[f] < B;
     }
@@ -703,15 +697,12 @@ __device__ void tile_product(const uint4* w, const XSrc& x, int B, float* red, i
       uint4 v[4];
       if (k0 < k1) fetch(v, k0);
       for (int k = k0; k < k1; ++k) {
+        const uint4 a0 = w[(2 * k) * 32 + lane], a1 = w[(2 * k + 1) * 32 + lane];
 #pragma unroll
-        for (int m = 0; m < SUB; ++m) {
-          const uint4 a0 = w[((2 * k) * SUB + m) * 32 + lane], a1 = w[((2 * k + 1) * SUB + m) * 32 + lane];
-#pragma unroll
-          for (int f = 0; f < 4; ++f) {
-            if (f < F) {
-              mma_tc(acc[m][f][0], a0, v[f].x, v[f].y);
-              mma_tc(acc[m][f][1], a1, v[f].z, v[f].w);
-            }
+        for (int f = 0; f < 4; ++f) {
+          if (f < F) {
+            mma_tc(acc[f][0], a0, v[f].x, v[f].y);
+            mma_tc(acc[f][1], a1, v[f].z, v[f].w);
           }
         }
         if (k + 1 < k1) fetch(v, k + 1);
@@ -720,36 +711,31 @@ __device__ void tile_product(const uint4* w, const XSrc& x, int B, float* red, i
     run(kl * wk / WK, kl * (wk + 1) / WK);
     wait();
     run(kl + (nkb - kl) * wk / WK, kl + (nkb - kl) * (wk + 1) / WK);
-    // D's row = column r8 or r8 + 8 of part m, its column = row 2q, 2q + 1
-    // of the group; red's row (wk SUB + m) 16 + column
+    // D's row m = column r8 or r8 + 8 of the tile, its column = row 2q, 2q + 1 of the group
 #pragma unroll
-    for (int m = 0; m < SUB; ++m)
-#pragma unroll
-      for (int f = 0; f < 4; ++f) {
-        const int fr = wb * F + f;
-        if (f < F && fr < nf) {
-          float* c0 = red + ((wk * SUB + m) * 16 + r8) * RS + fr * 8 + 2 * q;
-          float* c1 = c0 + 8 * RS;
-          c0[0] = acc[m][f][0][0] + acc[m][f][1][0], c0[1] = acc[m][f][0][1] + acc[m][f][1][1];
-          c1[0] = acc[m][f][0][2] + acc[m][f][1][2], c1[1] = acc[m][f][0][3] + acc[m][f][1][3];
-        }
+    for (int f = 0; f < 4; ++f) {
+      const int fr = wb * F + f;
+      if (f < F && fr < nf) {
+        float* c0 = red + (wk * 16 + r8) * RS + fr * 8 + 2 * q;
+        float* c1 = c0 + 8 * RS;
+        c0[0] = acc[f][0][0] + acc[f][1][0], c0[1] = acc[f][0][1] + acc[f][1][1];
+        c1[0] = acc[f][0][2] + acc[f][1][2], c1[1] = acc[f][0][3] + acc[f][1][3];
       }
+    }
     __syncthreads();
 #pragma unroll
-    for (int m = 0; m < SUB; ++m)
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int u = threadIdx.x + i * NT;
-        if (u < rows * 8) {
-          const int r = u >> 3, j = u & 7;
-          float va = 0.0f, vb = 0.0f;
-          for (int z = 0; z < WK; ++z) {
-            va += red[((z * SUB + m) * 16 + j) * RS + r];
-            vb += red[((z * SUB + m) * 16 + j + 8) * RS + r];
-          }
-          epi(b0 + r, m, j, va, vb, pf[m][i]);
+    for (int i = 0; i < 8; ++i) {
+      const int u = threadIdx.x + i * NT;
+      if (u < rows * 8) {
+        const int r = u >> 3, j = u & 7;
+        float va = 0.0f, vb = 0.0f;
+        for (int z = 0; z < WK; ++z) {
+          va += red[(z * 16 + j) * RS + r];
+          vb += red[(z * 16 + j + 8) * RS + r];
         }
+        epi(b0 + r, j, va, vb, pf[i]);
       }
+    }
     __syncthreads();
   }
 }
@@ -770,12 +756,11 @@ __device__ __forceinline__ float2 bias_pair(const float* v, int tile, int j, int
   return make_float2(n < N ? __ldg(v + n) : 0.0f, n + 8 < N ? __ldg(v + n + 8) : 0.0f);
 }
 
-// gate_l, gate pairs 8 SUB tile .. 8 SUB (tile + 1) - 1: act_l = tanh(a) * sigmoid(b).
+// gate_l, gate pairs 8 tile .. 8 tile + 7: act_l = tanh(a) * sigmoid(b).
 // The input segments are [tap0 | tap1 | c | h]: the taps (written at
 // earlier steps) and c are ready once out_l(t-1) has arrived, so their
 // products run before the wait for this step's h (out_{l-1}(t), or the
 // sampler for l = 0), which leaves only h's product on the chain.
-template <int SUB>
 __device__ void unit_gate(const DecodeArgs& a, int l, int tile, const uint4* w, int t, float* red) {
   const int B = (int)a.B, L = (int)a.L, G = (int)a.G, G2 = G / 2, d = (int)a.dil[l];
   const unsigned nout = (unsigned)a.NOT;
@@ -788,14 +773,14 @@ __device__ void unit_gate(const DecodeArgs& a, int l, int tile, const uint4* w, 
   x.p[3] = (const bf16*)a.hb, x.ld[3] = a.CP, x.nkb[3] = (int)a.CP / 32;
   const float* bc = a.bconv + (int64_t)l * G;
   bf16* act = (bf16*)a.act + (int64_t)l * B * a.G2P;
-  tile_product<SUB>(
+  tile_product(
       w, x, B, red, x.nkb[0] + x.nkb[1] + x.nkb[2],
       [&] {
         if (l == 0) wait2(a, 2 * L + 3, (unsigned)min(B, (int)(a.NB - a.NST)) * (t + 1), -1, 0);
         else wait2(a, L + l - 1, nout * (t + 1), -1, 0);
       },
-      [&](int b, int m, int j) {  // bconv + g_add of the pair
-        const int p = (tile * SUB + m) * 8 + j;
+      [&](int b, int j) {  // bconv + g_add of the pair
+        const int p = tile * 8 + j;
         if (p >= G2) return make_float2(0.0f, 0.0f);
         float2 c = make_float2(__ldg(bc + p), __ldg(bc + p + G2));
         if (a.has_g) {
@@ -804,29 +789,27 @@ __device__ void unit_gate(const DecodeArgs& a, int l, int tile, const uint4* w, 
         }
         return c;
       },
-      [&](int b, int m, int j, float xa, float xb, float2 c) {
-        const int p = (tile * SUB + m) * 8 + j;
+      [&](int b, int j, float xa, float xb, float2 c) {
+        const int p = tile * 8 + j;
         if (p >= G2) return;
         xa += c.x, xb += c.y;
         act[(int64_t)b * a.G2P + p] = __float2bfloat16(tanhf(xa) * (1.0f / (1.0f + expf(-xb))));
       });
 }
 
-// out_l, residual columns 16 SUB tile .. 16 SUB (tile + 1) - 1.
-template <int SUB>
+// out_l, residual columns 16 tile .. 16 tile + 15.
 __device__ void unit_out(const DecodeArgs& a, int l, int tile, const uint4* w, int t, float* red) {
   const int B = (int)a.B, C = (int)a.C;
   XSrc x = {};
   x.p[0] = (const bf16*)a.act + (int64_t)l * B * a.G2P, x.ld[0] = a.G2P, x.nkb[0] = (int)a.G2P / 32;
   bf16* slot = (bf16*)a.ring + slot_of(a, l, t);
   const float* bout = a.bout + (int64_t)l * C;
-  tile_product<SUB>(
-      w, x, B, red, 0, [] {},
-      [&](int b, int m, int j) { return pair_at(a.h, b, C, tile * SUB + m, j, C); },  // h_in
-      [&](int b, int m, int j, float v0, float v1, float2 h_in) {
+  tile_product(
+      w, x, B, red, 0, [] {}, [&](int b, int j) { return pair_at(a.h, b, C, tile, j, C); },  // h_in
+      [&](int b, int j, float v0, float v1, float2 h_in) {
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          const int n = (tile * SUB + m) * 16 + j + 8 * i;
+          const int n = tile * 16 + j + 8 * i;
           if (n >= C) continue;
           const float hi = i ? h_in.y : h_in.x;
           slot[(int64_t)b * a.CP + n] = __float2bfloat16(hi);  // the taps of step t were read in gate_l
@@ -847,10 +830,10 @@ __device__ void unit_skip(const DecodeArgs& a, int tile, const uint4* w, int t, 
     XSrc x = {};
     x.p[0] = (const bf16*)a.act + (int64_t)l * B * a.G2P, x.ld[0] = a.G2P, x.nkb[0] = (int)a.G2P / 32;
     const float* bskip = a.bskip + (int64_t)l * SK;
-    tile_product<1>(
+    tile_product(
         w + (int64_t)l * 2 * a.G2P, x, B, red, 0, [] {},
-        [&](int b, int, int j) { return l ? pair_at(a.skip, b, SK, tile, j, SK) : make_float2(0.0f, 0.0f); },
-        [&](int b, int, int j, float v0, float v1, float2 prev) {
+        [&](int b, int j) { return l ? pair_at(a.skip, b, SK, tile, j, SK) : make_float2(0.0f, 0.0f); },
+        [&](int b, int j, float v0, float v1, float2 prev) {
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
             const int n = tile * 16 + j + 8 * i;
@@ -864,19 +847,18 @@ __device__ void unit_skip(const DecodeArgs& a, int tile, const uint4* w, int t, 
 }
 
 // post1 (y1 = bf16(relu(ys @ wp1 + bp1))) or logits (ys = y1, @ wp2 + bp2),
-// columns 16 SUB tile .. 16 SUB (tile + 1) - 1.
-template <int SUB>
+// columns 16 tile .. 16 tile + 15.
 __device__ void unit_head(const DecodeArgs& a, bool logits, int tile, const uint4* w, int t, float* red) {
   const int N = logits ? (int)a.O : (int)a.S;
   XSrc x = {};
   x.p[0] = (const bf16*)(logits ? a.y1 : a.ys), x.ld[0] = a.SP, x.nkb[0] = (int)a.SP / 32;
   const float* bias = logits ? a.bp2 : a.bp1;
-  tile_product<SUB>(
-      w, x, (int)a.B, red, 0, [] {}, [&](int, int m, int j) { return bias_pair(bias, tile * SUB + m, j, N); },
-      [&](int b, int m, int j, float v0, float v1, float2 c) {
+  tile_product(
+      w, x, (int)a.B, red, 0, [] {}, [&](int, int j) { return bias_pair(bias, tile, j, N); },
+      [&](int b, int j, float v0, float v1, float2 c) {
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          const int n = (tile * SUB + m) * 16 + j + 8 * i;
+          const int n = tile * 16 + j + 8 * i;
           if (n >= N) continue;
           const float v = (i ? v1 : v0) + (i ? c.y : c.x);
           if (logits) a.logits[((int64_t)b * a.T + t) * N + n] = v;
@@ -885,13 +867,10 @@ __device__ void unit_head(const DecodeArgs& a, bool logits, int tile, const uint
       });
 }
 
-// SUB: the gate, out, post1 and logits tiles' width in 16-column parts
-// (block_plan's sub); skip tiles are 16 columns wide.
-template <int SUB>
 __global__ void __launch_bounds__(NT, 1) decode_tc_kernel(const DecodeArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* red = reinterpret_cast<float*>(smem_raw);
-  uint4* wsm = reinterpret_cast<uint4*>(smem_raw + SUB * RED_FLOATS * sizeof(float));
+  uint4* wsm = reinterpret_cast<uint4*>(smem_raw + RED_FLOATS * sizeof(float));
   const int64_t* blk = a.blk + (int64_t)blockIdx.x * 4;  // units [u0, u1), share at word off, n words
   const int u0 = (int)blk[0], u1 = (int)blk[1];
   const int64_t off = blk[2], n16 = blk[3];
@@ -922,12 +901,12 @@ __global__ void __launch_bounds__(NT, 1) decode_tc_kernel(const DecodeArgs a) {
       const uint4* w = wsm + un.w;
       switch (un.x) {
         case U_GATE:  // waits inside: ring writes of earlier steps, then this step's h
-          unit_gate<SUB>(a, l, tile, w, t, red);
+          unit_gate(a, l, tile, w, t, red);
           arrive(a, l);
           break;
         case U_OUT:
           wait2(a, l, ngt * now, -1, 0);
-          unit_out<SUB>(a, l, tile, w, t, red);
+          unit_out(a, l, tile, w, t, red);
           arrive(a, L + l);
           break;
         case U_SKIP:
@@ -936,12 +915,12 @@ __global__ void __launch_bounds__(NT, 1) decode_tc_kernel(const DecodeArgs a) {
           break;
         case U_POST1:
           wait2(a, c_skip, (unsigned)a.NST * now, -1, 0);
-          unit_head<SUB>(a, false, tile, w, t, red);
+          unit_head(a, false, tile, w, t, red);
           arrive(a, c_post1);
           break;
         case U_LOGITS:
           wait2(a, c_post1, (unsigned)a.NPT * now, -1, 0);
-          unit_head<SUB>(a, true, tile, w, t, red);
+          unit_head(a, true, tile, w, t, red);
           arrive(a, c_logits);
           break;
       }
@@ -959,10 +938,7 @@ __global__ void __launch_bounds__(NT, 1) decode_tc_kernel(const DecodeArgs a) {
 extern "C" int wae_decode(const DecodeArgs* args) {
   DecodeArgs a = *args;
   const bool tc = a.store_bf16 != 0;
-  if (tc && a.SUB != 1 && a.SUB != 2) return (int)cudaErrorInvalidValue;
-  const void* fn = !tc         ? (const void*)decode_f32_kernel
-                   : a.SUB == 2 ? (const void*)decode_tc_kernel<2>
-                                : (const void*)decode_tc_kernel<1>;
+  const void* fn = tc ? (const void*)decode_tc_kernel : (const void*)decode_f32_kernel;
   const size_t smem = tc ? (size_t)a.smem : smem_f32_bytes(a);
   int dev = 0, sms = 0, occ = 0;
   cudaError_t e = cudaGetDevice(&dev);

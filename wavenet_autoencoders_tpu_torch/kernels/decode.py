@@ -148,14 +148,12 @@ class BlockPlan:
     chain order; ``blk`` (n_blocks, 4) int64 rows (first unit, end unit,
     share offset, share length, both in 16-byte words); ``index`` the flat
     source position (int32) of every packed element (``zero``: a zero). Blocks
-    0..nst-1 each own one skip column tile (16 columns) in every layer; the
-    rest hold the gate, out, post1 and logits tiles (16 ``sub`` columns),
-    and sample rows.
+    0..nst-1 each own one skip column tile in every layer; the rest hold
+    the gate, out, post1 and logits tiles, and sample rows.
     """
 
     key: tuple
     n_blocks: int
-    sub: int
     nst: int
     ngt: int
     nout: int
@@ -182,11 +180,9 @@ def _tile_src(base, ld_k, K, Kp, cols, valid, zero):
 
 
 @functools.lru_cache(maxsize=4)
-def block_plan(L: int, C: int, G: int, S: int, O: int, cin: int, n_blocks: int, sub: int) -> BlockPlan:
-    """Tiles of 16 ``sub`` output columns (``sub`` 16-column fragments side
-    by side, their input read once) for the gate, out, post1 and logits
-    products of the bf16 kernel and of 16 for the skip products, given to
-    ``n_blocks`` blocks (one per SM). The tiles of one stage go to
+def block_plan(L: int, C: int, G: int, S: int, O: int, cin: int, n_blocks: int) -> BlockPlan:
+    """Tiles of 16 output columns for every product of the bf16 kernel,
+    given to ``n_blocks`` blocks (one per SM). The tiles of one stage go to
     different blocks, each to the block with the fewest bytes so far, so
     that a stage runs on as many blocks as it has tiles and the weights are
     balanced over the SMs; a gate tile goes to a block that holds none of
@@ -195,8 +191,7 @@ def block_plan(L: int, C: int, G: int, S: int, O: int, cin: int, n_blocks: int, 
     stage's tiles)."""
     G2 = G // 2
     cp, g2p, sp, cinp = _pad32(C), _pad32(G2), _pad32(S), _pad32(cin)
-    nst = -(-S // 16)
-    ngt, nout, npt, nlt = (-(-n // sub) for n in (-(-G2 // 8), -(-C // 16), -(-S // 16), -(-O // 16)))
+    ngt, nout, nst, npt, nlt = -(-G2 // 8), -(-C // 16), -(-S // 16), -(-S // 16), -(-O // 16)
     rest = n_blocks - nst
     if rest < max(ngt, nout, npt, nlt):
         raise ValueError(
@@ -220,9 +215,6 @@ def block_plan(L: int, C: int, G: int, S: int, O: int, cin: int, n_blocks: int, 
         kp, col = kp_of[nkb]
         return src[kp, col]
 
-    def wide(tiles):  # the fragments of sub tiles, side by side per k block and step
-        return np.stack([frag(x).reshape(-1, 256) for x in tiles], 1).reshape(-1)
-
     r16 = np.arange(16)
     units = [[] for _ in range(n_blocks)]  # per block: (kind, layer, tile, packed elements)
     load = [0] * n_blocks
@@ -236,39 +228,35 @@ def block_plan(L: int, C: int, G: int, S: int, O: int, cin: int, n_blocks: int, 
             units[b].append((kind, l, t, src))
             load[b] += src.size * 2
 
-    def gate_src(l, t):  # 16-column gate tile t: pairs 8 t .. 8 t + 7
-        p = 8 * t + r16 % 8
-        n, ok = p + G2 * (r16 >= 8), p < G2
-        # k segments [tap0 | tap1 | c | h], the kernel's input order
-        segs = [_tile_src(off["wconv"] + j * C * G + l * 3 * C * G, G, C, cp, n, ok, zero) for j in range(2)]
-        if cin:
-            segs.append(_tile_src(off["wc"] + l * cin * G, G, cin, cinp, n, ok, zero))
-        segs.append(_tile_src(off["wconv"] + 2 * C * G + l * 3 * C * G, G, C, cp, n, ok, zero))
-        return np.concatenate(segs)
-
-    def plain_src(name, base, N, K, Kp, t):  # 16-column tile t of a (K, N) matrix
-        n = 16 * t + r16
-        return _tile_src(off[name] + base, N, K, Kp, n, n < N, zero)
-
-    def subs(t):
-        return range(t * sub, (t + 1) * sub)
-
     for j in range(nst):  # skip tile j, every layer
-        src = np.concatenate([frag(plain_src("wskip", l * G2 * S, S, G2, g2p, j)) for l in range(L)])
+        n = 16 * j + r16
+        src = np.concatenate([
+            frag(_tile_src(off["wskip"] + l * G2 * S, S, G2, g2p, n, n < S, zero)) for l in range(L)])
         units[j].append((U_SKIP, 0, j, src))
         load[j] += src.size * 2
     for l in range(L):
-        gates = [wide([gate_src(l, st) for st in subs(t)]) for t in range(ngt)]
+        gates = []
+        for t in range(ngt):
+            p = 8 * t + r16 % 8
+            n, ok = p + G2 * (r16 >= 8), p < G2
+            # k segments [tap0 | tap1 | c | h], the kernel's input order
+            segs = [_tile_src(off["wconv"] + j * C * G + l * 3 * C * G, G, C, cp, n, ok, zero) for j in range(2)]
+            if cin:
+                segs.append(_tile_src(off["wc"] + l * cin * G, G, cin, cinp, n, ok, zero))
+            segs.append(_tile_src(off["wconv"] + 2 * C * G + l * 3 * C * G, G, C, cp, n, ok, zero))
+            gates.append(frag(np.concatenate(segs)))
         # a gate tile's taps-and-c product runs while the three stages
         # before it on the chain do; on a block that holds one of them it
         # would wait for that tile instead (and the samplers at B <= 8,
         # the first non-skip blocks, run just before gate_0)
         place(U_GATE, l, gates, avoid={(U_OUT, l - 2), (U_GATE, l - 1), (U_OUT, l - 1)},
               last=range(nst, nst + 8) if l == 0 else ())
-        place(U_OUT, l, [wide([plain_src("wout", l * G2 * C, C, G2, g2p, st) for st in subs(t)])
+        place(U_OUT, l, [frag(_tile_src(off["wout"] + l * G2 * C, C, G2, g2p, 16 * t + r16, 16 * t + r16 < C, zero))
                          for t in range(nout)])
-    place(U_POST1, 0, [wide([plain_src("wp1", 0, S, S, sp, st) for st in subs(t)]) for t in range(npt)])
-    place(U_LOGITS, 0, [wide([plain_src("wp2", 0, O, S, sp, st) for st in subs(t)]) for t in range(nlt)])
+    place(U_POST1, 0, [frag(_tile_src(off["wp1"], S, S, sp, 16 * t + r16, 16 * t + r16 < S, zero))
+                       for t in range(npt)])
+    place(U_LOGITS, 0, [frag(_tile_src(off["wp2"], O, S, sp, 16 * t + r16, 16 * t + r16 < O, zero))
+                        for t in range(nlt)])
 
     rows, blk, index, w = [], [], [], 0
     for b in range(n_blocks):
@@ -278,24 +266,19 @@ def block_plan(L: int, C: int, G: int, S: int, O: int, cin: int, n_blocks: int, 
             index.append(src)
             w += src.size
         blk.append((u0, len(rows), w0 // 8, (w - w0) // 8))
-    smem = _RED_BYTES * sub + max(load)
+    smem = _RED_BYTES + max(load)
     if smem > SMEM_LIMIT:
         raise ValueError(
             f"the decode kernel's resident weights need {max(load)} bytes of shared memory in one block "
-            f"({sum(load)} bytes over {n_blocks} blocks) plus {_RED_BYTES * sub} of partial sums, "
+            f"({sum(load)} bytes over {n_blocks} blocks) plus {_RED_BYTES} of partial sums, "
             f"above the {SMEM_LIMIT} bytes a block can have"
         )
     return BlockPlan(
-        key=(L, C, G, S, O, cin, n_blocks, sub), n_blocks=n_blocks, sub=sub, nst=nst, ngt=ngt, nout=nout, npt=npt, nlt=nlt,
+        key=(L, C, G, S, O, cin, n_blocks), n_blocks=n_blocks, nst=nst, ngt=ngt, nout=nout, npt=npt, nlt=nlt,
         cp=cp, g2p=g2p, sp=sp, cinp=cinp, smem=smem,
         units=np.asarray(rows, np.int32).reshape(-1, 4), blk=np.asarray(blk, np.int64),
         index=np.concatenate(index).astype(np.int32), zero=zero, shapes=tuple(shapes),
     )
-
-
-def _tile_sub(B: int) -> int:
-    """The chain's tile width, in 16-column fragments, for batch B."""
-    return 1
 
 
 @functools.lru_cache(maxsize=2)
@@ -457,7 +440,7 @@ class _DecodeArgs(ctypes.Structure):
             "ring", "h", "act", "skip", "y1", "bar", "codes", "logits", "stream",
         )]
         + [(n, ctypes.c_int64) for n in (
-            "NB", "NST", "NGT", "NOT", "NPT", "NLT", "CP", "G2P", "SP", "CINP", "smem", "SUB",
+            "NB", "NST", "NGT", "NOT", "NPT", "NLT", "CP", "G2P", "SP", "CINP", "smem",
         )]
         + [(n, ctypes.c_void_p) for n in ("wbuf", "units", "blk", "hb", "ys", "cnt")]
     )
@@ -540,7 +523,7 @@ def _decode_cuda(net, packed, T, seed, c_up, g_add, teach, teacher, dtype_str):
     skip = torch.empty(B, S, dtype=torch.float32, device=dev)
     if tc:  # resident weights; rows padded to 32 columns, zeros in the pad
         n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        plan = block_plan(L, C, G, S, O, cin, n_sms, _tile_sub(B))
+        plan = block_plan(L, C, G, S, O, cin, n_sms)
         wbuf = pack_block_weights(packed, plan)
         _, units, blk = _plan_tensors(plan.key, str(dev))
         if plan.cinp != cin:
@@ -579,7 +562,7 @@ def _decode_cuda(net, packed, T, seed, c_up, g_add, teach, teacher, dtype_str):
     if tc:
         a.NB, a.NST, a.NGT, a.NOT, a.NPT, a.NLT = (plan.n_blocks, plan.nst, plan.ngt, plan.nout, plan.npt,
                                                    plan.nlt)
-        a.CP, a.G2P, a.SP, a.CINP, a.smem, a.SUB = plan.cp, plan.g2p, plan.sp, plan.cinp, plan.smem, plan.sub
+        a.CP, a.G2P, a.SP, a.CINP, a.smem = plan.cp, plan.g2p, plan.sp, plan.cinp, plan.smem
         a.wbuf, a.units, a.blk, a.hb, a.ys, a.cnt = map(ptr, (wbuf, units, blk, hb, ys, cnt))
     lib = _lib()
     with torch.cuda.device(dev):
