@@ -58,8 +58,29 @@ Phases (each raises on failure, so the script exits non-zero):
    unfused, in turns (host clock after a synchronize), in samples/s; one
    step of each under torch.profiler: device time by kernel, and K2/K3's
    time and TFLOP/s by pass.
+8. IN-WAE at full ``inae`` width through the CLI on ``cuda``: ``train
+   --preset inae --hparams fused_stack=true --max-steps 3`` at B=10 x
+   T=5120 bf16 on a synthetic dump (K2/K3 counted, step 1's loss and grad
+   norm against the unfused step at phase 6's bounds), ``infer`` on its
+   checkpoint (ABX frames against the port's CPU encode), ``synthesize
+   --batch 4`` with the auto tar_c map from the ``train_no_dev`` dump
+   (AdaIN; K1 counted); host seconds of each call.
+9. The zoo's shapes. K1 in teacher mode against its plain versions at
+   ``inae`` (speaker ids), ``new_inae`` (continuous g) and ``vocoder_raw``
+   (scalar input, 10-mixture MoL, L=24, C=128, cin=80, cin_pad 2) width,
+   f32 at 2e-4 and bf16 at phase 1's bounds with the jitter build bit for
+   bit; the ``vocoder_raw`` MoL draw, fed back, against ``WaveNet.apply``;
+   K2/K3 against their plain versions at ``vocoder_raw`` width and at
+   cin=39 (padded to 40 by the wrapper), phase 5's tolerances; K2/K3 times
+   at ``inae``'s B=10 x T=5120 and ``vocoder_raw``'s B=8 x T=10240 and K1's
+   ms per step at T=256 (B=4, 256) at both widths, beside their bounds;
+   then one CLI ``train`` step (fused, 4 layers, B=4) and ``synthesize``
+   (``infer`` for the MFCC-only AEs) for every other family, each with the
+   counters zeroed before and read after.
 
-Prints the kernel table (K1, K2, K3) as one JSON line, the nvidia-smi line, and last
+Prints the kernel table (K1, K2, K3; ``launches`` summed over every path
+driven, ``launches_by_path`` each path's count) as one JSON line, the
+nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
 prints no result. It imports only the port, never JAX.
 """
@@ -168,15 +189,28 @@ def full_model(seed=0):
 
 
 def teacher_inputs(net, B, T, rng, cond=True):
+    """Teacher-mode inputs of ``net`` on the card: codes (mu-law) or samples
+    in [-1, 1] (scalar input), c_up from random latent frames through the
+    net's upsampler (cin_pad context frames trimmed), and g: speaker ids
+    with an embedding, continuous (B, gin) codes without one, else None."""
     import torch
 
-    codes = torch.from_numpy(rng.integers(0, net.out_channels, (B, T))).cuda()
+    if net.scalar_input:
+        codes = torch.from_numpy(rng.uniform(-1.0, 1.0, (B, T)).astype(np.float32)).cuda()
+    else:
+        codes = torch.from_numpy(rng.integers(0, net.out_channels, (B, T))).cuda()
     if not cond:
         return codes, None, None
-    frames = -(-T // 640)
-    lat = torch.from_numpy(rng.standard_normal((B, frames, net.cin_channels)).astype(np.float32)).cuda()
-    c_up = net._align_conditioning(lat, frames * 640)[:, :T].contiguous()
-    g = torch.from_numpy(rng.integers(0, net.n_speakers, (B,))).cuda()
+    up = int(np.prod(net.upsample_scales))
+    frames = -(-T // up)
+    lat = torch.from_numpy(rng.standard_normal((B, frames + 2 * net.cin_pad, net.cin_channels)).astype(np.float32))
+    c_up = net._align_conditioning(lat.cuda(), frames * up)[:, :T].contiguous()
+    if net.has_speaker_embedding():
+        g = torch.from_numpy(rng.integers(0, net.n_speakers, (B,))).cuda()
+    elif net.gin_channels > 0:
+        g = torch.from_numpy(rng.standard_normal((B, net.gin_channels)).astype(np.float32)).cuda()
+    else:
+        g = None
     return codes, c_up, g
 
 
@@ -190,7 +224,7 @@ def k1_errors(net, B, T, rng, dtypes, cond=True):
 
     with torch.no_grad():
         codes, c_up, g = teacher_inputs(net, B, T, rng, cond)
-        y_apply = net.apply(codes, c_up, g, upsampled=True)
+        y_apply = net.apply(codes[..., None] if net.scalar_input else codes, c_up, g, upsampled=True)
         packed = K.pack_decode_weights(net)
         g_add = K.precompute_g_add(net, g)
         before = K.LAUNCHES
@@ -393,7 +427,7 @@ def phase3(res, tmp: Path):
             raise AssertionError(f"wav {u}: {len(w)} samples at {sr} Hz")
     log(f"phase 3: ABX frames equal to the CPU encode {frac:.4f}; bitrate {br['bitrate']:.1f} bits/s; "
         f"wav lengths {lens}")
-    res["launches"] = launches
+    count_launches(res, "svqwae_cli_synthesize", launches)
     res["serving"] = {"abx_match": frac, "bitrate": br["bitrate"], "wav_samples": lens,
                       "infer_s": t1 - t0, "synthesize_s": t2 - t1}
 
@@ -439,15 +473,7 @@ def phase4(res):
         graph = {f"B{b}": reference_step_graph_ms(net, packed, b, rng) for b in (4, 256)}
         log(f"phase 4: yardstick, ms per step of a CUDA graph of one teacher-mode step of the plain decode "
             f"(bf16 storage, f32 products; the port never calls it): {json.dumps(graph)}")
-    C, G, S, O, L = net.residual_channels, net.gate_channels, net.skip_out_channels, net.out_channels, net.n_layers
-    cin = net.cin_channels
-    mac_row_step = L * (3 * C * G + cin * G + (G // 2) * (C + S)) + S * S + S * O
-    flop = 2.0 * mac_row_step * B * T
-    n_weights = sum(v.numel() for v in packed.values())
-    in_bytes = n_weights * 2 + c_up.numel() * 2 + g_add.numel() * 4
-    out_bytes = B * T * O * 4 + B * T * 4
-    t_ops = flop / H100_BF16_FLOPS * 1e3
-    t_bytes = (in_bytes + out_bytes) / H100_BYTES_PER_S * 1e3
+    flop, t_ops, t_bytes = k1_bound(net, packed, B, T, has_g=True)
     audio_s = B * T / 16000.0
     log(f"phase 4: K1 B={B} T={T} bf16: {ms:.3f} ms/call = {audio_s / (ms / 1e3):.2f} audio-s/s; "
         f"{flop / 1e12:.3f} TFLOP -> bound {max(t_ops, t_bytes):.3f} ms (ops {t_ops:.3f}, bytes {t_bytes:.3f}), "
@@ -464,6 +490,21 @@ def phase4(res):
         "ms_per_step": breakdown,
         "graph_step_ms": graph,
     })
+
+
+def k1_bound(net, packed, B, T, has_g):
+    """(FLOP, ms bound by operations, ms bound by bytes) of one bf16 K1 call
+    of T steps at batch B: the products of every step at the bf16 peak; the
+    bf16 weights and c_up and the f32 g_add read once, the f32 logits and
+    samples written once, over the HBM rate."""
+    C, G, S, O, L = net.residual_channels, net.gate_channels, net.skip_out_channels, net.out_channels, net.n_layers
+    cin = max(net.cin_channels, 0)
+    mac_row_step = L * (3 * C * G + cin * G + (G // 2) * (C + S)) + S * S + S * O
+    flop = 2.0 * mac_row_step * B * T
+    n_weights = sum(v.numel() for v in packed.values())
+    in_bytes = n_weights * 2 + B * T * cin * 2 + (L * B * G * 4 if has_g else 0)
+    out_bytes = B * T * O * 4 + B * T * 4
+    return flop, flop / H100_BF16_FLOPS * 1e3, (in_bytes + out_bytes) / H100_BYTES_PER_S * 1e3
 
 
 def reference_step_graph_ms(net, packed, B, rng, reps=50) -> float:
@@ -518,13 +559,11 @@ def reference_step_graph_ms(net, packed, B, rng, reps=50) -> float:
     return cuda_time(graph.replay, reps)
 
 
-def glu_inputs(B, T, store, rng):
-    """Seeded inputs of the GLU stack at svqwae width (C=256, G=368, S=256,
-    cin=64, L=20, dilations 1..512 twice) on the card: weights N(0, 1/fan_in)
-    so that the residual stays O(1) over the 20 layers."""
+def glu_inputs(B, T, store, rng, C=256, G=368, S=256, cin=64, L=20, stacks=2):
+    """Seeded inputs of the GLU stack (default svqwae width: C=256, G=368,
+    S=256, cin=64, L=20, dilations 1..512 twice) on the card: weights
+    N(0, 1/fan_in) so that the residual stays O(1) over the layers."""
     import torch
-
-    C, G, S, cin, L = 256, 368, 256, 64, 20
 
     def mk(shape, std):
         return torch.from_numpy((std * rng.standard_normal(shape)).astype(np.float32)).cuda()
@@ -536,7 +575,7 @@ def glu_inputs(B, T, store, rng):
          "wc": mk((L, cin, G), cin ** -0.5), "wout": mk((L, G // 2, C), (G // 2) ** -0.5),
          "bout": mk((L, C), 0.05), "wskip": mk((L, G // 2, S), (G // 2) ** -0.5), "bskip": mk((L, S), 0.05)}
     w = {k: (v if k.startswith("b") else v.to(store)) for k, v in w.items()}
-    dils = tuple(2 ** (i % 10) for i in range(L))
+    dils = tuple(2 ** (i % (L // stacks)) for i in range(L))
     return x, c, g_add, w, dils
 
 
@@ -631,19 +670,40 @@ def phase5(k2, k3):
     k2["tolerances_rel"] = k3["tolerances_rel"] = TOL_GLU
 
 
-def make_dump(root: Path, rng, n_utts=48, frames=200, hop=160):
+def make_dump(root: Path, rng, n_utts=48, frames=200, hop=160, split="train", raw=False, feat="mfcc", dim=39):
     """A synthetic training dump: ``train.txt`` and, per utterance,
-    ``wave.npy`` (mu-law codes) and ``mfcc.norm.npy`` (39-dim), 2 speakers."""
+    ``wave.npy`` (mu-law codes, or samples in [-1, 1] when ``raw``) and
+    ``<feat>.norm.npy`` (``dim`` features a frame), 2 speakers."""
     lines, dirs = [], []
     for i in range(n_utts):
-        d = root / "english" / "train" / f"V00{i % 2 + 1}_{2000 + i}"
+        d = root / "english" / split / f"V00{i % 2 + 1}_{2000 + i}"
         d.mkdir(parents=True)
-        np.save(d / "wave.npy", rng.integers(0, 256, frames * hop))
-        np.save(d / "mfcc.norm.npy", rng.standard_normal((frames, 39)).astype(np.float32))
+        wave = rng.uniform(-1.0, 1.0, frames * hop).astype(np.float32) if raw else rng.integers(0, 256, frames * hop)
+        np.save(d / "wave.npy", wave)
+        np.save(d / f"{feat}.norm.npy", rng.standard_normal((frames, dim)).astype(np.float32))
         lines.append(f"{d}/|{frames}|{i % 2}|dummy")
         dirs.append(d)
     (root / "train.txt").write_text("\n".join(lines) + "\n")
     return dirs
+
+
+def make_test_set(root: Path, rng, n_utts, frames, dim=39, target="V002"):
+    """``<root>/english/test/<utt>/mfcc.norm.npy`` for ``n_utts`` utterances,
+    a ``synthesis.txt`` sending each to ``target``, a speaker map and an
+    ABX scp. Returns (test dir, utterance names, features, synthesis list,
+    speaker map, scp)."""
+    test = root / "english" / "test"
+    utts = [f"V00{i % 2 + 1}_{1000 + i}" for i in range(n_utts)]
+    feats = {}
+    for u in utts:
+        (test / u).mkdir(parents=True)
+        feats[u] = rng.standard_normal((frames, dim)).astype(np.float32)
+        np.save(test / u / "mfcc.norm.npy", feats[u])
+    syn, sp2ind, scp = root / "synthesis.txt", root / "speaker2ind.json", root / "test_src_dst.json"
+    syn.write_text("".join(f"{u} {target}\n" for u in utts))
+    sp2ind.write_text(json.dumps({"V001": 0, "V002": 1}))
+    scp.write_text(json.dumps([[f"wav/{u}.wav", str(test / u) + "/"] for u in utts]))
+    return test, utts, feats, syn, sp2ind, scp
 
 
 # The first fused train step against the unfused one from the same init and
@@ -720,16 +780,18 @@ def phase6(k2, k3, tmp: Path):
     for k, tol in TOL_STEP1.items():
         if not diff[k] <= tol:
             raise AssertionError(f"fused step-1 {k} {fused[k]} vs unfused {unfused[k]}: rel diff {diff[k]}")
-    k2["launches"], k3["launches"] = launches
+    count_launches(k2, "svqwae_cli_train", launches[0])
+    count_launches(k3, "svqwae_cli_train", launches[1])
     k2["train_path"] = {"steps": 3, "losses": [losses[s] for s in (1, 2, 3)],
                         "grad_norms_steps_1_3": [gnorms[s] for s in (1, 3)],
                         "step1_unfused": unfused, "step1_rel_diff": diff, "tol": TOL_STEP1,
                         "cli_train_s": t1 - t0}
 
 
-def glu_bound(B, T, C=256, G=368, S=256, cin=64, L=20):
-    """(K2 FLOP, K2 bytes, K3 FLOP, K3 bytes) at svqwae width, bf16 storage:
-    each input read once, each output written once."""
+def glu_bound(B, T, C=256, G=368, S=256, cin=64, L=20, has_g=True):
+    """(K2 FLOP, K2 bytes, K3 FLOP, K3 bytes), by default at svqwae width, bf16
+    storage: each input read once, each output written once (g_add and
+    dgadd only with global conditioning)."""
     G2, rows = G // 2, B * T * L
     f2 = 2.0 * rows * ((3 * C + cin) * G + G2 * (C + S))
     # rebuild out; dact; dwout+dwskip; dwconv+dwc; dx+dc
@@ -737,10 +799,11 @@ def glu_bound(B, T, C=256, G=368, S=256, cin=64, L=20):
     w_bf16 = 2 * L * (3 * C * G + cin * G + G2 * (C + S))
     b_f32 = 4 * L * (G + C + S)
     ab = 2 * B * L * T * G
-    by2 = 2 * B * T * (C + cin) + 4 * B * L * G + w_bf16 + b_f32 + 2 * B * T * S + 4 * B * T * C + ab
+    g = 4 * B * L * G if has_g else 0
+    by2 = 2 * B * T * (C + cin) + g + w_bf16 + b_f32 + 2 * B * T * S + 4 * B * T * C + ab
     # in: dskips, hfin, c, ab, weights, bout; out: dx, dc, dgadd, f32 weight and bias grads
     by3 = (2 * B * T * S + 4 * B * T * C + 2 * B * T * cin + ab + w_bf16 + 4 * L * C
-           + 2 * B * T * C + 4 * B * T * cin + 4 * B * L * G + 2 * w_bf16 + b_f32)
+           + 2 * B * T * C + 4 * B * T * cin + g + 2 * w_bf16 + b_f32)
     return f2, by2, f3, by3
 
 
@@ -886,6 +949,324 @@ def phase7(k2, k3):
     k3["unfused_step_ms"] = k2["unfused_step_ms"] = step_ms["unfused"]
 
 
+def count_launches(rec, path, n):
+    """Add one path's launches of a kernel to its record; ``launches`` is
+    the sum over every path this run drove."""
+    rec.setdefault("launches_by_path", {})[path] = n
+    rec["launches"] = sum(rec["launches_by_path"].values())
+
+
+def read_metrics(ckpt_dir: Path) -> list[dict]:
+    return [json.loads(line) for line in (ckpt_dir / "logs" / "metrics.jsonl").read_text().splitlines()]
+
+
+def phase8(k1, k2, k3, tmp: Path, device="cuda", extra=""):
+    """IN-WAE at full inae width through the CLI: train (fused, bf16), ABX
+    export, AdaIN synthesis with an auto tar_c map. ``extra`` hparams are
+    appended to every run (a smaller rehearsal on the CPU)."""
+    import torch
+    from scipy.io import wavfile
+
+    from wavenet_autoencoders_tpu_torch.cli.main import _load_model
+    from wavenet_autoencoders_tpu_torch.cli.main import main as cli
+    from wavenet_autoencoders_tpu_torch.config import load_preset
+    from wavenet_autoencoders_tpu_torch.data.dataset import WaveDataset, data_iterator
+    from wavenet_autoencoders_tpu_torch.kernels import decode as K1
+    from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
+    from wavenet_autoencoders_tpu_torch.models import build_model
+    from wavenet_autoencoders_tpu_torch.train.loop import batch_to_device
+    from wavenet_autoencoders_tpu_torch.train.step import init_state, make_train_step
+
+    rng = np.random.default_rng(8)
+    dump, ckpt_dir, abx, wav_dir = tmp / "dump", tmp / "exp", tmp / "abx", tmp / "syn"
+    make_dump(dump, rng, split="train_no_dev")
+    test, utts, feats, syn, sp2ind, scp = make_test_set(dump, rng, 4, 200)
+    secs, cuda = {}, device == "cuda"
+    hp = ",".join(h for h in ("fused_stack=true", extra) if h)
+    K.LAUNCHES_FWD = K.LAUNCHES_BWD = 0
+    t0 = time.perf_counter()
+    cli(["train", "--preset", "inae", "--hparams", hp, "--device", device, "--max-steps", "3",
+         str(dump), str(ckpt_dir)])
+    if cuda:
+        torch.cuda.synchronize()
+    secs["train"] = time.perf_counter() - t0
+    glu = (K.LAUNCHES_FWD, K.LAUNCHES_BWD)
+    if cuda and glu != (3, 3):
+        raise AssertionError(f"K2/K3 launched {glu} times in 3 fused inae train steps, expected (3, 3)")
+    recs = [r for r in read_metrics(ckpt_dir) if r["phase"] == "train_no_dev"]
+    step1 = next(r for r in recs if r["step"] == 1)
+    if not all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in recs):
+        raise AssertionError(f"inae train metrics not finite: {recs}")
+    ckpt = ckpt_dir / "checkpoint_step000000003.npz"
+    for f in (ckpt, ckpt_dir / "checkpoint_step000000003_ema.npz"):
+        if not f.exists():
+            raise AssertionError(f"{f.name} was not written")
+
+    t0 = time.perf_counter()
+    cli(["infer", "--preset", "inae", "--hparams", hp, "--device", device, str(ckpt), str(scp), str(abx)])
+    secs["infer"] = time.perf_counter() - t0
+    K1.LAUNCHES = 0
+    t0 = time.perf_counter()
+    cli(["synthesize", "--preset", "inae", "--hparams", hp, "--device", device, "--batch", "4", str(ckpt), str(test),
+         str(wav_dir), str(syn), str(sp2ind), "english"])
+    if cuda:
+        torch.cuda.synchronize()
+    secs["synthesize"] = time.perf_counter() - t0
+    launches = K1.LAUNCHES
+    log(f"phase 8: inae through the CLI, host seconds {json.dumps({k: round(v, 2) for k, v in secs.items()})}; "
+        f"K2/K3 launches {glu}, K1 launches {launches}")
+    if cuda and launches < 1:
+        raise AssertionError("inae synthesis did not launch K1")
+
+    # ABX frames against the port's encode on the CPU from the same
+    # checkpoint (the IN latent is continuous: f32 on two devices, written
+    # '%.6f'; a wrong latent is off by O(1))
+    cfg = load_preset("inae", hp)
+    cpu_model = _load_model(cfg, str(ckpt), use_ema=False, device="cpu")
+    abx_err = 0.0
+    for u in utts:
+        got = np.loadtxt(abx / "2019" / "english" / "test" / f"{u}.txt")
+        if got.shape != (100, cpu_model.hid):
+            raise AssertionError(f"ABX {u}: shape {got.shape}")
+        with torch.no_grad():
+            want = cpu_model.encode(torch.from_numpy(feats[u])[None])[0].numpy()
+        abx_err = max(abx_err, float(np.abs(got - want).max()))
+    if not abx_err <= 1e-3:
+        raise AssertionError(f"ABX export differs from the CPU encode by {abx_err}")
+    lens = []
+    for u in utts:
+        sr, w = wavfile.read(wav_dir / "2019" / "english" / "test" / f"V002_{u.split('_')[1]}.wav")
+        lens.append(len(w))
+        if len(w) != 32000 or sr != cfg.sample_rate or not np.isfinite(w.astype(np.float64)).all():
+            raise AssertionError(f"wav {u}: {len(w)} samples at {sr} Hz")
+
+    # step 1 against the unfused step from the same init and first batch
+    cfg = cfg.replace(fused_stack=False)
+    model = build_model(cfg, device=device).train()
+    batch = next(data_iterator(WaveDataset(str(dump), cfg), cfg, prefetch=0,
+                               transform=lambda b: batch_to_device(b, torch.device(device))))
+    _, m = make_train_step(cfg, model)(init_state(cfg, model), batch)
+    unfused = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item()}
+    fused = {"loss": step1["loss"], "grad_norm": step1["grad_norm"]}
+    diff = {k: abs(fused[k] - unfused[k]) / abs(unfused[k]) for k in fused}
+    log(f"phase 8: step 1 fused {json.dumps(fused)} vs unfused {json.dumps(unfused)}: rel diff {json.dumps(diff)} "
+        f"(bounds {json.dumps(TOL_STEP1)}); ABX max|cuda - cpu| {abx_err:.2e} (bound 1e-3); wav lengths {lens}")
+    for k, tol in TOL_STEP1.items():
+        if not diff[k] <= tol:
+            raise AssertionError(f"inae fused step-1 {k} {fused[k]} vs unfused {unfused[k]}: rel diff {diff[k]}")
+    count_launches(k1, "inae_cli_synthesize", launches)
+    count_launches(k2, "inae_cli_train", glu[0])
+    count_launches(k3, "inae_cli_train", glu[1])
+    k1["inae_cli"] = {"host_s": secs, "abx_max_abs_err": abx_err, "step1_rel_diff": diff, "wav_samples": lens}
+
+
+# Widths of the zoo's kernel shapes: (preset, K2/K3 batch, K2/K3 T)
+ZOO_SHAPES = (("inae", 10, 5120), ("vocoder_raw", 8, 10240))
+# The CLI runs of phase 9, each at 4 layers in 2 stacks, B=4, fused stack:
+# (label, preset, extra hparams, what serves the checkpoint)
+ZOO_CLI = (
+    ("wvae", "wvae", "", "synthesize"),
+    ("ae", "ae", "", "synthesize"),
+    ("inae1", "inae", "name=inae1", "synthesize"),
+    ("new_inae", "new_inae", "", "synthesize"),
+    ("catae", "catae", "", "synthesize"),
+    ("syn", "syn", "", "synthesize"),
+    ("vocoder", "vocoder", "", "synthesize"),
+    ("vocoder_raw", "vocoder_raw", "", "synthesize"),
+    ("mfcc_ae", "ae", "name=model2", "infer"),
+    ("cat_mfcc_ae", "ae", "name=cat_ae,frame_rate=25", "infer"),
+)
+
+
+def zoo_model(preset, seed=9):
+    from wavenet_autoencoders_tpu_torch.config import load_preset
+    from wavenet_autoencoders_tpu_torch.models import build_model
+
+    return build_model(load_preset(preset), device="cuda", seed=seed)
+
+
+def phase9(k1, k2, k3, tmp: Path):
+    """The zoo's kernel shapes: K1 at inae, new_inae and vocoder_raw width,
+    the vocoder_raw MoL draw, K2/K3 at vocoder_raw width and cin = 39, their
+    times, and one CLI train step plus synthesis (or ABX export) for every
+    other family."""
+    import torch
+
+    from wavenet_autoencoders_tpu_torch.kernels import decode as K1
+    from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
+
+    bounds = {"f32_vs_apply": TOL_F32, "f32_vs_plain": TOL_F32,
+              "bf16_vs_plain_bf16": TOL_BF16_PLAIN, "bf16_vs_apply_f32": TOL_BF16_F32,
+              "bf16_jitter_vs_plain_build": 0.0}
+    zoo1, zoo2, zoo3 = k1.setdefault("zoo", {}), k2.setdefault("zoo", {}), k3.setdefault("zoo", {})
+    for preset, T in (("inae", 1100), ("new_inae", 1100), ("vocoder_raw", 600)):
+        net = zoo_model(preset).wavenet
+        errs = k1_errors(net, 4, T, np.random.default_rng(9), ("float32", "bfloat16"))
+        log(f"phase 9: K1 {preset} B=4 T={T} teacher mode: max|kernel - plain| {json.dumps(errs)}")
+        for k, e in errs.items():
+            if not np.isfinite(e) or e > bounds[k]:
+                raise AssertionError(f"K1 {preset} {k} = {e} exceeds {bounds[k]}")
+        zoo1[f"{preset}_errors"] = errs
+        k1["max_abs_err"] = max(k1["max_abs_err"] or 0.0, errs["bf16_vs_plain_bf16"])
+
+    # the raw vocoder's MoL draw, each sample fed back one step later (0 first)
+    net = zoo_model("vocoder_raw").wavenet
+    rng = np.random.default_rng(10)
+    B, T = 4, 4096
+    with torch.no_grad():
+        lat = torch.from_numpy(rng.standard_normal((B, T // 256 + 2 * net.cin_pad, 80)).astype(np.float32)).cuda()
+        x, lg = net.decode_kernel(T, c=lat, seed=13, dtype_str="bfloat16")
+        fed = torch.cat([torch.zeros(B, 1, device="cuda"), x[:, :-1]], dim=1)
+        fed_err = (lg - net.apply(fed[..., None], lat)).abs().max().item()
+        wrong_err = (lg - net.apply(x[..., None], lat)).abs().max().item()
+    spread = x.float().std().item()
+    log(f"phase 9: vocoder_raw MoL draw B={B} T={T} bf16: max|params - apply(fed-back samples)| {fed_err:.5f} "
+        f"(bound {TOL_BF16_F32}), wrong feedback {wrong_err:.4f}; samples in [{x.min().item():.3f}, "
+        f"{x.max().item():.3f}], std {spread:.4f}")
+    if not fed_err <= TOL_BF16_F32 or not wrong_err > 2 * TOL_BF16_F32:
+        raise AssertionError(f"MoL fed-back params vs apply {fed_err}; vs a wrong feedback {wrong_err}")
+    if not (torch.isfinite(x).all() and x.abs().max().item() <= 1.0 and spread > 1e-3):
+        raise AssertionError("MoL samples are not finite draws in [-1, 1]")
+    zoo1["vocoder_raw_mol_draw"] = {"fed_back_err": fed_err, "wrong_feedback_err": wrong_err, "std": spread}
+
+    # K2/K3 against their plain versions at vocoder_raw width and at cin = 39
+    # (the wrapper zero-pads cin to 40), phase 5's tolerances
+    widths = {"vocoder_raw": dict(C=128, G=256, S=128, cin=80, L=24, stacks=4), "cin39": dict(cin=39)}
+    for name, w in widths.items():
+        for dt, store in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            rng = np.random.default_rng(11)
+            x, c, g_add, wt, dils = glu_inputs(2, 2048, store, rng, **w)
+            if name == "vocoder_raw":
+                g_add = None  # gin = -1
+            args = (x, c, g_add, wt["wconv"], wt["bconv"], wt["wc"], wt["wout"], wt["bout"], wt["wskip"],
+                    wt["bskip"], dils)
+            S = wt["wskip"].shape[-1]
+            dskips = torch.from_numpy(rng.standard_normal((2, 2048, S)).astype(np.float32)).cuda().to(store)
+            bargs = (c, None, wt["wconv"], wt["wc"], wt["wout"], wt["bout"], wt["wskip"], dils, g_add is not None)
+            with torch.no_grad():
+                fwd = K.glu_stack_forward(*args)
+                p_fwd = K.glu_stack_forward_reference(*args)
+                bargs = (c, fwd[2], *bargs[2:])
+                grads = K.glu_stack_backward(dskips, fwd[1], *bargs)
+                p_grads = K.glu_stack_backward_reference(dskips, fwd[1], *bargs)
+            torch.cuda.synchronize()
+            errs, a2, a3 = glu_errors(fwd, p_fwd, grads, p_grads)
+            log(f"phase 9: K2/K3 {name} B=2 T=2048 {dt}: rel errors "
+                f"{json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}")
+            check_glu(errs, dt, name)
+            zoo2[f"{name}_{dt}_max_rel_err"] = max(errs[k] for k in FWD_OUTPUTS)
+            zoo3[f"{name}_{dt}_max_rel_err"] = max(v for k, v in errs.items() if k not in FWD_OUTPUTS)
+            k2["max_abs_err"], k3["max_abs_err"] = max(k2["max_abs_err"] or 0.0, a2), max(k3["max_abs_err"] or 0.0, a3)
+
+    # times at the zoo's training shapes, and K1 ms per step at T=256
+    for preset, B, T in ZOO_SHAPES:
+        net = zoo_model(preset).wavenet
+        C, G, S, L, cin = net.residual_channels, net.gate_channels, net.skip_out_channels, net.n_layers, net.cin_channels
+        has_g = net.gin_channels > 0
+        rng = np.random.default_rng(12)
+        x, c, g_add, wt, _ = glu_inputs(B, T, torch.bfloat16, rng, C=C, G=G, S=S, cin=cin, L=L, stacks=net.stacks)
+        dils = tuple(net.dilation(i) for i in range(L))
+        args = (x, c, g_add if has_g else None, wt["wconv"], wt["bconv"], wt["wc"], wt["wout"], wt["bout"],
+                wt["wskip"], wt["bskip"], dils)
+        dskips = torch.from_numpy(rng.standard_normal((B, T, S)).astype(np.float32)).cuda().to(torch.bfloat16)
+        with torch.no_grad():
+            fwd = K.glu_stack_forward(*args)
+            bargs = (c, fwd[2], wt["wconv"], wt["wc"], wt["wout"], wt["bout"], wt["wskip"], dils, has_g)
+            t2 = cuda_time(lambda: K.glu_stack_forward(*args), reps=3)
+            t3 = cuda_time(lambda: K.glu_stack_backward(dskips, fwd[1], *bargs), reps=3)
+            p2 = cuda_time(lambda: K.glu_stack_forward_reference(*args), reps=1)
+            p3 = cuda_time(lambda: K.glu_stack_backward_reference(dskips, fwd[1], *bargs), reps=1)
+        del fwd, bargs
+        f2, by2, f3, by3 = glu_bound(B, T, C, G, S, cin, L, has_g)
+        for rec, ms, plain, flop, nbytes in ((zoo2, t2, p2, f2, by2), (zoo3, t3, p3, f3, by3)):
+            t_ops, t_bytes = flop / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+            rec[f"{preset}_B{B}_T{T}"] = {"ms": ms, "plain_ms": plain, "bound_ms": max(t_ops, t_bytes),
+                                          "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        per_step = {}
+        with torch.no_grad():
+            packed = K1.pack_decode_weights(net)
+            for b in (4, 256):
+                codes, c_up, g = teacher_inputs(net, b, 256, rng)
+                g_add = K1.precompute_g_add(net, g)
+                ms = cuda_time(lambda: K1.wavenet_decode(net, packed, 256, 0, c_up, g_add, dtype_str="bfloat16"),
+                               reps=1)
+                flop, t_ops, t_bytes = k1_bound(net, packed, b, 256, g_add is not None)
+                per_step[f"B{b}"] = {"ms_per_step": ms / 256, "bound_ms_per_step": max(t_ops, t_bytes) / 256,
+                                     "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        zoo1[f"{preset}_T256"] = per_step
+        log(f"phase 9: {preset} bf16: K2 {t2:.2f} ms (plain {p2:.2f}, bound {zoo2[f'{preset}_B{B}_T{T}']['bound_ms']:.3f}), "
+            f"K3 {t3:.2f} ms (plain {p3:.2f}, bound {zoo3[f'{preset}_B{B}_T{T}']['bound_ms']:.3f}) at B={B} T={T}; "
+            f"K1 at T=256 {json.dumps(per_step)}")
+
+    zoo_cli(k1, k2, k3, tmp, "cuda", "")
+
+
+def zoo_cli(k1, k2, k3, tmp: Path, device: str, extra: str):
+    """One CLI train step (fused stack) at 4 layers, B=4, and synthesis of
+    two utterances (ABX export for the feature AEs) for each family of
+    ``ZOO_CLI``, each with the kernels' counters zeroed before and read
+    after. ``extra`` is appended to every run's hparams."""
+    import torch
+    from scipy.io import wavfile
+
+    from wavenet_autoencoders_tpu_torch.cli.main import main as cli
+    from wavenet_autoencoders_tpu_torch.config import load_preset
+    from wavenet_autoencoders_tpu_torch.kernels import decode as K1
+    from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
+
+    cuda = device == "cuda"
+    out, totals = {}, {"K1": 0, "K2": 0, "K3": 0}
+    for label, preset, hp, serve in ZOO_CLI:
+        hp = ",".join(h for h in ("layers=4,stacks=2,batch_size=4,fused_stack=true", hp, extra) if h)
+        cfg = load_preset(preset, hp)
+        raw, feat_dim = not cfg.is_mulaw_quantize, (80 if cfg.cin_channels == 80 else 39)
+        root = tmp / label
+        rng = np.random.default_rng(13)
+        make_dump(root, rng, n_utts=8, frames=60, hop=cfg.get_hop_size(), split="train_no_dev", raw=raw,
+                  feat="mel" if feat_dim == 80 else "mfcc", dim=feat_dim)
+        test, utts, _, syn, sp2ind, scp = make_test_set(root, rng, 2, 40, dim=feat_dim)
+        common = ["--preset", preset, "--hparams", hp, "--device", device]
+        ckpt = root / "exp" / "checkpoint_step000000001.npz"
+        K.LAUNCHES_FWD = K.LAUNCHES_BWD = K1.LAUNCHES = 0
+        t0 = time.perf_counter()
+        cli(["train", *common, "--max-steps", "1", "--feat-type", "mel" if feat_dim == 80 else "mfcc",
+             str(root), str(root / "exp")])
+        t1 = time.perf_counter()
+        loss = next(r["loss"] for r in read_metrics(root / "exp") if r["phase"] == "train_no_dev")
+        feature_ae = serve == "infer"
+        if feature_ae:
+            cli(["infer", *common, str(ckpt), str(scp), str(root / "abx")])
+            files = [np.loadtxt(root / "abx" / "2019" / "english" / "test" / f"{u}.txt") for u in utts]
+            if not all(np.isfinite(f).all() and f.size for f in files):
+                raise AssertionError(f"{label}: ABX export not finite")
+        else:
+            cli(["synthesize", *common, "--batch", "2", str(ckpt), str(test), str(root / "syn"), str(syn),
+                 str(sp2ind), "english"])
+            files = [wavfile.read(root / "syn" / "2019" / "english" / "test" / f"V002_{u.split('_')[1]}.wav")[1]
+                     for u in utts]
+            if not all(len(w) and np.isfinite(w.astype(np.float64)).all() for w in files):
+                raise AssertionError(f"{label}: synthesized waveforms empty or not finite")
+        if cuda:
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        n = {"K1": K1.LAUNCHES, "K2": K.LAUNCHES_FWD, "K3": K.LAUNCHES_BWD}
+        log(f"phase 9: {label} ({preset} {hp}): train step loss {loss:.4f} in {t1 - t0:.2f} s, "
+            f"{serve} {t2 - t1:.2f} s (host clock); launches {json.dumps(n)}; "
+            f"outputs {[f.shape for f in files]}")
+        if not np.isfinite(loss):
+            raise AssertionError(f"{label}: train loss {loss}")
+        if cuda and (n["K2"], n["K3"]) != ((0, 0) if feature_ae else (1, 1)):
+            raise AssertionError(f"{label}: K2/K3 launched {n['K2']}, {n['K3']} times in one fused step")
+        if cuda and not feature_ae and n["K1"] < 1:
+            raise AssertionError(f"{label}: synthesis did not launch K1")
+        out[label] = {"loss": loss, "train_s": t1 - t0, "serve_s": t2 - t1, "launches": n}
+        for k in totals:
+            totals[k] += n[k]
+    for rec, k in ((k1, "K1"), (k2, "K2"), (k3, "K3")):
+        count_launches(rec, "zoo_cli", totals[k])
+    k1.setdefault("zoo", {})["cli"] = out
+
+
 KERNELS = {
     "K1": ("wavenet_decode", "decode.cu", "wavenet_autoencoders_tpu/kernels/decode.py:352"),
     "K2": ("glu_stack_forward", "glu_stack.cu", "wavenet_autoencoders_tpu/kernels/glu_stack.py:157"),
@@ -895,7 +1276,7 @@ KERNELS = {
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7")
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9")
     phases = {int(p) for p in ap.parse_args(argv).phases.split(",")}
 
     import torch
@@ -949,6 +1330,12 @@ def main(argv=None) -> int:
             phase6(k2, k3, Path(tmp))
     if 7 in phases:
         phase7(k2, k3)
+    if 8 in phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            phase8(k1, k2, k3, Path(tmp))
+    if 9 in phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            phase9(k1, k2, k3, Path(tmp))
 
     print(json.dumps({"kernels": list(res.values())}))
     print(card)

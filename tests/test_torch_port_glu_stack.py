@@ -27,9 +27,12 @@ from wavenet_autoencoders_tpu_torch.kernels.glu_stack import (  # noqa: E402
     FusedGLUStack,
     check_widths,
     gate_perm,
+    glu_stack_backward_reference,
     glu_stack_forward,
     glu_stack_forward_reference,
     pack_weights,
+    pad_cin,
+    unpad_cin,
 )
 
 NAMES = ("x", "c", "g_add", "wconv", "bconv", "wc", "wout", "bout", "wskip", "bskip")
@@ -315,3 +318,32 @@ def test_width_check_refuses_what_the_kernels_cannot_take(bad, off):
     else:
         with pytest.raises(ValueError, match="multiples of 8"):
             check_widths(*args)
+
+
+@pytest.mark.parametrize("cin", [39, 5, 8])
+def test_cin_padding_matches_the_unpadded_plain_version(cin):
+    """What the kernels' wrappers do for a cin that is not a multiple of 8
+    (39 in the ae and vocoder presets): zero columns of c and zero rows of
+    wc leave the forward exactly as it was, and the cut-back dc and dwc equal
+    the unpadded backward's."""
+    vals, probe = make_inputs(11, C=16, G=32, S=16, cin=cin)
+    t = dict(zip(NAMES, (torch.from_numpy(v) for v in vals)))
+    c, wc = pad_cin(t["c"], t["wc"])
+    assert c.shape[-1] == wc.shape[1] == -(-cin // 8) * 8
+    assert (c is t["c"]) == (cin % 8 == 0)
+    assert float(c[..., cin:].abs().sum()) == 0.0 and float(wc[:, cin:].abs().sum()) == 0.0
+    rest = [t[k] for k in ("wconv", "bconv")]
+    tail = [t[k] for k in ("wout", "bout", "wskip", "bskip")]
+    want = glu_stack_forward_reference(t["x"], t["c"], t["g_add"], *rest, t["wc"], *tail, DILS4)
+    got = glu_stack_forward_reference(t["x"], c, t["g_add"], *rest, wc, *tail, DILS4)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    dskips = torch.from_numpy(probe)
+    bw = (t["wconv"], t["wc"], t["wout"], t["bout"], t["wskip"], DILS4, True)
+    want = glu_stack_backward_reference(dskips, want[1], t["c"], want[2], *bw)
+    got = list(glu_stack_backward_reference(dskips, got[1], c, got[2], t["wconv"], wc, *bw[2:]))
+    assert got[1].shape[-1] == got[5].shape[1] == c.shape[-1]
+    got[1], got[5] = unpad_cin(got[1], got[5], cin)
+    for name, a, b in zip(("dx", "dc", "dgadd", "dwconv", "dbconv", "dwc"), got, want):
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6, rtol=1e-6, err_msg=name)

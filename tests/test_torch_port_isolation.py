@@ -96,9 +96,9 @@ def test_train_entry_points_default_device_refuse_cpu(monkeypatch, tmp_path):
         main(["train", "--preset", "svqwae", str(tmp_path), str(tmp_path / "exp")])
 
 
-def test_unported_models_raise():
+def test_unknown_model_name_raises():
     from wavenet_autoencoders_tpu_torch.config import load_preset
     from wavenet_autoencoders_tpu_torch.models import build_model
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(load_preset("inae"), device="cpu")
+    with pytest.raises(ValueError, match="unknown model name: no_such_model"):
+        build_model(load_preset("inae", TINY_SVQWAE).replace(name="no_such_model"), device="cpu")

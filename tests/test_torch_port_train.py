@@ -286,8 +286,7 @@ def test_cli_train_then_infer_on_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("over", [
     {"time_jitter": True}, {"vq_drop": True, "drop_dim": 2}, {"vq_reseed": True}, {"dropout": 0.05},
-    {"input_type": "raw", "quantize_channels": 65536, "out_channels": 30},
-], ids=["time_jitter", "vq_drop", "reseed", "dropout", "mol_loss"])
+], ids=["time_jitter", "vq_drop", "reseed", "dropout"])
 def test_unported_training_options_raise(over):
     """Each option the training slice does not carry raises, naming its
     ROADMAP item, instead of training something else."""

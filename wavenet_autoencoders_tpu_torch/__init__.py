@@ -1,15 +1,17 @@
 """wavenet_autoencoders_tpu_torch — the PyTorch/CUDA port of
 ``wavenet_autoencoders_tpu``.
 
-It carries the SVQ-WAE serving path (ABX export and AR synthesis) and its
-training, with the same layout as the JAX package, so each module has its
+It trains every model of the zoo and serves it (ABX export and AR
+synthesis), with the same layout as the JAX package, so each module has its
 counterpart under the same name:
 
 - ``config``  — typed config, JSON presets, "k=v" overrides (own copy)
 - ``dsp``     — mu-law and the waveform post-processing synthesis needs
 - ``data``    — the train.txt manifest, dataset, sampler, collator, prefetch
-- ``ops``     — weight-normed convs, the GLU cell, upsampler, samplers, losses
-- ``models``  — WaveNet decoder, content encoder, VQ bottlenecks, VQWAE
+- ``ops``     — weight-normed convs, the GLU cell, upsampler, mixture
+                losses and samplers, masked losses
+- ``models``  — WaveNet decoder, content and speaker encoders, bottlenecks
+                (VQ, Gumbel, IN/AdaIN), the WAE zoo and the feature AEs
 - ``kernels`` — the fused AR decode and the fused GLU-stack forward and
                 backward (CUDA for Hopper, ``csrc/``), each with its plain
                 PyTorch version

@@ -52,9 +52,10 @@ def bitrate(latents: list[np.ndarray], total_seconds: float) -> dict:
 
 def _has_discrete_codes(model) -> bool:
     """True when ``model.encode`` emits quantized (finite-alphabet) frames."""
-    from wavenet_autoencoders_tpu_torch.models.wae import VQWAE
+    from wavenet_autoencoders_tpu_torch.models.mfcc_ae import CatMfccAE
+    from wavenet_autoencoders_tpu_torch.models.wae import CatWAE, VQWAE
 
-    return isinstance(model, VQWAE)
+    return isinstance(model, (VQWAE, CatWAE, CatMfccAE))
 
 
 @torch.no_grad()

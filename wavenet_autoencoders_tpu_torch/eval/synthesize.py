@@ -77,16 +77,21 @@ def batch_wavegen(
     generator: torch.Generator | None = None,
     device: str | torch.device = "cuda",
 ) -> np.ndarray:
-    """c: (B, T', dim_in) feature frames -> (B, T) float waveforms.
+    """c: (B, T', dim_in) feature frames -> (B, T) float waveforms. IN-family
+    models re-style the latent with ``tar_c``'s statistics (AdaIN);
+    NewINWAE conditions on the speaker code of ``tar_c`` (else of ``c``) in
+    place of ``g``.
 
     The model must live on ``device``. ``generator`` (on that device) drives
     the sampling; the default is seeded with 0."""
     dev = check_on(model, device)
+    if not hasattr(model, "wavenet"):
+        raise ValueError(f"{type(model).__name__} has no waveform decoder; it serves ABX export only")
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    c = _pad_frames_batch(cfg, c)
+    c = torch.as_tensor(_pad_frames_batch(cfg, c), dtype=torch.float32, device=dev)
     tar_t = None if tar_c is None else torch.as_tensor(tar_c, dtype=torch.float32, device=dev)
-    lat = model.encode(torch.as_tensor(c, dtype=torch.float32, device=dev), tar_c=tar_t)
+    lat = model.encode(c, tar_c=tar_t)
     if cfg.upsample_conditional_features:
         # audio samples = (latent frames - 2*cin_pad context) * prod(scales)
         T = (lat.shape[1] - 2 * cfg.cin_pad) * int(np.prod(cfg.upsample_scales))
@@ -94,7 +99,14 @@ def batch_wavegen(
         # no upsample net: conditioning is repeated by up_factor per frame
         upf = cfg.up_factor if hasattr(model, "frame_rate") else cfg.get_hop_size()
         T = lat.shape[1] * upf
-    g = None if g is None else torch.as_tensor(np.asarray(g), device=dev)
+    if hasattr(model, "speaker_code"):
+        # NewINWAE: the continuous speaker code of the target utterance (or
+        # of the source itself, for reconstruction) replaces the id embedding
+        g = model.speaker_code(c if tar_t is None else tar_t).expand(c.shape[0], -1)
+    elif g is not None and model.wavenet.gin_channels > 0:
+        g = torch.as_tensor(np.asarray(g), device=dev)
+    else:  # no global conditioning (vocoder_raw): the ids are not used
+        g = None
     if _use_kernel_decode(cfg, dev):
         seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator, device=dev))
         codes, _logits = model.wavenet.decode_kernel(T, c=lat, g=g, seed=seed)

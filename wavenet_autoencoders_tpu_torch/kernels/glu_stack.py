@@ -197,10 +197,31 @@ def pack_weights(wconv, wc, wout, wskip, store):
 def check_widths(C, G, Sk, cin):
     """The kernels read every operand row in 16-byte chunks (8 bf16 values)
     and write their outputs 8 columns at a time, so C, G/2, S and cin must be
-    multiples of 8. There is no padding that would hide another width."""
+    multiples of 8. The wrappers pad cin (:func:`pad_cin`); C, G/2 and S are
+    not padded, since no preset has another width."""
     bad = {n: v for n, v in (("C", C), ("G/2", G // 2), ("S", Sk), ("cin", cin)) if v % 8}
     if bad:
         raise ValueError(f"glu_stack kernels need widths that are multiples of 8: {bad}")
+
+
+def pad_cin(c, wc):
+    """Zero-pad the conditioning's columns and ``wc``'s rows up to a
+    multiple of 8 (cin = 39 in the ae and vocoder presets). The zero
+    columns add nothing to any product, so the forward is unchanged and
+    the padded rows of dwc and columns of dc are dropped after the
+    backward (:func:`unpad_cin`). Returns (c, wc) as given when cin is a
+    multiple of 8 or there is no conditioning."""
+    if c is None or c.shape[-1] % 8 == 0:
+        return c, wc
+    pad = -c.shape[-1] % 8
+    return F.pad(c, (0, pad)), F.pad(wc, (0, 0, 0, pad))
+
+
+def unpad_cin(dc, dwc, cin):
+    """dc (B, T, cin_padded) and dwc (L, cin_padded, G) cut back to cin."""
+    if dc is None or dc.shape[-1] == cin:
+        return dc, dwc
+    return dc[..., :cin].contiguous(), dwc[:, :cin].contiguous()
 
 
 class _GluArgs(ctypes.Structure):
@@ -385,6 +406,7 @@ def glu_stack_forward(x, c, g_add, wconv, bconv, wc, wout, bout, wskip, bskip, d
     if x.device.type == "cpu":
         return glu_stack_forward_reference(x, c, g_add, wconv, bconv, wc, wout, bout, wskip, bskip, dilations)
     if x.device.type == "cuda":
+        c, wc = pad_cin(c, wc)
         return _forward_cuda(x, c, g_add, wconv, bconv, wc, wout, bout, wskip, bskip, dilations)
     raise RuntimeError(f"no glu_stack forward for device {x.device}")
 
@@ -395,7 +417,12 @@ def glu_stack_backward(dskips, hfin, c, ab, wconv, wc, wout, bout, wskip, dilati
     if ab.device.type == "cpu":
         return glu_stack_backward_reference(dskips, hfin, c, ab, wconv, wc, wout, bout, wskip, dilations, has_g)
     if ab.device.type == "cuda":
-        return _backward_cuda(dskips, hfin, c, ab, wconv, wc, wout, bout, wskip, dilations, has_g)
+        cin = None if c is None else c.shape[-1]
+        c, wc = pad_cin(c, wc)
+        dx, dc, dgadd, dwconv, dbconv, dwc, *rest = _backward_cuda(
+            dskips, hfin, c, ab, wconv, wc, wout, bout, wskip, dilations, has_g)
+        dc, dwc = unpad_cin(dc, dwc, cin)
+        return (dx, dc, dgadd, dwconv, dbconv, dwc, *rest)
     raise RuntimeError(f"no glu_stack backward for device {ab.device}")
 
 

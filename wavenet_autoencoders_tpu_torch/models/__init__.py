@@ -1,2 +1,2 @@
-"""WaveNet decoder, content encoder, VQ bottlenecks and the VQWAE model."""
+"""WaveNet decoder, encoders, bottlenecks and the model zoo."""
 from wavenet_autoencoders_tpu_torch.models.zoo import build_model, build_wavenet  # noqa: F401

@@ -1,9 +1,10 @@
-"""The bottlenecks of the SVQ-WAE serving and training paths (counterpart of
-``wavenet_autoencoders_tpu/models/bottlenecks.py:35-141,321-336``):
+"""The bottlenecks of the model zoo (counterpart of
+``wavenet_autoencoders_tpu/models/bottlenecks.py:35-141,263-336``):
 
 - plain VQ with the reference's swapped-β loss (β weights the
   codebook-to-encoder term);
 - sliced VQ with the standard loss form and perplexity summed over slices;
+- the Gumbel-softmax categorical bottleneck (CatWAE, CatMfccAE);
 - instance norm and AdaIN.
 
 z is (B, T', D) throughout. ``.detach()`` stands for ``stop_gradient``.
@@ -13,6 +14,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from wavenet_autoencoders_tpu_torch.ops.conv import Linear, linear_apply
 
 
 def _nearest_code(flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
@@ -99,6 +102,49 @@ def sliced_vq_apply(p: SlicedVQ, z: torch.Tensor, beta: float = 0.25, commit_sca
     )
     q_st = z + (q - z).detach()
     return q_st, vq_loss, perp, torch.stack(idxs, dim=-1)
+
+
+class Gumbel(nn.Module):
+    """Per slice a logits head ``heads.{i}`` (D/slices -> k) and a code table
+    ``codes.{i}`` (k, D/slices), N(0, 0.01²)."""
+
+    def __init__(self, D: int, k: int, slices: int = 4, generator=None):
+        super().__init__()
+        assert D % slices == 0
+        sub = D // slices
+        self.heads = nn.ModuleList(Linear(sub, k, generator=generator) for _ in range(slices))
+        self.codes = nn.ParameterList(0.01 * torch.randn(k, sub, generator=generator) for _ in range(slices))
+
+
+def gumbel_apply(p: Gumbel, z: torch.Tensor, *, tau: float = 0.1, hard: bool = False, train: bool = True,
+                 generator: torch.Generator | None = None, uniforms=None):
+    """Gumbel-softmax pick of one code per slice; straight-through when
+    ``hard``; the argmax one-hot outside training. The training noise comes
+    from ``uniforms`` (one (B, T, k) tensor in [1e-10, 1) per slice) when
+    given, else from ``generator``. Returns (quantized, aux_loss=0,
+    perplexity summed over slices, indices (B, T, slices))."""
+    B, T, D = z.shape
+    n = len(p.codes)
+    sub = D // n
+    outs, idxs, perp = [], [], 0.0
+    for i in range(n):
+        logits = linear_apply(p.heads[i], z[:, :, i * sub : (i + 1) * sub])
+        if train:
+            if uniforms is not None:
+                u = uniforms[i]
+            else:
+                u = torch.rand(logits.shape, generator=generator, device=logits.device) * (1.0 - 1e-10) + 1e-10
+            w = torch.softmax((logits - torch.log(-torch.log(u))) / tau, dim=-1)
+        else:
+            w = F.one_hot(logits.argmax(-1), logits.shape[-1]).to(logits.dtype)
+        idx = w.argmax(-1)
+        one_hot = F.one_hot(idx, w.shape[-1]).to(w.dtype)
+        if hard and train:
+            w = w + (one_hot - w).detach()
+        outs.append(w @ p.codes[i])
+        perp = perp + _perplexity(one_hot.reshape(-1, w.shape[-1]))
+        idxs.append(idx)
+    return torch.cat(outs, -1), z.new_zeros(()), perp, torch.stack(idxs, -1)
 
 
 def instance_norm(z: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

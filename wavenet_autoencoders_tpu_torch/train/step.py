@@ -1,22 +1,33 @@
 """The train step (counterpart of ``wavenet_autoencoders_tpu/train/step.py:31-262``).
 
 One call does what the JAX package's jitted step does: LR-schedule lookup,
-forward, masked one-step-ahead loss plus the VQ aux loss (ramped in over
-``vq_warmup_steps``), backward, global-norm clipping, the Adam update as
-optax computes it, and the parameter-EMA update. The model's parameters are
+forward, masked one-step-ahead loss (mu-law CE, or the MoL / MoG NLL of
+scalar input; the feature AEs' MSE on the features) plus the bottleneck's
+aux loss (ramped in over ``vq_warmup_steps``), backward, global-norm
+clipping, the Adam update as optax computes it, and the parameter-EMA
+update. The model's parameters are
 the live weights and are updated in place; the optimizer moments and the
 EMA shadow are dicts keyed by the parameters' JAX tree paths, which is also
-how checkpoints store them (``train/checkpoint.py``).
+how checkpoints store them (``train/checkpoint.py``). Stochastic
+bottlenecks (Gumbel) draw their noise from a device generator seeded from
+``cfg.seed`` and the step.
 """
 from __future__ import annotations
 
+import inspect
 from dataclasses import dataclass
 
 import torch
 from torch import nn
 
 from wavenet_autoencoders_tpu_torch.config import Config
-from wavenet_autoencoders_tpu_torch.ops.losses import masked_cross_entropy, sequence_mask
+from wavenet_autoencoders_tpu_torch.models.mfcc_ae import MfccAE
+from wavenet_autoencoders_tpu_torch.ops.losses import (
+    masked_cross_entropy,
+    masked_mog_loss,
+    masked_mol_loss,
+    sequence_mask,
+)
 from wavenet_autoencoders_tpu_torch.train.schedule import get_schedule
 from wavenet_autoencoders_tpu_torch.utils.params import flatten_params
 
@@ -66,8 +77,15 @@ def prep_x(cfg: Config, x: torch.Tensor) -> torch.Tensor:
 
 def recon_loss(cfg: Config, y_hat, y, mask):
     """One-step-ahead objective: predict y[t+1] from y_hat[t], masked by the
-    shifted lengths (the mu-law CE; ``check_ported`` refuses the others)."""
-    return masked_cross_entropy(y_hat[:, :-1], y[:, 1:], mask[:, 1:])
+    shifted lengths."""
+    y_hat, y, mask = y_hat[:, :-1], y[:, 1:], mask[:, 1:]
+    if cfg.is_mulaw_quantize:
+        return masked_cross_entropy(y_hat, y, mask)
+    if cfg.output_distribution == "Logistic":
+        return masked_mol_loss(y_hat, y, mask, cfg.quantize_channels, cfg.log_scale_min)
+    if cfg.output_distribution == "Normal":
+        return masked_mog_loss(y_hat, y, mask, cfg.log_scale_min)
+    raise ValueError(cfg.output_distribution)
 
 
 def check_ported(cfg: Config) -> None:
@@ -81,7 +99,6 @@ def check_ported(cfg: Config) -> None:
         (cfg.vq_drop and cfg.drop_dim > 0, "VQ-dropout", vq_item),
         (cfg.vq_reseed, "dead-code reseed", vq_item),
         (cfg.dropout > 0.0, "dropout in the residual GLU block", "dropout"),
-        (not cfg.is_mulaw_quantize, "the MoL/MoG losses of scalar input", "MoL/MoG losses"),
     ):
         if on:
             raise NotImplementedError(f"{what} is not ported yet: see ROADMAP.md, queue 1 ({item})")
@@ -89,9 +106,10 @@ def check_ported(cfg: Config) -> None:
 
 def make_train_step(cfg: Config, model: nn.Module):
     """``state, metrics = step_fn(state, batch)``; batch is a dict of tensors
-    on the model's device: x (B, T) codes, y (B, T, 1), c (B, T', dim_in),
-    g (B,) and lengths (B,). The metrics are 0-dim tensors (reading them
-    waits for the device)."""
+    on the model's device: x (B, T) codes or samples, y (B, T, 1), c (B, T',
+    dim_in), g (B,) when the config has global conditioning, and lengths
+    (B,). The metrics are 0-dim tensors (reading them waits for the
+    device)."""
     check_ported(cfg)
     op = cfg.optimizer_params
     if cfg.optimizer.lower() not in ("adam", "adamw"):
@@ -103,6 +121,9 @@ def make_train_step(cfg: Config, model: nn.Module):
     warmup = int(cfg.vq_warmup_steps or 0)
     clip = float(cfg.clip_thresh or 0)
     names = list(flatten_params(model))
+    feature_space = isinstance(model, MfccAE)
+    stochastic = "generator" in inspect.signature(model.forward).parameters
+    gen = torch.Generator(device=next(model.parameters()).device) if stochastic else None
 
     def step_fn(state: TrainState, batch: dict):
         params = state.params()
@@ -110,9 +131,16 @@ def make_train_step(cfg: Config, model: nn.Module):
         for p in plist:
             p.grad = None
         x = prep_x(cfg, batch["x"])
-        y_hat, aux, perp = model.forward(x, batch.get("c"), batch.get("g"), train=True, dtype=dtype)
-        mask = sequence_mask(batch["lengths"], x.shape[1])[..., None]
-        recon = recon_loss(cfg, y_hat.float(), batch["y"], mask)
+        extra = {}
+        if stochastic:  # one noise stream per (seed, step), so a resumed run repeats it
+            extra["generator"] = gen.manual_seed(cfg.seed * 1_000_003 + state.step)
+        y_hat, aux, perp = model.forward(x, batch.get("c"), batch.get("g"), train=True, dtype=dtype, **extra)
+        if feature_space:
+            # the MFCC-only AEs reconstruct the features themselves
+            recon = (y_hat.float() - batch["c"]).square().mean()
+        else:
+            mask = sequence_mask(batch["lengths"], x.shape[1])[..., None]
+            recon = recon_loss(cfg, y_hat.float(), batch["y"], mask)
         # commitment warm-up: the VQ aux loss is ramped in (and reported unscaled)
         ramp = min(max(state.step / warmup, 0.0), 1.0) if warmup > 0 else 1.0
         loss = recon + ramp * aux
