@@ -371,20 +371,7 @@ def phase3(res, tmp: Path):
     ckpt = tmp / "checkpoint_step000000000.npz"
     np.savez(ckpt, step=np.int64(0),
              **{f"params/{k}": v.detach().cpu().numpy() for k, v in flatten_params(model).items()})
-    rng = np.random.default_rng(3)
-    test = tmp / "dump" / "english" / "test"
-    utts = [f"V00{i % 2 + 1}_{1000 + i}" for i in range(4)]
-    feats = {}
-    for u in utts:
-        (test / u).mkdir(parents=True)
-        feats[u] = rng.standard_normal((200, 39)).astype(np.float32)
-        np.save(test / u / "mfcc.norm.npy", feats[u])
-    scp = tmp / "test_src_dst.json"
-    scp.write_text(json.dumps([[f"wav/{u}.wav", str(test / u) + "/"] for u in utts]))
-    sp2ind = tmp / "speaker2ind.json"
-    sp2ind.write_text(json.dumps({"V001": 0, "V002": 1}))
-    syn = tmp / "synthesis.txt"
-    syn.write_text("".join(f"{u} V00{2 - i % 2}\n" for i, u in enumerate(utts)))
+    test, utts, feats, syn, sp2ind, scp = make_test_set(tmp / "dump", np.random.default_rng(3), 4, 200, target=None)
     abx, wav_dir = tmp / "abx", tmp / "syn"
 
     K.LAUNCHES = 0
@@ -688,10 +675,11 @@ def make_dump(root: Path, rng, n_utts=48, frames=200, hop=160, split="train", ra
 
 
 def make_test_set(root: Path, rng, n_utts, frames, dim=39, target="V002"):
-    """``<root>/english/test/<utt>/mfcc.norm.npy`` for ``n_utts`` utterances,
-    a ``synthesis.txt`` sending each to ``target``, a speaker map and an
-    ABX scp. Returns (test dir, utterance names, features, synthesis list,
-    speaker map, scp)."""
+    """``<root>/english/test/<utt>/mfcc.norm.npy`` for ``n_utts`` utterances
+    of speakers V001 and V002 in turns, a ``synthesis.txt`` sending each to
+    ``target`` (None: to the other speaker), a speaker map and an ABX scp.
+    Returns (test dir, utterance names, features, synthesis list, speaker
+    map, scp)."""
     test = root / "english" / "test"
     utts = [f"V00{i % 2 + 1}_{1000 + i}" for i in range(n_utts)]
     feats = {}
@@ -700,7 +688,7 @@ def make_test_set(root: Path, rng, n_utts, frames, dim=39, target="V002"):
         feats[u] = rng.standard_normal((frames, dim)).astype(np.float32)
         np.save(test / u / "mfcc.norm.npy", feats[u])
     syn, sp2ind, scp = root / "synthesis.txt", root / "speaker2ind.json", root / "test_src_dst.json"
-    syn.write_text("".join(f"{u} {target}\n" for u in utts))
+    syn.write_text("".join(f"{u} {target or f'V00{2 - i % 2}'}\n" for i, u in enumerate(utts)))
     sp2ind.write_text(json.dumps({"V001": 0, "V002": 1}))
     scp.write_text(json.dumps([[f"wav/{u}.wav", str(test / u) + "/"] for u in utts]))
     return test, utts, feats, syn, sp2ind, scp
@@ -720,16 +708,39 @@ def make_test_set(root: Path, rng, n_utts, frames, dim=39, target="V002"):
 TOL_STEP1 = {"loss": 1e-4, "grad_norm": 5e-3}
 
 
+def check_step1(cfg, dump: Path, fused: dict, where: str):
+    """Run step 1 unfused from the same init and first batch of ``dump`` as
+    the CLI's fused run, and hold the fused run's step-1 ``fused`` loss and
+    grad norm against it to TOL_STEP1. Returns (unfused values, relative
+    differences)."""
+    import torch
+
+    from wavenet_autoencoders_tpu_torch.data.dataset import WaveDataset, data_iterator
+    from wavenet_autoencoders_tpu_torch.models import build_model
+    from wavenet_autoencoders_tpu_torch.train.loop import batch_to_device
+    from wavenet_autoencoders_tpu_torch.train.step import init_state, make_train_step
+
+    cfg = cfg.replace(fused_stack=False)
+    model = build_model(cfg, device="cuda").train()
+    batch = next(data_iterator(WaveDataset(str(dump), cfg), cfg, prefetch=0,
+                               transform=lambda b: batch_to_device(b, torch.device("cuda"))))
+    _, m = make_train_step(cfg, model)(init_state(cfg, model), batch)
+    unfused = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item()}
+    diff = {k: abs(fused[k] - unfused[k]) / abs(unfused[k]) for k in fused}
+    log(f"{where}: step 1 fused {json.dumps(fused)} vs unfused {json.dumps(unfused)}: rel diff {json.dumps(diff)} "
+        f"(bounds {json.dumps(TOL_STEP1)})")
+    for k, tol in TOL_STEP1.items():
+        if not diff[k] <= tol:
+            raise AssertionError(f"{where}: fused step-1 {k} {fused[k]} vs unfused {unfused[k]}: rel diff {diff[k]}")
+    return unfused, diff
+
+
 def phase6(k2, k3, tmp: Path):
     import torch
 
     from wavenet_autoencoders_tpu_torch.cli.main import main as cli
     from wavenet_autoencoders_tpu_torch.config import load_preset
-    from wavenet_autoencoders_tpu_torch.data.dataset import WaveDataset, data_iterator
     from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
-    from wavenet_autoencoders_tpu_torch.models import build_model
-    from wavenet_autoencoders_tpu_torch.train.loop import batch_to_device
-    from wavenet_autoencoders_tpu_torch.train.step import init_state, make_train_step
 
     dump, ckpt, abx = tmp / "dump", tmp / "exp", tmp / "abx"
     dirs = make_dump(dump, np.random.default_rng(6))
@@ -764,22 +775,9 @@ def phase6(k2, k3, tmp: Path):
     if any(a.shape != (50, 64) or not np.isfinite(a).all() for a in codes):
         raise AssertionError(f"ABX export of the trained checkpoint: {[a.shape for a in codes]}")
 
-    # the first step, unfused, from the same init and first batch
-    cfg = load_preset("svqwae")
-    model = build_model(cfg, device="cuda").train()
-    batch = next(data_iterator(WaveDataset(str(dump), cfg), cfg, prefetch=0,
-                               transform=lambda b: batch_to_device(b, torch.device("cuda"))))
-    _, m = make_train_step(cfg, model)(init_state(cfg, model), batch)
-    unfused = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item()}
-    fused = {"loss": losses[1], "grad_norm": gnorms[1]}
-    diff = {k: abs(fused[k] - unfused[k]) / abs(unfused[k]) for k in fused}
     log(f"phase 6: losses {[round(losses[s], 5) for s in (1, 2, 3)]}, grad norms steps 1, 3 "
-        f"{[round(gnorms[s], 4) for s in (1, 3)]}; step 1 fused {json.dumps(fused)} vs unfused "
-        f"{json.dumps(unfused)}: rel diff {json.dumps(diff)} (bounds {json.dumps(TOL_STEP1)}); "
-        f"infer wrote {len(codes)} ABX files of 50 x 64")
-    for k, tol in TOL_STEP1.items():
-        if not diff[k] <= tol:
-            raise AssertionError(f"fused step-1 {k} {fused[k]} vs unfused {unfused[k]}: rel diff {diff[k]}")
+        f"{[round(gnorms[s], 4) for s in (1, 3)]}; infer wrote {len(codes)} ABX files of 50 x 64")
+    unfused, diff = check_step1(load_preset("svqwae"), dump, {"loss": losses[1], "grad_norm": gnorms[1]}, "phase 6")
     count_launches(k2, "svqwae_cli_train", launches[0])
     count_launches(k3, "svqwae_cli_train", launches[1])
     k2["train_path"] = {"steps": 3, "losses": [losses[s] for s in (1, 2, 3)],
@@ -960,38 +958,31 @@ def read_metrics(ckpt_dir: Path) -> list[dict]:
     return [json.loads(line) for line in (ckpt_dir / "logs" / "metrics.jsonl").read_text().splitlines()]
 
 
-def phase8(k1, k2, k3, tmp: Path, device="cuda", extra=""):
+def phase8(k1, k2, k3, tmp: Path):
     """IN-WAE at full inae width through the CLI: train (fused, bf16), ABX
-    export, AdaIN synthesis with an auto tar_c map. ``extra`` hparams are
-    appended to every run (a smaller rehearsal on the CPU)."""
+    export, AdaIN synthesis with an auto tar_c map."""
     import torch
     from scipy.io import wavfile
 
     from wavenet_autoencoders_tpu_torch.cli.main import _load_model
     from wavenet_autoencoders_tpu_torch.cli.main import main as cli
     from wavenet_autoencoders_tpu_torch.config import load_preset
-    from wavenet_autoencoders_tpu_torch.data.dataset import WaveDataset, data_iterator
     from wavenet_autoencoders_tpu_torch.kernels import decode as K1
     from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
-    from wavenet_autoencoders_tpu_torch.models import build_model
-    from wavenet_autoencoders_tpu_torch.train.loop import batch_to_device
-    from wavenet_autoencoders_tpu_torch.train.step import init_state, make_train_step
 
     rng = np.random.default_rng(8)
     dump, ckpt_dir, abx, wav_dir = tmp / "dump", tmp / "exp", tmp / "abx", tmp / "syn"
     make_dump(dump, rng, split="train_no_dev")
     test, utts, feats, syn, sp2ind, scp = make_test_set(dump, rng, 4, 200)
-    secs, cuda = {}, device == "cuda"
-    hp = ",".join(h for h in ("fused_stack=true", extra) if h)
+    secs, hp = {}, "fused_stack=true"
     K.LAUNCHES_FWD = K.LAUNCHES_BWD = 0
     t0 = time.perf_counter()
-    cli(["train", "--preset", "inae", "--hparams", hp, "--device", device, "--max-steps", "3",
+    cli(["train", "--preset", "inae", "--hparams", hp, "--device", "cuda", "--max-steps", "3",
          str(dump), str(ckpt_dir)])
-    if cuda:
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
     secs["train"] = time.perf_counter() - t0
     glu = (K.LAUNCHES_FWD, K.LAUNCHES_BWD)
-    if cuda and glu != (3, 3):
+    if glu != (3, 3):
         raise AssertionError(f"K2/K3 launched {glu} times in 3 fused inae train steps, expected (3, 3)")
     recs = [r for r in read_metrics(ckpt_dir) if r["phase"] == "train_no_dev"]
     step1 = next(r for r in recs if r["step"] == 1)
@@ -1003,19 +994,18 @@ def phase8(k1, k2, k3, tmp: Path, device="cuda", extra=""):
             raise AssertionError(f"{f.name} was not written")
 
     t0 = time.perf_counter()
-    cli(["infer", "--preset", "inae", "--hparams", hp, "--device", device, str(ckpt), str(scp), str(abx)])
+    cli(["infer", "--preset", "inae", "--hparams", hp, "--device", "cuda", str(ckpt), str(scp), str(abx)])
     secs["infer"] = time.perf_counter() - t0
     K1.LAUNCHES = 0
     t0 = time.perf_counter()
-    cli(["synthesize", "--preset", "inae", "--hparams", hp, "--device", device, "--batch", "4", str(ckpt), str(test),
-         str(wav_dir), str(syn), str(sp2ind), "english"])
-    if cuda:
-        torch.cuda.synchronize()
+    cli(["synthesize", "--preset", "inae", "--hparams", hp, "--device", "cuda", "--batch", "4", str(ckpt),
+         str(test), str(wav_dir), str(syn), str(sp2ind), "english"])
+    torch.cuda.synchronize()
     secs["synthesize"] = time.perf_counter() - t0
     launches = K1.LAUNCHES
     log(f"phase 8: inae through the CLI, host seconds {json.dumps({k: round(v, 2) for k, v in secs.items()})}; "
         f"K2/K3 launches {glu}, K1 launches {launches}")
-    if cuda and launches < 1:
+    if launches < 1:
         raise AssertionError("inae synthesis did not launch K1")
 
     # ABX frames against the port's encode on the CPU from the same
@@ -1039,21 +1029,8 @@ def phase8(k1, k2, k3, tmp: Path, device="cuda", extra=""):
         lens.append(len(w))
         if len(w) != 32000 or sr != cfg.sample_rate or not np.isfinite(w.astype(np.float64)).all():
             raise AssertionError(f"wav {u}: {len(w)} samples at {sr} Hz")
-
-    # step 1 against the unfused step from the same init and first batch
-    cfg = cfg.replace(fused_stack=False)
-    model = build_model(cfg, device=device).train()
-    batch = next(data_iterator(WaveDataset(str(dump), cfg), cfg, prefetch=0,
-                               transform=lambda b: batch_to_device(b, torch.device(device))))
-    _, m = make_train_step(cfg, model)(init_state(cfg, model), batch)
-    unfused = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item()}
-    fused = {"loss": step1["loss"], "grad_norm": step1["grad_norm"]}
-    diff = {k: abs(fused[k] - unfused[k]) / abs(unfused[k]) for k in fused}
-    log(f"phase 8: step 1 fused {json.dumps(fused)} vs unfused {json.dumps(unfused)}: rel diff {json.dumps(diff)} "
-        f"(bounds {json.dumps(TOL_STEP1)}); ABX max|cuda - cpu| {abx_err:.2e} (bound 1e-3); wav lengths {lens}")
-    for k, tol in TOL_STEP1.items():
-        if not diff[k] <= tol:
-            raise AssertionError(f"inae fused step-1 {k} {fused[k]} vs unfused {unfused[k]}: rel diff {diff[k]}")
+    log(f"phase 8: ABX max|cuda - cpu| {abx_err:.2e} (bound 1e-3); wav lengths {lens}")
+    _, diff = check_step1(cfg, dump, {"loss": step1["loss"], "grad_norm": step1["grad_norm"]}, "phase 8 inae")
     count_launches(k1, "inae_cli_synthesize", launches)
     count_launches(k2, "inae_cli_train", glu[0])
     count_launches(k3, "inae_cli_train", glu[1])
@@ -1158,7 +1135,9 @@ def phase9(k1, k2, k3, tmp: Path):
             zoo3[f"{name}_{dt}_max_rel_err"] = max(v for k, v in errs.items() if k not in FWD_OUTPUTS)
             k2["max_abs_err"], k3["max_abs_err"] = max(k2["max_abs_err"] or 0.0, a2), max(k3["max_abs_err"] or 0.0, a3)
 
-    # times at the zoo's training shapes, and K1 ms per step at T=256
+    # K2/K3 against their plain versions at the zoo's training shapes (phase
+    # 5's bf16 tolerances, K3 and its plain version on K2's hfin and ab, as
+    # phase 7 does at svqwae's), their times, and K1 ms per step at T=256
     for preset, B, T in ZOO_SHAPES:
         net = zoo_model(preset).wavenet
         C, G, S, L, cin = net.residual_channels, net.gate_channels, net.skip_out_channels, net.n_layers, net.cin_channels
@@ -1171,7 +1150,17 @@ def phase9(k1, k2, k3, tmp: Path):
         dskips = torch.from_numpy(rng.standard_normal((B, T, S)).astype(np.float32)).cuda().to(torch.bfloat16)
         with torch.no_grad():
             fwd = K.glu_stack_forward(*args)
+            p_fwd = K.glu_stack_forward_reference(*args)
             bargs = (c, fwd[2], wt["wconv"], wt["wc"], wt["wout"], wt["bout"], wt["wskip"], dils, has_g)
+            grads = K.glu_stack_backward(dskips, fwd[1], *bargs)
+            p_grads = K.glu_stack_backward_reference(dskips, fwd[1], *bargs)
+            torch.cuda.synchronize()
+            errs, a2, a3 = glu_errors(fwd, p_fwd, grads, p_grads)
+            del p_fwd, grads, p_grads
+            log(f"phase 9: K2/K3 {preset} B={B} T={T} bfloat16 against the plain versions: "
+                f"rel errors {json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}")
+            check_glu(errs, "bfloat16", f"{preset} B={B} T={T}")
+            k2["max_abs_err"], k3["max_abs_err"] = max(k2["max_abs_err"] or 0.0, a2), max(k3["max_abs_err"] or 0.0, a3)
             t2 = cuda_time(lambda: K.glu_stack_forward(*args), reps=3)
             t3 = cuda_time(lambda: K.glu_stack_backward(dskips, fwd[1], *bargs), reps=3)
             p2 = cuda_time(lambda: K.glu_stack_forward_reference(*args), reps=1)
@@ -1182,6 +1171,8 @@ def phase9(k1, k2, k3, tmp: Path):
             t_ops, t_bytes = flop / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
             rec[f"{preset}_B{B}_T{T}"] = {"ms": ms, "plain_ms": plain, "bound_ms": max(t_ops, t_bytes),
                                           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        zoo2[f"{preset}_B{B}_T{T}"]["max_rel_err"] = max(errs[k] for k in FWD_OUTPUTS)
+        zoo3[f"{preset}_B{B}_T{T}"]["max_rel_err"] = max(v for k, v in errs.items() if k not in FWD_OUTPUTS)
         per_step = {}
         with torch.no_grad():
             packed = K1.pack_decode_weights(net)
@@ -1198,14 +1189,14 @@ def phase9(k1, k2, k3, tmp: Path):
             f"K3 {t3:.2f} ms (plain {p3:.2f}, bound {zoo3[f'{preset}_B{B}_T{T}']['bound_ms']:.3f}) at B={B} T={T}; "
             f"K1 at T=256 {json.dumps(per_step)}")
 
-    zoo_cli(k1, k2, k3, tmp, "cuda", "")
+    zoo_cli(k1, k2, k3, tmp)
 
 
-def zoo_cli(k1, k2, k3, tmp: Path, device: str, extra: str):
+def zoo_cli(k1, k2, k3, tmp: Path):
     """One CLI train step (fused stack) at 4 layers, B=4, and synthesis of
     two utterances (ABX export for the feature AEs) for each family of
     ``ZOO_CLI``, each with the kernels' counters zeroed before and read
-    after. ``extra`` is appended to every run's hparams."""
+    after."""
     import torch
     from scipy.io import wavfile
 
@@ -1214,10 +1205,9 @@ def zoo_cli(k1, k2, k3, tmp: Path, device: str, extra: str):
     from wavenet_autoencoders_tpu_torch.kernels import decode as K1
     from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
 
-    cuda = device == "cuda"
     out, totals = {}, {"K1": 0, "K2": 0, "K3": 0}
     for label, preset, hp, serve in ZOO_CLI:
-        hp = ",".join(h for h in ("layers=4,stacks=2,batch_size=4,fused_stack=true", hp, extra) if h)
+        hp = ",".join(h for h in ("layers=4,stacks=2,batch_size=4,fused_stack=true", hp) if h)
         cfg = load_preset(preset, hp)
         raw, feat_dim = not cfg.is_mulaw_quantize, (80 if cfg.cin_channels == 80 else 39)
         root = tmp / label
@@ -1225,7 +1215,7 @@ def zoo_cli(k1, k2, k3, tmp: Path, device: str, extra: str):
         make_dump(root, rng, n_utts=8, frames=60, hop=cfg.get_hop_size(), split="train_no_dev", raw=raw,
                   feat="mel" if feat_dim == 80 else "mfcc", dim=feat_dim)
         test, utts, _, syn, sp2ind, scp = make_test_set(root, rng, 2, 40, dim=feat_dim)
-        common = ["--preset", preset, "--hparams", hp, "--device", device]
+        common = ["--preset", preset, "--hparams", hp, "--device", "cuda"]
         ckpt = root / "exp" / "checkpoint_step000000001.npz"
         K.LAUNCHES_FWD = K.LAUNCHES_BWD = K1.LAUNCHES = 0
         t0 = time.perf_counter()
@@ -1246,8 +1236,7 @@ def zoo_cli(k1, k2, k3, tmp: Path, device: str, extra: str):
                      for u in utts]
             if not all(len(w) and np.isfinite(w.astype(np.float64)).all() for w in files):
                 raise AssertionError(f"{label}: synthesized waveforms empty or not finite")
-        if cuda:
-            torch.cuda.synchronize()
+        torch.cuda.synchronize()
         t2 = time.perf_counter()
         n = {"K1": K1.LAUNCHES, "K2": K.LAUNCHES_FWD, "K3": K.LAUNCHES_BWD}
         log(f"phase 9: {label} ({preset} {hp}): train step loss {loss:.4f} in {t1 - t0:.2f} s, "
@@ -1255,9 +1244,9 @@ def zoo_cli(k1, k2, k3, tmp: Path, device: str, extra: str):
             f"outputs {[f.shape for f in files]}")
         if not np.isfinite(loss):
             raise AssertionError(f"{label}: train loss {loss}")
-        if cuda and (n["K2"], n["K3"]) != ((0, 0) if feature_ae else (1, 1)):
+        if (n["K2"], n["K3"]) != ((0, 0) if feature_ae else (1, 1)):
             raise AssertionError(f"{label}: K2/K3 launched {n['K2']}, {n['K3']} times in one fused step")
-        if cuda and not feature_ae and n["K1"] < 1:
+        if not feature_ae and n["K1"] < 1:
             raise AssertionError(f"{label}: synthesis did not launch K1")
         out[label] = {"loss": loss, "train_s": t1 - t0, "serve_s": t2 - t1, "launches": n}
         for k in totals:

@@ -14,14 +14,14 @@ bottlenecks (Gumbel) draw their noise from a device generator seeded from
 """
 from __future__ import annotations
 
-import inspect
 from dataclasses import dataclass
 
 import torch
 from torch import nn
 
 from wavenet_autoencoders_tpu_torch.config import Config
-from wavenet_autoencoders_tpu_torch.models.mfcc_ae import MfccAE
+from wavenet_autoencoders_tpu_torch.models.mfcc_ae import CatMfccAE, MfccAE
+from wavenet_autoencoders_tpu_torch.models.wae import CatWAE
 from wavenet_autoencoders_tpu_torch.ops.losses import (
     masked_cross_entropy,
     masked_mog_loss,
@@ -122,7 +122,7 @@ def make_train_step(cfg: Config, model: nn.Module):
     clip = float(cfg.clip_thresh or 0)
     names = list(flatten_params(model))
     feature_space = isinstance(model, MfccAE)
-    stochastic = "generator" in inspect.signature(model.forward).parameters
+    stochastic = isinstance(model, (CatWAE, CatMfccAE))  # Gumbel noise
     gen = torch.Generator(device=next(model.parameters()).device) if stochastic else None
 
     def step_fn(state: TrainState, batch: dict):
