@@ -77,6 +77,20 @@ Phases (each raises on failure, so the script exits non-zero):
    then one CLI ``train`` step (fused, 4 layers, B=4) and ``synthesize``
    (``infer`` for the MFCC-only AEs) for every other family, each with the
    counters zeroed before and read after.
+10. The recipe from wav files to a validated submission, through the port's
+   CLI in-process at full svqwae width: a synthetic ZeroSpeech-2019 tree
+   (1000 train wavs of 0.5-1.0 s over 10 speakers, 4 test wavs of 2 s,
+   int16 at 16 kHz, from a seed), ``subset``, ``preprocess --preset
+   svqwae`` of each split, ``cmvn``, ``normalize``, ``train`` (fused,
+   B=40 x T=5120 bf16, 24 steps = one epoch, with the dev pass, the sample
+   dumps at steps 12 and 24, the decode hooks and the profiler at steps
+   10-15), ``infer`` on the test split and ``validate``. Fails unless K1,
+   K2 and K3 launched exactly as the code predicts (2, 28, 24), every hook
+   wrote its wavs and none was skipped, the dev scalars are finite, the
+   dev loss recomputed from the final checkpoint with the kernel and with
+   the plain stack agrees with the recorded one to 1e-4, the trace names
+   K2's and K3's kernels, and ``validate`` counts 4 ABX files of 64
+   columns. ``--phases 10`` runs it alone.
 
 Prints the kernel table (K1, K2, K3; ``launches`` summed over every path
 driven, ``launches_by_path`` each path's count) as one JSON line, the
@@ -89,7 +103,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import io
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -1256,6 +1272,187 @@ def zoo_cli(k1, k2, k3, tmp: Path):
     k1.setdefault("zoo", {})["cli"] = out
 
 
+@contextlib.contextmanager
+def tee_stdout():
+    """Yield a buffer that receives a copy of everything printed inside the
+    block (which still goes to stdout)."""
+    out, buf = sys.stdout, io.StringIO()
+
+    class Tee:
+        def write(self, text):
+            buf.write(text)
+            return out.write(text)
+
+        def flush(self):
+            out.flush()
+
+    with contextlib.redirect_stdout(Tee()):
+        yield buf
+
+
+def make_zs2019(root: Path, rng, n_train=1000, n_test=4, sr=16000):
+    """A ZeroSpeech-2019 wav tree: ``english/train/unit`` (speakers
+    S000..S007) and ``english/train/voice`` (V001, V002) with ``n_train``
+    int16 wavs of 0.5-1.0 s (a sine at the speaker's f0 with harmonics, plus
+    noise), and ``english/test`` with ``n_test`` wavs of 2 s."""
+    from scipy.io import wavfile
+
+    def wav(path, dur, f0):
+        t = np.arange(int(dur * sr)) / sr
+        y = sum(a * np.sin(2 * np.pi * k * f0 * t) for k, a in ((1, 0.3), (2, 0.1), (3, 0.05)))
+        y = y * (1.0 + 0.3 * np.sin(2 * np.pi * 3.0 * t)) + 0.02 * rng.standard_normal(len(t))
+        path.parent.mkdir(parents=True, exist_ok=True)
+        wavfile.write(path, sr, (np.clip(y, -1, 1) * 32767).astype(np.int16))
+
+    speakers = [("unit", f"S{i:03d}") for i in range(8)] + [("voice", "V001"), ("voice", "V002")]
+    for i in range(n_train):
+        kind, sp = speakers[i % len(speakers)]
+        wav(root / "english" / "train" / kind / f"{sp}_{10000 + i}.wav", rng.uniform(0.5, 1.0),
+            90.0 + 25.0 * (i % len(speakers)))
+    for i in range(n_test):
+        wav(root / "english" / "test" / f"S{100 + i}_{20000 + i}.wav", 2.0, 110.0 + 40.0 * i)
+
+
+# Launches of the recipe's train call, as the loop makes them: 24 steps of
+# B=40 over 990 train utterances are one epoch; one K2 and one K3 a fused
+# step; a checkpoint and a sample dump (one forward-only K2) at steps 12
+# and 24; at step 24 the train decode hook (K1 at B=1), then the epoch's
+# dev pass over the 10 dev utterances (one batch: K2 on the live weights,
+# K2 on the EMA shadow) and its AR decode of the first dev batch (K1).
+RECIPE_LAUNCHES = {"K1": 2, "K2": 24 + 2 + 2, "K3": 24}
+RECIPE_HP = ("fused_stack=true,checkpoint_interval=12,train_eval_interval=24,test_eval_epoch_interval=1,"
+             "profile_dir={prof}")
+# the dev loss recomputed from the final checkpoint against the loop's record
+# (phase 6's step-1 loss bound: the same bf16 forward, or the unfused one)
+TOL_DEV = 1e-4
+
+
+def phase10(k1, k2, k3, tmp: Path):
+    """The recipe end to end through the CLI: wav files -> subset ->
+    preprocess -> cmvn -> normalize -> train (dev pass, hooks, profiler) ->
+    infer -> validate."""
+    import torch
+
+    from wavenet_autoencoders_tpu_torch.cli.main import main as cli
+    from wavenet_autoencoders_tpu_torch.config import load_preset
+    from wavenet_autoencoders_tpu_torch.data.dataset import WaveDataset, data_iterator
+    from wavenet_autoencoders_tpu_torch.kernels import decode as K1
+    from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
+    from wavenet_autoencoders_tpu_torch.models import build_model
+    from wavenet_autoencoders_tpu_torch.train.checkpoint import load_checkpoint
+    from wavenet_autoencoders_tpu_torch.train.loop import batch_to_device
+    from wavenet_autoencoders_tpu_torch.train.step import init_state, make_eval_step
+
+    raw, dump, scp, exp, sub = tmp / "raw", tmp / "dump", tmp / "scp", tmp / "exp", tmp / "sub"
+    prof = tmp / "prof"
+    hp = RECIPE_HP.format(prof=prof)
+    secs = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+
+    timed("make_wavs", lambda: make_zs2019(raw, np.random.default_rng(10)))
+    timed("subset", lambda: cli(["subset", "english", str(raw), str(dump), str(scp)]))
+    splits = {s: json.loads((scp / f"{s}_src_dst.json").read_text()) for s in ("train_no_dev", "dev", "test")}
+    log(f"phase 10: subset: {json.dumps({s: len(v) for s, v in splits.items()})}")
+    if [len(splits[s]) for s in ("train_no_dev", "dev", "test")] != [990, 10, 4]:
+        raise AssertionError("subset's 1% dev rule should give 990 / 10 / 4 utterances")
+    sp2ind = scp / "2019_speaker2ind_english.json"
+    for split in splits:
+        timed(f"preprocess_{split}", lambda: cli(["preprocess", "--preset", "svqwae", str(scp / f"{split}_src_dst.json"),
+                                                  str(dump / "english" / split), str(sp2ind)]))
+    timed("cmvn", lambda: cli(["cmvn", "mfcc", str(tmp / "cmvn.npz"), str(scp / "train_no_dev_src_dst.json")]))
+    for split in splits:
+        timed(f"normalize_{split}", lambda: cli(["normalize", str(scp / f"{split}_src_dst.json"), "mfcc",
+                                                 str(tmp / "cmvn.npz")]))
+
+    dev_dump = dump / "english" / "dev"
+    K.LAUNCHES_FWD = K.LAUNCHES_BWD = K1.LAUNCHES = 0
+    with tee_stdout() as out:
+        timed("train", lambda: cli(["train", "--preset", "svqwae", "--hparams", hp, "--device", "cuda",
+                                    "--dev-dump-root", str(dev_dump), "--max-steps", "24",
+                                    str(dump / "english" / "train_no_dev"), str(exp)]))
+    launches = {"K1": K1.LAUNCHES, "K2": K.LAUNCHES_FWD, "K3": K.LAUNCHES_BWD}
+    text = out.getvalue()
+    hooks = {f"{m[0]}{' ' + m[1] if m[1] else ''} {m[2]}": float(m[3]) for m in re.findall(
+        r"^(save_states|eval_model)(?: \((\w+)\))? at step (\d+): ([\d.]+) s$", text, re.M)}
+    hooks.update({f"dev pass {m[0]}": float(m[1]) for m in re.findall(
+        r"^Step (\d+) \[dev\] .*, ([\d.]+) s\)$", text, re.M)})
+    hooks.update({"trace export": float(m) for m in re.findall(r"^profile trace written to .* \(([\d.]+) s\)$",
+                                                               text, re.M)})
+    log(f"phase 10: train launches {json.dumps(launches)} (predicted {json.dumps(RECIPE_LAUNCHES)}); "
+        f"hook host seconds {json.dumps(hooks)}")
+    if launches != RECIPE_LAUNCHES:
+        raise AssertionError(f"recipe train launched {launches}, the loop predicts {RECIPE_LAUNCHES}")
+    if "skipped:" in text:
+        raise AssertionError("a training hook was skipped: " + " | ".join(
+            line for line in text.splitlines() if "skipped:" in line))
+    inter = exp / "intermediate"
+    want = [inter / "audio" / f"step{s:09d}_{k}.wav" for s in (12, 24) for k in ("predicted", "target")]
+    want += [inter / f"{ph}_eval" / f"step000000024_{k}.wav" for ph in ("train_no_dev", "dev")
+             for k in ("predicted", "target")]
+    missing = [str(f.relative_to(exp)) for f in want if not f.exists() or f.stat().st_size <= 44]
+    if missing:
+        raise AssertionError(f"hook wavs missing or empty: {missing}")
+    recs = read_metrics(exp)
+    dev = [r for r in recs if r["phase"] == "dev"]
+    dev_ep = [r for r in recs if r["phase"] == "dev_epoch"]
+    if [r["step"] for r in dev] != [24] or [r["step"] for r in dev_ep] != [1] or not all(
+            np.isfinite([r[k] for k in ("loss", "recon_loss", "aux_loss", "perplexity", "recon_loss_ema")]).all()
+            for r in dev + dev_ep):
+        raise AssertionError(f"dev scalars: {dev} {dev_ep}")
+
+    # the recorded dev metrics again, from the final checkpoint on the same
+    # dev batch (the dev iterator's own seed), with the kernel and without
+    errs = {}
+    for fused in (True, False):
+        cfg = load_preset("svqwae", hp).replace(fused_stack=fused)
+        model = build_model(cfg, device="cuda")
+        state = load_checkpoint(init_state(cfg, model), exp / "checkpoint_step000000024.npz")
+        batch = next(data_iterator(WaveDataset(str(dev_dump), cfg), cfg, batch_size=cfg.dev_batch_size, prefetch=0,
+                                   epochs=1, transform=lambda b: batch_to_device(b, torch.device("cuda"))))
+        K.LAUNCHES_FWD = 0
+        m = make_eval_step(cfg, model)(state, batch)
+        if K.LAUNCHES_FWD != (2 if fused else 0):
+            raise AssertionError(f"dev recompute fused={fused} launched K2 {K.LAUNCHES_FWD} times")
+        for k in ("loss", "recon_loss_ema"):
+            errs[f"{'fused' if fused else 'plain'}_{k}"] = abs(float(m[k]) - dev[0][k]) / abs(dev[0][k])
+        del model, state
+    log(f"phase 10: dev loss {dev[0]['loss']:.6f}, EMA {dev[0]['recon_loss_ema']:.6f}, perplexity "
+        f"{dev[0]['perplexity']:.2f}; recomputed from the checkpoint, rel err {json.dumps(errs)} (bound {TOL_DEV})")
+    if not max(errs.values()) <= TOL_DEV:
+        raise AssertionError(f"dev loss recomputed from the checkpoint differs from the record: {errs}")
+
+    traces = sorted(prof.glob("*.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"profile_dir holds {traces}, expected one trace")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    named = {op: sum(op in n for n in kernels) for op in ("GateOp", "OutOp", "RebuildOp", "DxOp")}
+    log(f"phase 10: trace {traces[0].name}: {traces[0].stat().st_size} bytes, {len(events)} events, "
+        f"{len(kernels)} kernel names; K2/K3 passes named {json.dumps(named)}")
+    if not all(named.values()):
+        raise AssertionError(f"the trace does not name K2's and K3's kernels: {named}")
+
+    timed("infer", lambda: cli(["infer", "--preset", "svqwae", "--hparams", hp, "--device", "cuda",
+                                str(exp / "checkpoint_step000000024.npz"), str(scp / "test_src_dst.json"), str(sub),
+                                "--lan", "english"]))
+    with tee_stdout() as out:
+        timed("validate", lambda: cli(["validate", str(sub)]))
+    summary = re.search(r"submission OK: (\{.*\})", out.getvalue())
+    summary = json.loads(summary.group(1).replace("'", '"')) if summary else None
+    log(f"phase 10: validate {summary}; host seconds {json.dumps({k: round(v, 2) for k, v in secs.items()})}, "
+        f"{sum(secs.values()):.1f} in all")
+    if summary != {"txt": 4, "wav": 0, "txt_cols": 64}:
+        raise AssertionError(f"validate: {summary}, expected 4 ABX files of 64 columns")
+    for rec, k in ((k1, "K1"), (k2, "K2"), (k3, "K3")):
+        count_launches(rec, "recipe_cli_train", launches[k])
+    k1["recipe"] = {"host_s": secs, "hook_s": hooks, "dev_rel_err": errs, "trace_passes": named}
+
+
 KERNELS = {
     "K1": ("wavenet_decode", "decode.cu", "wavenet_autoencoders_tpu/kernels/decode.py:352"),
     "K2": ("glu_stack_forward", "glu_stack.cu", "wavenet_autoencoders_tpu/kernels/glu_stack.py:157"),
@@ -1265,7 +1462,7 @@ KERNELS = {
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9")
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10")
     phases = {int(p) for p in ap.parse_args(argv).phases.split(",")}
 
     import torch
@@ -1325,6 +1522,9 @@ def main(argv=None) -> int:
     if 9 in phases:
         with tempfile.TemporaryDirectory() as tmp:
             phase9(k1, k2, k3, Path(tmp))
+    if 10 in phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            phase10(k1, k2, k3, Path(tmp))
 
     print(json.dumps({"kernels": list(res.values())}))
     print(card)

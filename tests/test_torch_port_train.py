@@ -295,11 +295,3 @@ def test_unported_training_options_raise(over):
     model = build_model(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_train_step(cfg, model)
-
-
-def test_dev_dump_root_raises_until_the_dev_pass_is_ported(tmp_path):
-    from wavenet_autoencoders_tpu_torch.train.loop import train
-
-    _, cfg = tiny_cfgs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train(cfg, str(tmp_path), str(tmp_path / "exp"), dev_dump_root=str(tmp_path), device="cpu")

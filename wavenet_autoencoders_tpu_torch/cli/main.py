@@ -1,13 +1,22 @@
 """Command-line entry points of the port (counterpart of
-``wavenet_autoencoders_tpu/cli/main.py``):
+``wavenet_autoencoders_tpu/cli/main.py``), from wav files to a validated
+submission:
 
-    train       train a model (single process), npz checkpoints
+    subset      scan a ZeroSpeech-2019 tree, write scp jsons + speaker map
+    preprocess  extract wave/mel/mfcc npys per utterance
+    cmvn        fit mean/var stats over dumped features
+    normalize   apply (or invert) CMVN -> <feat>.norm.npy
+    train       train a model (single process), npz checkpoints; with
+                ``--dev-dump-root`` a dev pass each epoch
     infer       ABX representation export
     synthesize  voice-conversion synthesis
+    validate    sanity-check a submission tree
 
-Checkpoints are in the JAX package's npz format (leaves keyed
-``params/<tree path>``, ``opt_state/...``), so either package reads the
-other's. Everything runs on ``--device`` (default ``cuda``).
+The data-preparation subcommands run on the host (numpy/scipy) and write
+the same files as the JAX package's. Checkpoints are in the JAX package's
+npz format (leaves keyed ``params/<tree path>``, ``opt_state/...``), so
+either package reads the other's. The model subcommands run on
+``--device`` (default ``cuda``).
 Run as ``python -m wavenet_autoencoders_tpu_torch.cli.main <cmd> ...``.
 """
 from __future__ import annotations
@@ -27,9 +36,13 @@ def _cfg_from(args) -> Config:
     return Config().parse(args.hparams or "")
 
 
-def _add_cfg(p):
+def _add_preset(p):
     p.add_argument("--preset", help="bundled preset name or JSON path")
     p.add_argument("--hparams", default="", help='overrides: "k=v,k2=[..]"')
+
+
+def _add_cfg(p):
+    _add_preset(p)
     p.add_argument("--device", default="cuda", help="torch device (default cuda; 'cpu' to run on the CPU)")
 
 
@@ -44,11 +57,35 @@ def main(argv=None):
     ap = argparse.ArgumentParser(prog="wae-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
+    p = sub.add_parser("subset", help="scan ZS2019 layout, write scp jsons + speaker map")
+    p.add_argument("language")
+    p.add_argument("in_dir")
+    p.add_argument("out_dir")
+    p.add_argument("scp_dir")
+
+    p = sub.add_parser("preprocess", help="extract wave/mel/mfcc npys per utterance")
+    _add_preset(p)
+    p.add_argument("scp")
+    p.add_argument("out_dir")
+    p.add_argument("sp2ind")
+    p.add_argument("--num-workers", type=int, default=None)
+
+    p = sub.add_parser("cmvn", help="fit mean/var stats over dumped features")
+    p.add_argument("feat")
+    p.add_argument("scaler_out")
+    p.add_argument("scps", nargs="+")
+
+    p = sub.add_parser("normalize", help="apply (or invert) CMVN -> <feat>.norm.npy")
+    p.add_argument("scp")
+    p.add_argument("feat")
+    p.add_argument("scaler")
+    p.add_argument("--inverse", action="store_true")
+
     p = sub.add_parser("train", help="train a model")
     _add_cfg(p)
     p.add_argument("dump_root")
     p.add_argument("checkpoint_dir")
-    p.add_argument("--dev-dump-root", default=None, help="dev split (the dev pass is not ported yet: raises)")
+    p.add_argument("--dev-dump-root", default=None, help="dev split dump (a dev pass every dev_epoch_interval epochs)")
     p.add_argument("--checkpoint", default=None, help="resume checkpoint")
     p.add_argument("--restore-parts", default=None, help="partial, shape-tolerant weight load")
     p.add_argument("--reset-optimizer", action="store_true")
@@ -81,8 +118,39 @@ def main(argv=None):
                    help="bucket conditioning lengths to a multiple of N frames "
                         "(edge-replicated, cropped back); 0 = exact lengths")
 
+    p = sub.add_parser("validate", help="sanity-check a ZeroSpeech-2019 submission tree")
+    p.add_argument("submission_dir")
+    p.add_argument("--lan", default="english")
+
     args = ap.parse_args(argv)
+    if args.cmd == "subset":
+        from wavenet_autoencoders_tpu_torch.data.subset import make_subset
+
+        make_subset(args.language, args.in_dir, args.out_dir, args.scp_dir)
+        return
+    if args.cmd == "cmvn":
+        from wavenet_autoencoders_tpu_torch.data.normalize import compute_mean_var
+
+        compute_mean_var(args.scps, args.feat, args.scaler_out)
+        return
+    if args.cmd == "normalize":
+        from wavenet_autoencoders_tpu_torch.data.normalize import apply_normalization
+
+        apply_normalization(args.scp, args.feat, args.scaler, inverse=args.inverse)
+        return
+    if args.cmd == "validate":
+        from wavenet_autoencoders_tpu_torch.eval.validate import validate_submission
+
+        summary = validate_submission(args.submission_dir, lan=args.lan)
+        print(f"submission OK: {summary}")
+        return
     cfg = _cfg_from(args)
+    if args.cmd == "preprocess":
+        from wavenet_autoencoders_tpu_torch.data.preprocess import preprocess
+
+        print(f"Sampling frequency: {cfg.sample_rate}")
+        preprocess(cfg, args.scp, args.out_dir, args.sp2ind, num_workers=args.num_workers)
+        return
     if args.cmd == "train":
         from wavenet_autoencoders_tpu_torch.train.loop import train
 

@@ -1,4 +1,4 @@
-"""Mu-law companding, its inverse and inverse pre-emphasis (numpy/scipy).
+"""Mu-law companding, pre-emphasis and their inverses (numpy/scipy).
 
 Counterparts of ``wavenet_autoencoders_tpu/dsp/mulaw.py:27-79`` for host
 arrays; ``mu = quantize_channels - 1`` (255) gives codes in [0, 255].
@@ -35,6 +35,11 @@ def inv_mulaw_quantize(y, mu: int = 256):
         return float(inv_mulaw(2.0 * y / mu - 1.0, mu))
     y = np.asarray(y).astype(np.float32)
     return inv_mulaw(2.0 * y / mu - 1.0, mu)
+
+
+def preemphasis(x, coef: float = 0.85):
+    """y[t] = x[t] - coef * x[t-1]  (nnmnkwii lfilter([1, -coef], [1], x))."""
+    return np.concatenate([x[:1], x[1:] - coef * x[:-1]])
 
 
 def inv_preemphasis(x, coef: float = 0.85):

@@ -1,1 +1,2 @@
-"""ABX representation export and voice-conversion synthesis."""
+"""ABX representation export, voice-conversion synthesis and the
+submission validator."""

@@ -1,3 +1,3 @@
 """Training: the train step (loss, backward, clipping, Adam, parameter EMA),
-LR schedules, npz checkpoints in the JAX package's format, metrics and the
-training loop."""
+the dev-pass eval step, LR schedules, npz checkpoints in the JAX package's
+format, metrics, the qualitative hooks and the training loop."""

@@ -1,6 +1,7 @@
-"""The train step (counterpart of ``wavenet_autoencoders_tpu/train/step.py:31-262``).
+"""The train step, the dev-pass eval step and the sample-dump forward
+(counterpart of ``wavenet_autoencoders_tpu/train/step.py``).
 
-One call does what the JAX package's jitted step does: LR-schedule lookup,
+One train-step call does what the JAX package's jitted step does: LR-schedule lookup,
 forward, masked one-step-ahead loss (mu-law CE, or the MoL / MoG NLL of
 scalar input; the feature AEs' MSE on the features) plus the bottleneck's
 aux loss (ramped in over ``vq_warmup_steps``), backward, global-norm
@@ -91,8 +92,8 @@ def recon_loss(cfg: Config, y_hat, y, mask):
 def check_ported(cfg: Config) -> None:
     """Raise ``NotImplementedError``, naming its ROADMAP item, for a training
     option of ``cfg`` that the port does not carry yet, instead of training
-    something else. (EMA codebooks fail in the model's constructor already,
-    ``dev_dump_root`` in ``train.loop.train``.)"""
+    something else. (EMA codebooks fail in the model's constructor
+    already.)"""
     vq_item = "EMA codebooks, reseed, time jitter and VQ-dropout"
     for on, what, item in (
         (cfg.time_jitter, "time jitter", vq_item),
@@ -102,6 +103,15 @@ def check_ported(cfg: Config) -> None:
     ):
         if on:
             raise NotImplementedError(f"{what} is not ported yet: see ROADMAP.md, queue 1 ({item})")
+
+
+def objective(cfg: Config, model: nn.Module, y_hat, batch: dict, T: int):
+    """The reconstruction loss of a forward's output: the one-step-ahead
+    waveform loss, or for the MFCC-only AEs the MSE on the features."""
+    if isinstance(model, MfccAE):
+        return (y_hat.float() - batch["c"]).square().mean()
+    mask = sequence_mask(batch["lengths"], T)[..., None]
+    return recon_loss(cfg, y_hat.float(), batch["y"], mask)
 
 
 def make_train_step(cfg: Config, model: nn.Module):
@@ -121,7 +131,6 @@ def make_train_step(cfg: Config, model: nn.Module):
     warmup = int(cfg.vq_warmup_steps or 0)
     clip = float(cfg.clip_thresh or 0)
     names = list(flatten_params(model))
-    feature_space = isinstance(model, MfccAE)
     stochastic = isinstance(model, (CatWAE, CatMfccAE))  # Gumbel noise
     gen = torch.Generator(device=next(model.parameters()).device) if stochastic else None
 
@@ -135,12 +144,7 @@ def make_train_step(cfg: Config, model: nn.Module):
         if stochastic:  # one noise stream per (seed, step), so a resumed run repeats it
             extra["generator"] = gen.manual_seed(cfg.seed * 1_000_003 + state.step)
         y_hat, aux, perp = model.forward(x, batch.get("c"), batch.get("g"), train=True, dtype=dtype, **extra)
-        if feature_space:
-            # the MFCC-only AEs reconstruct the features themselves
-            recon = (y_hat.float() - batch["c"]).square().mean()
-        else:
-            mask = sequence_mask(batch["lengths"], x.shape[1])[..., None]
-            recon = recon_loss(cfg, y_hat.float(), batch["y"], mask)
+        recon = objective(cfg, model, y_hat, batch, x.shape[1])
         # commitment warm-up: the VQ aux loss is ramped in (and reported unscaled)
         ramp = min(max(state.step / warmup, 0.0), 1.0) if warmup > 0 else 1.0
         loss = recon + ramp * aux
@@ -198,3 +202,47 @@ def ema_warm_steps(ema_decay: float) -> int:
     if ema_decay >= 1.0:
         return 1 << 30
     return int(math.ceil(5.0 / (1.0 - ema_decay)))
+
+
+def make_eval_step(cfg: Config, model: nn.Module):
+    """``metrics = eval_fn(state, batch)``: forward-only metrics on a dev
+    batch, ``train=False`` under ``no_grad`` (the dev phase of
+    ``wavenet_autoencoders_tpu/train/step.py:make_eval_step``).
+
+    ``loss``, ``recon_loss``, ``aux_loss`` and ``perplexity`` come from the
+    live weights; with an EMA shadow, ``recon_loss_ema`` comes from the
+    shadow, run through ``torch.func.functional_call`` (the live weights are
+    not touched). The metrics are 0-dim tensors."""
+    dtype = compute_dtype(cfg)
+
+    @torch.no_grad()
+    def eval_fn(state: TrainState, batch: dict) -> dict:
+        x = prep_x(cfg, batch["x"])
+        args = (x, batch.get("c"), batch.get("g"))
+        kw = {"train": False, "dtype": dtype}
+        y_hat, aux, perp = model(*args, **kw)
+        recon = objective(cfg, model, y_hat, batch, x.shape[1])
+        aux = torch.as_tensor(aux)
+        out = {"loss": recon + aux, "recon_loss": recon, "aux_loss": aux, "perplexity": torch.as_tensor(perp)}
+        if state.ema is not None:
+            # the shadow's JAX tree paths back to module names (flatten_params' inverse)
+            shadow = {k.replace("/", "."): v for k, v in state.ema.items()}
+            y_hat_e, _, _ = torch.func.functional_call(model, shadow, args, kw)
+            out["recon_loss_ema"] = objective(cfg, model, y_hat_e, batch, x.shape[1])
+        return out
+
+    return eval_fn
+
+
+def make_sample_forward(cfg: Config, model: nn.Module):
+    """``y_hat = fwd(x, c, g)``: the teacher-forced forward of the model's
+    current weights (``train=False``, under ``no_grad``) for the periodic
+    ``save_states`` sample dump; the training loop lends it the EMA shadow
+    through ``_hook_params``."""
+    dtype = compute_dtype(cfg)
+
+    @torch.no_grad()
+    def fwd(x, c, g):
+        return model(prep_x(cfg, x), c, g, train=False, dtype=dtype)[0]
+
+    return fwd
