@@ -90,7 +90,21 @@ Phases (each raises on failure, so the script exits non-zero):
    dev loss recomputed from the final checkpoint with the kernel and with
    the plain stack agrees with the recorded one to 1e-4, the trace names
    K2's and K3's kernels, and ``validate`` counts 4 ABX files of 64
-   columns. ``--phases 10`` runs it alone.
+   columns. The recipe's batches come from the native loader (counted).
+   ``--phases 10`` runs it alone.
+11. Training at scale, at full svqwae width: the data-parallel step, two
+   ranks on the one card (gloo on CUDA tensors, B=20 x T=5120 each, 3
+   fused bf16 steps; each rank a ``--dp-worker`` subprocess printing its
+   K2/K3 counters) against one process at B=40 (loss and grad norm per
+   step at phase 6's bounds); ``train --coordinator 127.0.0.1:<port>
+   --num-processes 1 --process-id 0`` (a process group over NCCL, its
+   collectives counted); ``train`` with EMA codebooks, dead-code reseed,
+   time jitter and VQ-dropout (K2/K3 3/3, codes reseeded at step 3, the
+   checkpoint's ``model_state`` leaves, ``infer`` on it) and with dropout
+   (K2/K3 0/0: the fused stack is skipped); host ms per B=40 batch of the
+   native loader and the Python collate path (phase 10's dump when it ran);
+   and the supervisor taking a 3-step ``train`` to done after its CUDA
+   probe.
 
 Prints the kernel table (K1, K2, K3; ``launches`` summed over every path
 driven, ``launches_by_path`` each path's count) as one JSON line, the
@@ -1335,6 +1349,7 @@ def phase10(k1, k2, k3, tmp: Path):
 
     from wavenet_autoencoders_tpu_torch.cli.main import main as cli
     from wavenet_autoencoders_tpu_torch.config import load_preset
+    from wavenet_autoencoders_tpu_torch.data import native
     from wavenet_autoencoders_tpu_torch.data.dataset import WaveDataset, data_iterator
     from wavenet_autoencoders_tpu_torch.kernels import decode as K1
     from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
@@ -1371,11 +1386,17 @@ def phase10(k1, k2, k3, tmp: Path):
 
     dev_dump = dump / "english" / "dev"
     K.LAUNCHES_FWD = K.LAUNCHES_BWD = K1.LAUNCHES = 0
+    loads = native.LOADS
     with tee_stdout() as out:
         timed("train", lambda: cli(["train", "--preset", "svqwae", "--hparams", hp, "--device", "cuda",
                                     "--dev-dump-root", str(dev_dump), "--max-steps", "24",
                                     str(dump / "english" / "train_no_dev"), str(exp)]))
     launches = {"K1": K1.LAUNCHES, "K2": K.LAUNCHES_FWD, "K3": K.LAUNCHES_BWD}
+    # the train batches (and the prefetch thread's few ahead) and the dev batch
+    loads = native.LOADS - loads
+    log(f"phase 10: the native loader assembled {loads} batches in train")
+    if loads < 25:
+        raise AssertionError(f"the recipe's 24 steps and dev pass took {loads} batches from the native loader")
     text = out.getvalue()
     hooks = {f"{m[0]}{' ' + m[1] if m[1] else ''} {m[2]}": float(m[3]) for m in re.findall(
         r"^(save_states|eval_model)(?: \((\w+)\))? at step (\d+): ([\d.]+) s$", text, re.M)}
@@ -1453,6 +1474,292 @@ def phase10(k1, k2, k3, tmp: Path):
     k1["recipe"] = {"host_s": secs, "hook_s": hooks, "dev_rel_err": errs, "trace_passes": named}
 
 
+# Phase 11's data-parallel step: 2 ranks on the one card (gloo on CUDA
+# tensors: NCCL refuses two ranks on one GPU) of B=20 each against one
+# process at B=40, 3 fused steps from the same init and batches, in bf16
+# (the main path) and f32 (fused f32 kernels, TF32 off). Held: every step's
+# loss (bf16 1e-4, phase 6's fused-vs-unfused bound; f32 1e-5) and step 1's
+# grad norm (bf16 5e-3, phase 6's bound; f32 1e-4). A missed gradient sum
+# halves step 1's grad norm; a rank's own mean moves the loss.
+# Steps 2-3's grad norms are printed, not held, beside the one-process
+# fused-against-unfused runs as the yardstick: Adam's first updates move
+# every weight by about lr whatever its gradient's size, so weights whose
+# gradient is rounding noise (at B=20 cuBLAS and cuDNN pick other
+# algorithms than at B=40: step 1's f32 grad norms differ by ~2e-5 while
+# its f32 losses are equal) move either way, and two runs' weights part by
+# ~2 lr there. On an H100 80GB HBM3 (700 W) step 3's bf16 grad norms read
+# 7.6e-2 apart (fused against unfused, one process: 1.9e-2) while every
+# loss agreed to 1.1e-5, and in f32 step 2's read 1.1e-3 apart.
+TOL_DP_F32 = {"loss": 1e-5, "grad_norm": 1e-4}
+DP_HP = {"bf16": "fused_stack=true", "f32": "fused_stack=true,compute_dtype=float32"}
+DP_RANKS, DP_STEPS = 2, 3
+# the training options at full svqwae width: with threshold 1.0 and usage
+# decay 0.5 every code used less than the uniform share in a step dies and
+# is revived in it (from step 1 on), so every step reseeds
+OPTIONS_HP = ("fused_stack=true,ema=true,vq_reseed=true,vq_reseed_start=0,vq_reseed_thresh=1.0,"
+              "vq_reseed_decay=0.5,time_jitter=true,vq_drop=true,drop_dim=8")
+DROPOUT_HP = "fused_stack=true,dropout=0.05"
+
+
+def dp_steps(dump: Path, host_slice, hp: str = "fused_stack=true") -> dict:
+    """DP_STEPS svqwae train steps (``hp`` overrides; fused bf16 by default)
+    on ``host_slice`` of each of ``dump``'s batches (the whole batch when
+    None), through the native loader: per step the loss, grad norm and ms
+    (CUDA synchronized); K2/K3 launches; collectives issued."""
+    import torch
+
+    from wavenet_autoencoders_tpu_torch.config import load_preset
+    from wavenet_autoencoders_tpu_torch.data.dataset import WaveDataset, data_iterator
+    from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
+    from wavenet_autoencoders_tpu_torch.models import build_model
+    from wavenet_autoencoders_tpu_torch.parallel import distributed as D
+    from wavenet_autoencoders_tpu_torch.train.loop import batch_to_device
+    from wavenet_autoencoders_tpu_torch.train.step import init_state, make_train_step
+    from wavenet_autoencoders_tpu_torch.utils.params import flatten_state
+
+    dev = D.local_device("cuda")
+    cfg = load_preset("svqwae", hp)
+    model = build_model(cfg, device=dev).train()
+    state = init_state(cfg, model)
+    D.broadcast_from_main(list(state.params().values()) + list(flatten_state(model).values()))
+    step = make_train_step(cfg, model)
+    it = data_iterator(WaveDataset(str(dump), cfg), cfg, prefetch=0, host_slice=host_slice,
+                       transform=lambda b: batch_to_device(b, dev))
+    K.LAUNCHES_FWD = K.LAUNCHES_BWD = 0
+    collectives = D.COLLECTIVES
+    rec = {"loss": [], "grad_norm": [], "ms": [], "rows": None}
+    for _ in range(DP_STEPS):
+        batch = next(it)
+        rec["rows"] = int(batch["x"].shape[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["loss"].append(m["loss"].item())
+        rec["grad_norm"].append(m["grad_norm"].item())
+    rec["launches"] = [K.LAUNCHES_FWD, K.LAUNCHES_BWD]
+    rec["collectives"] = D.COLLECTIVES - collectives
+    return rec
+
+
+def dp_worker(init: str, rank: int, dump: str) -> None:
+    """One rank of phase 11's data-parallel step (``--dp-worker``): joins a
+    gloo group of DP_RANKS on the card and prints its record as a line
+    ``DP_RANK {json}`` (the launch counters are per process)."""
+    import torch
+
+    from wavenet_autoencoders_tpu_torch.parallel import distributed as D
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    D.initialize_distributed(init, DP_RANKS, rank, device="cuda", backend="gloo")
+    try:
+        rec = {dtype: dp_steps(Path(dump), D.host_local_batch_slice(40), DP_HP[dtype]) for dtype in DP_HP}
+        rec.update(rank=rank, device=str(D.local_device("cuda")))
+        print("DP_RANK " + json.dumps(rec), flush=True)
+    finally:
+        D.shutdown()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def loader_ms(dump: Path, n: int = 10) -> dict:
+    """Host ms per B=40 x T=5120 svqwae batch over ``n`` batches after one,
+    native loader against the Python collate path (no prefetch thread)."""
+    from wavenet_autoencoders_tpu_torch.config import load_preset
+    from wavenet_autoencoders_tpu_torch.data import native
+    from wavenet_autoencoders_tpu_torch.data.dataset import WaveDataset, data_iterator
+
+    cfg = load_preset("svqwae")
+    ds = WaveDataset(str(dump), cfg)
+    out = {"utterances": len(ds)}
+    for name, use_native in (("native", True), ("python", False)):
+        it = data_iterator(ds, cfg, prefetch=0, use_native=use_native)
+        next(it)
+        loads = native.LOADS
+        t0 = time.perf_counter()
+        for _ in range(n):
+            b = next(it)
+        out[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3 / n
+        out[f"{name}_loader_batches"] = native.LOADS - loads
+        if b["x"].shape != (40, 5120):
+            raise AssertionError(f"loader batch {b['x'].shape}")
+    if out["native_loader_batches"] != n or out["python_loader_batches"] != 0:
+        raise AssertionError(f"loader routing: {out}")
+    return out
+
+
+def phase11(k2, k3, tmp: Path, recipe_dump: Path | None):
+    """Training at scale on the card: the 2-rank data-parallel step against
+    one process, a process group over NCCL through the CLI, the training
+    options (EMA codebooks, reseed, time jitter, VQ-dropout; then dropout),
+    the native loader against the Python collate path, and the supervisor."""
+    import torch
+
+    from wavenet_autoencoders_tpu_torch.cli.main import main as cli
+    from wavenet_autoencoders_tpu_torch.data import native
+    from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
+    from wavenet_autoencoders_tpu_torch.parallel import distributed as D
+    from wavenet_autoencoders_tpu_torch.train import supervisor as S
+
+    t_phase = time.perf_counter()
+    dump = tmp / "dump"
+    dirs = make_dump(dump, np.random.default_rng(11))
+    rec = {}
+
+    # 1. data parallel: 2 ranks on the card against 1 process
+    t0 = time.perf_counter()
+    init = f"file://{tmp / 'dp_store'}"
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-worker", init, str(r), str(dump)],
+                              cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(DP_RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"DP rank {r} exited {p.returncode}:\n{out[-6000:]}")
+    ranks = [json.loads(re.search(r"^DP_RANK (\{.*\})$", out, re.M).group(1)) for out in outs]
+    dp_wall = time.perf_counter() - t0
+    refs = {dtype: dp_steps(dump, None, hp) for dtype, hp in DP_HP.items()}
+    unfused = {dtype: dp_steps(dump, None, hp.replace("fused_stack=true", "fused_stack=false"))
+               for dtype, hp in DP_HP.items()}
+
+    def rel(a, b):
+        return {k: [abs(x - y) / abs(y) for x, y in zip(a[k], b[k])] for k in ("loss", "grad_norm")}
+
+    diff = {dtype: rel(ranks[0][dtype], refs[dtype]) for dtype in DP_HP}
+    yardstick = {dtype: rel(unfused[dtype], refs[dtype]) for dtype in DP_HP}
+    for dtype in DP_HP:
+        r0, r1, ref = ranks[0][dtype], ranks[1][dtype], refs[dtype]
+        log(f"phase 11: DP {dtype}, {DP_RANKS} ranks x B={r0['rows']} on one card (gloo): losses {r0['loss']}, "
+            f"grad norms {r0['grad_norm']}, ms/step {[round(v, 2) for v in r0['ms']]} (rank 1 "
+            f"{[round(v, 2) for v in r1['ms']]}); 1 process B={ref['rows']}: losses {ref['loss']}, grad norms "
+            f"{ref['grad_norm']}, ms/step {[round(v, 2) for v in ref['ms']]}; rel diff {json.dumps(diff[dtype])}; "
+            f"K2/K3 launches per rank {[r[dtype]['launches'] for r in ranks]}, collectives per rank "
+            f"{[r[dtype]['collectives'] for r in ranks]}")
+    log(f"phase 11: yardstick, 1 process unfused against fused: rel diff {json.dumps(yardstick)}, ms/step "
+        f"{json.dumps({d: [round(v, 2) for v in unfused[d]['ms']] for d in DP_HP})}; {dp_wall:.1f} s for both "
+        "ranks' processes")
+    for dtype in DP_HP:
+        for r in ranks:
+            if r[dtype]["launches"] != [DP_STEPS, DP_STEPS]:
+                raise AssertionError(f"DP {dtype} rank {r['rank']} launched K2/K3 {r[dtype]['launches']}")
+            if r[dtype]["rows"] != 40 // DP_RANKS or r[dtype]["loss"] != ranks[0][dtype]["loss"]:
+                raise AssertionError(f"DP {dtype} rank {r['rank']}: rows {r[dtype]['rows']}, losses "
+                                     f"{r[dtype]['loss']} vs rank 0's")
+        if refs[dtype]["launches"] != [DP_STEPS, DP_STEPS]:
+            raise AssertionError(f"the 1-process {dtype} steps launched K2/K3 {refs[dtype]['launches']}")
+    held = {"bf16 loss": (diff["bf16"]["loss"], TOL_STEP1["loss"]),
+            "bf16 step-1 grad_norm": (diff["bf16"]["grad_norm"][:1], TOL_STEP1["grad_norm"]),
+            "f32 loss": (diff["f32"]["loss"], TOL_DP_F32["loss"]),
+            "f32 step-1 grad_norm": (diff["f32"]["grad_norm"][:1], TOL_DP_F32["grad_norm"])}
+    for what, (vals, tol) in held.items():
+        if not max(vals) <= tol:
+            raise AssertionError(f"DP {what} differs from the 1-process step: {vals} > {tol}")
+    for r in ranks:
+        count_launches(k2, f"dp_step_rank{r['rank']}", sum(r[d]["launches"][0] for d in DP_HP))
+        count_launches(k3, f"dp_step_rank{r['rank']}", sum(r[d]["launches"][1] for d in DP_HP))
+    count_launches(k2, "dp_reference", sum(refs[d]["launches"][0] for d in DP_HP))
+    count_launches(k3, "dp_reference", sum(refs[d]["launches"][1] for d in DP_HP))
+    rec["dp"] = {"ranks": ranks, "one_process": refs, "one_process_unfused": unfused, "rel_diff": diff,
+                 "yardstick_rel_diff": yardstick, "tol_bf16": TOL_STEP1, "tol_f32": TOL_DP_F32, "wall_s": dp_wall}
+
+    # 2. a process group over NCCL through the CLI (one rank: the card's only)
+    K.LAUNCHES_FWD = K.LAUNCHES_BWD = 0
+    collectives = D.COLLECTIVES
+    t0 = time.perf_counter()
+    cli(["train", "--preset", "svqwae", "--hparams", "fused_stack=true", "--device", "cuda", "--max-steps", "3",
+         str(dump), str(tmp / "exp_nccl"), "--coordinator", f"127.0.0.1:{free_port()}", "--num-processes", "1",
+         "--process-id", "0"])
+    nccl = {"backend": D.BACKEND, "collectives": D.COLLECTIVES - collectives, "s": time.perf_counter() - t0,
+            "launches": [K.LAUNCHES_FWD, K.LAUNCHES_BWD]}
+    log(f"phase 11: train --coordinator 127.0.0.1:<port> --num-processes 1: {json.dumps(nccl)}")
+    if nccl["backend"] != "nccl" or nccl["collectives"] < 3 or nccl["launches"] != [3, 3]:
+        raise AssertionError(f"the NCCL run: {nccl}")
+    if not (tmp / "exp_nccl" / "checkpoint_step000000003.npz").exists():
+        raise AssertionError("the NCCL run wrote no checkpoint")
+    count_launches(k2, "nccl_cli_train", nccl["launches"][0])
+    count_launches(k3, "nccl_cli_train", nccl["launches"][1])
+    rec["nccl"] = nccl
+
+    # 3. the training options, then dropout (which skips the fused stack)
+    runs = {}
+    for name, hp in (("options", OPTIONS_HP), ("dropout", DROPOUT_HP)):
+        ckpt = tmp / f"exp_{name}"
+        K.LAUNCHES_FWD = K.LAUNCHES_BWD = 0
+        t0 = time.perf_counter()
+        cli(["train", "--preset", "svqwae", "--hparams", hp, "--device", "cuda", "--max-steps", "3", str(dump),
+             str(ckpt)])
+        torch.cuda.synchronize()
+        recs = [r for r in read_metrics(ckpt) if r["phase"] == "train_no_dev"]
+        runs[name] = {"launches": [K.LAUNCHES_FWD, K.LAUNCHES_BWD], "s": time.perf_counter() - t0,
+                      "steps": {r["step"]: {k: r[k] for k in ("loss", "grad_norm", "perplexity", "reseeded")}
+                                for r in recs}}
+        if sorted(runs[name]["steps"]) != [1, 3] or not all(
+                np.isfinite([r["loss"], r["grad_norm"], r["aux_loss"], r["perplexity"]]).all() for r in recs):
+            raise AssertionError(f"{name} run metrics: {recs}")
+    log(f"phase 11: training options {json.dumps(runs)}")
+    opts = runs["options"]
+    if opts["launches"] != [3, 3] or runs["dropout"]["launches"] != [0, 0]:
+        raise AssertionError(f"K2/K3 launches: options {opts['launches']} (predicted [3, 3]), dropout "
+                             f"{runs['dropout']['launches']} (predicted [0, 0])")
+    if not opts["steps"][3]["reseeded"] > 0:
+        raise AssertionError(f"no code reseeded at step 3: {opts['steps']}")
+    z = np.load(tmp / "exp_options" / "checkpoint_step000000003.npz")
+    state_keys = sorted(k for k in z.files if k.startswith("model_state/"))
+    want = {f"model_state/{n}/{i}" for n in ("vq/codebooks", "vq/cluster_size", "vq/ema_w", "usage") for i in (0, 1)}
+    if set(state_keys) != want or any(k.startswith("params/vq/") for k in z.files):
+        raise AssertionError(f"options checkpoint model_state leaves: {state_keys}")
+    scp = tmp / "scp.json"
+    scp.write_text(json.dumps([[f"wav/{d.name}.wav", f"{d}/"] for d in dirs[:4]]))
+    cli(["infer", "--preset", "svqwae", "--hparams", OPTIONS_HP, "--device", "cuda",
+         str(tmp / "exp_options" / "checkpoint_step000000003.npz"), str(scp), str(tmp / "abx"), "--lan", "english"])
+    codes = [np.loadtxt(tmp / "abx" / "2019" / "english" / "test" / f"{d.name}.txt") for d in dirs[:4]]
+    if any(a.shape != (50, 64) or not np.isfinite(a).all() for a in codes):
+        raise AssertionError(f"ABX export of the options checkpoint: {[a.shape for a in codes]}")
+    for name, run in runs.items():
+        count_launches(k2, f"{name}_cli_train", run["launches"][0])
+        count_launches(k3, f"{name}_cli_train", run["launches"][1])
+    rec["options"] = {**runs, "model_state_leaves": state_keys}
+
+    # 4. the native loader against the Python collate path
+    src = recipe_dump if recipe_dump is not None else dump
+    rec["loader"] = {"dump": "phase 10 train_no_dev" if recipe_dump is not None else "phase 11", **loader_ms(src)}
+    log(f"phase 11: batch assembly at B=40 x T=5120, host ms: {json.dumps(rec['loader'])}")
+
+    # 5. the supervisor: a 3-step train of the port's CLI, probed on CUDA
+    sup_log = tmp / "sup" / "train.log"
+    sup_log.parent.mkdir()
+    t0 = time.perf_counter()
+    rc = S.main(["--steps", "3", "--log", str(sup_log), "--stale-s", "300", "--grace-s", "300", "--poll-s", "1",
+                 "--", "train", "--preset", "svqwae", "--hparams", "fused_stack=true", "--device", "cuda",
+                 "--max-steps", "3", str(dump), str(tmp / "exp_sup")])
+    text = sup_log.read_text()
+    rec["supervisor"] = {"rc": rc, "s": time.perf_counter() - t0, "done": (sup_log.parent / "TRAIN_DONE").exists()}
+    log(f"phase 11: supervisor {json.dumps(rec['supervisor'])}; log tail: "
+        + " | ".join(line for line in text.splitlines() if line.startswith(("supervisor", "step ")))[-600:])
+    if rc != 0 or not rec["supervisor"]["done"] or not (tmp / "exp_sup" / "checkpoint_step000000003.npz").exists():
+        raise AssertionError(f"the supervised run did not finish: rc {rc}\n{text[-3000:]}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    rec["native_loads_in_phase"] = native.LOADS
+    log(f"phase 11: {rec['phase_s']:.1f} s")
+    k2["phase11"] = rec
+
+
 KERNELS = {
     "K1": ("wavenet_decode", "decode.cu", "wavenet_autoencoders_tpu/kernels/decode.py:352"),
     "K2": ("glu_stack_forward", "glu_stack.cu", "wavenet_autoencoders_tpu/kernels/glu_stack.py:157"),
@@ -1462,8 +1769,13 @@ KERNELS = {
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10")
-    phases = {int(p) for p in ap.parse_args(argv).phases.split(",")}
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11")
+    ap.add_argument("--dp-worker", nargs=3, metavar=("INIT", "RANK", "DUMP"), help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.dp_worker:
+        dp_worker(args.dp_worker[0], int(args.dp_worker[1]), args.dp_worker[2])
+        return 0
+    phases = {int(p) for p in args.phases.split(",")}
 
     import torch
 
@@ -1522,9 +1834,15 @@ def main(argv=None) -> int:
     if 9 in phases:
         with tempfile.TemporaryDirectory() as tmp:
             phase9(k1, k2, k3, Path(tmp))
-    if 10 in phases:
-        with tempfile.TemporaryDirectory() as tmp:
-            phase10(k1, k2, k3, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        recipe_dump = None
+        if 10 in phases:
+            (Path(tmp) / "p10").mkdir()
+            phase10(k1, k2, k3, Path(tmp) / "p10")
+            recipe_dump = Path(tmp) / "p10" / "dump" / "english" / "train_no_dev"
+        if 11 in phases:
+            (Path(tmp) / "p11").mkdir()
+            phase11(k2, k3, Path(tmp) / "p11", recipe_dump)
 
     print(json.dumps({"kernels": list(res.values())}))
     print(card)

@@ -102,3 +102,20 @@ def test_unknown_model_name_raises():
 
     with pytest.raises(ValueError, match="unknown model name: no_such_model"):
         build_model(load_preset("inae", TINY_SVQWAE).replace(name="no_such_model"), device="cpu")
+
+
+@pytest.mark.parametrize("module", ["parallel/distributed.py", "parallel/mesh.py", "data/native.py",
+                                    "train/supervisor.py"])
+def test_data_parallel_loader_and_supervisor_modules_are_held_to_it(module):
+    """The modules of the data-parallel slice are among the sources checked
+    above and the modules imported; the loader's C++ source is the port's
+    own copy (the port shares no file with the JAX package)."""
+    assert PORT / module in SOURCES
+    assert not re.search(r"^\s*(import|from)\s+jax(lib)?\b", (PORT / module).read_text(), re.M)
+    assert (PORT / "native" / "dataload.cpp").exists()
+    out = subprocess.run(
+        [sys.executable, "-c", f"import sys, wavenet_autoencoders_tpu_torch.{module[:-3].replace('/', '.')}; "
+                               "print(sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib') "
+                               "or n.startswith('wavenet_autoencoders_tpu.')))"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "[]", out.stdout + out.stderr

@@ -9,18 +9,22 @@ counterpart under the same name:
 - ``dsp``     — mu-law, pre-emphasis, STFT, mel and MFCC features, filters,
                 CMVN (numpy/scipy copies of the JAX package's)
 - ``data``    — ZeroSpeech-2019 subsets, feature extraction, normalization;
-                the train.txt manifest, dataset, sampler, collator, prefetch
+                the train.txt manifest, dataset, sampler, the native C++
+                loader (``native/dataload.cpp``) and the Python collator,
+                prefetch
 - ``ops``     — weight-normed convs, the GLU cell, upsampler, mixture
                 losses and samplers, masked losses
 - ``models``  — WaveNet decoder, content and speaker encoders, bottlenecks
-                (VQ, Gumbel, IN/AdaIN), the WAE zoo and the feature AEs
+                (VQ, EMA VQ, Gumbel, IN/AdaIN, jitter, VQ-dropout), the WAE zoo
+                and the feature AEs
 - ``kernels`` — the fused AR decode and the fused GLU-stack forward and
                 backward (CUDA for Hopper, ``csrc/``), each with its plain
                 PyTorch version
-- ``train``   — train and eval steps (Adam, clipping, parameter EMA),
-                schedules, checkpoints in the JAX package's npz format,
-                metrics, the loop with its dev pass, sample dumps, decode
-                and profiler hooks
+- ``train``   — train and eval steps (Adam, clipping, parameter EMA, dead-
+                code revival), schedules, checkpoints in the JAX package's
+                npz format, metrics, the loop with its dev pass, sample
+                dumps, decode and profiler hooks, the supervisor
+- ``parallel`` — multi-process data parallelism (``torch.distributed``)
 - ``eval``    — ABX export, voice-conversion synthesis, submission checks
 - ``utils``   — device selection and the JAX-parameter bridge
 - ``cli``     — ``subset``, ``preprocess``, ``cmvn``, ``normalize``,

@@ -6,8 +6,11 @@ submission:
     preprocess  extract wave/mel/mfcc npys per utterance
     cmvn        fit mean/var stats over dumped features
     normalize   apply (or invert) CMVN -> <feat>.norm.npy
-    train       train a model (single process), npz checkpoints; with
-                ``--dev-dump-root`` a dev pass each epoch
+    train       train a model, npz checkpoints; with ``--dev-dump-root`` a
+                dev pass each epoch; data parallel over processes with
+                ``--coordinator --num-processes --process-id`` (one
+                process per card; or MASTER_ADDR, MASTER_PORT, WORLD_SIZE,
+                RANK)
     infer       ABX representation export
     synthesize  voice-conversion synthesis
     validate    sanity-check a submission tree
@@ -91,6 +94,10 @@ def main(argv=None):
     p.add_argument("--reset-optimizer", action="store_true")
     p.add_argument("--feat-type", default="mfcc")
     p.add_argument("--max-steps", type=int, default=None)
+    p.add_argument("--coordinator", default=None,
+                   help="host:port (or an init_method URL) of rank 0 for multi-process training")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
 
     p = sub.add_parser("infer", help="export ABX representations")
     _add_common(p)
@@ -152,14 +159,22 @@ def main(argv=None):
         preprocess(cfg, args.scp, args.out_dir, args.sp2ind, num_workers=args.num_workers)
         return
     if args.cmd == "train":
+        from wavenet_autoencoders_tpu_torch.parallel import distributed as dist
         from wavenet_autoencoders_tpu_torch.train.loop import train
+        from wavenet_autoencoders_tpu_torch.utils.device import resolve_device
 
-        train(
-            cfg, args.dump_root, args.checkpoint_dir, resume=args.checkpoint,
-            restore_parts_from=args.restore_parts, reset_optimizer=args.reset_optimizer,
-            feat_type=args.feat_type, max_steps=args.max_steps, dev_dump_root=args.dev_dump_root,
-            device=args.device,
-        )
+        # a no-op for one process; NCCL on cuda, gloo on the CPU
+        dist.initialize_distributed(args.coordinator, args.num_processes, args.process_id,
+                                    device=resolve_device(args.device))
+        try:
+            train(
+                cfg, args.dump_root, args.checkpoint_dir, resume=args.checkpoint,
+                restore_parts_from=args.restore_parts, reset_optimizer=args.reset_optimizer,
+                feat_type=args.feat_type, max_steps=args.max_steps, dev_dump_root=args.dev_dump_root,
+                device=args.device,
+            )
+        finally:
+            dist.shutdown()
         return
     model = _load_model(cfg, args.checkpoint, use_ema=args.use_ema, device=args.device)
     if args.cmd == "infer":
@@ -188,7 +203,7 @@ def _load_model(cfg: Config, checkpoint: str, use_ema: bool | str = "auto", devi
     the shadow has warmed (checkpoint step >= ema_warm_steps)."""
     from wavenet_autoencoders_tpu_torch.models.zoo import build_model
     from wavenet_autoencoders_tpu_torch.train.step import ema_warm_steps
-    from wavenet_autoencoders_tpu_torch.utils.params import load_flat_params
+    from wavenet_autoencoders_tpu_torch.utils.params import load_flat_params, load_flat_state
 
     model = build_model(cfg, device=device)
     path = checkpoint
@@ -205,7 +220,12 @@ def _load_model(cfg: Config, checkpoint: str, use_ema: bool | str = "auto", devi
         ema_path = str(checkpoint).replace(".npz", "_ema.npz")
         if Path(ema_path).exists() and not str(checkpoint).endswith("_ema.npz"):
             path = ema_path
-    load_flat_params(model, np.load(path), prefix="params/")
+    z = np.load(path)
+    load_flat_params(model, z, prefix="params/")
+    try:  # the model state (EMA codebooks, usage); kept from init when absent
+        load_flat_state(model, z)
+    except KeyError:
+        pass
     print(f"loaded checkpoint {path}")
     return model
 

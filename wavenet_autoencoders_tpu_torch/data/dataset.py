@@ -1,13 +1,14 @@
 """Host-side dataset: lazy npy loading, length-bucketed sampling,
 hop-aligned random cropping, fixed-shape batch assembly (counterpart of
-``wavenet_autoencoders_tpu/data/dataset.py:28-191,245-335``).
+``wavenet_autoencoders_tpu/data/dataset.py``).
 
 Batches are fixed shape (crop length = max_time_steps for every item;
 shorter utterances are filtered out); waveforms stay compact on the host
-(int mu-law codes), and a background thread prefetches batches. Only the
-Python collate path is ported: the JAX package's native C++ loader is not
-(ROADMAP.md, queue 1), so crops follow the Python ``Collator``'s random
-stream.
+(int mu-law codes), and a background thread prefetches batches. Mu-law
+batches come from the native C++ loader (``data.native``: mmap, parallel
+crops from per-item seeds) as in the JAX package, so both packages train on
+the same crops of a dump for a seed; scalar input, and npy files the loader
+refuses, take the Python ``Collator``.
 """
 from __future__ import annotations
 
@@ -184,6 +185,46 @@ class Collator:
         return int(mulaw_quantize(0, self.cfg.quantize_channels - 1))
 
 
+# the per-item seed stride of native/dataload.cpp (wae_load_batch: item i
+# crops from seed + _SEED_STRIDE * (i + 1)): a rank that loads only the
+# slice [s, s + n) of the global batch shifts the batch seed by s strides
+# and gets the full load's crops bit for bit
+_SEED_STRIDE = 0x517CC1B727220A95
+_U64 = 1 << 64
+
+
+def _native_batch(dataset: WaveDataset, cfg: Config, idxs, collate: Collator, seed: int):
+    """One batch through the native loader, or None for what the loader
+    does not take (scalar input; an npy it refuses), which the caller
+    collates in Python. A loader that fails to build or load raises."""
+    from wavenet_autoencoders_tpu_torch.data import native
+
+    if not cfg.is_mulaw_quantize:
+        return None
+    utts = [dataset.utterances[i] for i in idxs]
+    try:
+        x, c = native.load_batch_native(
+            [u.path("wave") for u in utts],
+            [u.path(dataset.feat_type, norm=dataset.norm) for u in utts],
+            collate.max_steps,
+            cfg.get_hop_size(),
+            cfg.cin_pad,
+            cfg.dim_in if dataset.feat_type == "mfcc" else cfg.num_mels,
+            seed,
+        )
+    except native.LoaderRefused:
+        return None
+    batch = {
+        "x": x,
+        "y": x[..., None],
+        "c": c,
+        "lengths": np.full((len(utts),), collate.max_steps, np.int32),
+    }
+    if cfg.gin_channels > 0:
+        batch["g"] = np.array([(-1 if not dataset.multi_speaker else u.speaker_id) for u in utts], np.int32)
+    return batch
+
+
 def data_iterator(
     dataset: WaveDataset,
     cfg: Config,
@@ -191,10 +232,19 @@ def data_iterator(
     seed: int = 0,
     prefetch: int = 3,
     epochs: int | None = None,
+    use_native: bool = True,
+    host_slice: tuple[int, int] | None = None,
     transform=None,
 ):
     """Yield collated batches forever (or for ``epochs``), assembled in a
-    background thread ``prefetch`` batches ahead.
+    background thread ``prefetch`` batches ahead; mu-law batches through the
+    native loader unless ``use_native`` is false.
+
+    host_slice=(start, size): data-parallel mode. Every rank runs the same
+    sampler over the global batch and yields only its slice of it. On the
+    native path a rank reads only its slice's files, with the crops of the
+    full-batch load; the Python path collates the full batch and slices it
+    (its crop stream is sequential).
 
     transform: optional per-batch function applied INSIDE the prefetch
     thread; the training loop passes the host-to-device copy (pinned memory,
@@ -203,15 +253,26 @@ def data_iterator(
     bs = batch_size or cfg.batch_size
     sampler = LengthBucketSampler(dataset.lengths, bs, seed=seed)
     collate = Collator(cfg, seed=seed)
+    s, n = host_slice if host_slice is not None else (0, bs)
 
     def gen():
         epoch = 0
+        step = 0
         while epochs is None or epoch < epochs:
             buf = []
             for idx in sampler:
                 buf.append(idx)
                 if len(buf) == bs:
-                    yield collate([dataset[i] for i in buf])
+                    step += 1
+                    b = None
+                    if use_native:
+                        seed_s = (seed + step * 7919 + _SEED_STRIDE * s) % _U64
+                        b = _native_batch(dataset, cfg, buf[s : s + n], collate, seed_s)
+                    if b is None:
+                        b = collate([dataset[i] for i in buf])
+                        if host_slice is not None:
+                            b = {k: v[s : s + n] for k, v in b.items()}
+                    yield b
                     buf = []
             epoch += 1
 

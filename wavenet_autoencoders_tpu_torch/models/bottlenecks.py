@@ -1,13 +1,20 @@
 """The bottlenecks of the model zoo (counterpart of
-``wavenet_autoencoders_tpu/models/bottlenecks.py:35-141,263-336``):
+``wavenet_autoencoders_tpu/models/bottlenecks.py``):
 
 - plain VQ with the reference's swapped-β loss (β weights the
   codebook-to-encoder term);
 - sliced VQ with the standard loss form and perplexity summed over slices;
+- EMA codebooks (Laplace-smoothed cluster statistics, quantizing with the
+  updated codebook in the same step, commit-only loss), and dead-code
+  revival (usage EMA, reseed from encoder outputs);
 - the Gumbel-softmax categorical bottleneck (CatWAE, CatMfccAE);
-- instance norm and AdaIN.
+- instance norm and AdaIN, time jitter and VQ-dropout.
 
 z is (B, T', D) throughout. ``.detach()`` stands for ``stop_gradient``.
+Each stochastic function takes its noise as an argument (``u``, ``start``,
+``cand_idx``) or draws it from ``generator``. Inside
+``parallel.distributed.synced()`` the code counts (perplexity, usage) and
+the EMA statistics are those of the global batch.
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from wavenet_autoencoders_tpu_torch.ops.conv import Linear, linear_apply
+from wavenet_autoencoders_tpu_torch.parallel import distributed as dist
 
 
 def _nearest_code(flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
@@ -30,8 +38,15 @@ def _nearest_code(flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     return dist.argmin(1)
 
 
+def code_fractions(one_hot: torch.Tensor) -> torch.Tensor:
+    """The mean one-hot (N, K) -> (K,) over the batch's latent frames: over
+    the global batch inside ``synced()`` (the ranks' frame counts are equal)."""
+    ranks, _ = dist.global_rows()
+    return dist.all_sum(one_hot.float().mean(0).detach()) / ranks
+
+
 def _perplexity(one_hot: torch.Tensor) -> torch.Tensor:
-    avg = one_hot.float().mean(0)
+    avg = code_fractions(one_hot)
     return torch.exp(-(avg * torch.log(avg + 1e-10)).sum())
 
 
@@ -104,6 +119,103 @@ def sliced_vq_apply(p: SlicedVQ, z: torch.Tensor, beta: float = 0.25, commit_sca
     return q_st, vq_loss, perp, torch.stack(idxs, dim=-1)
 
 
+class BufferList(nn.Module):
+    """Tensors that are model state but not parameters, registered as
+    buffers ``0``, ``1``, ... (so a buffer's name is its JAX tree path)."""
+
+    def __init__(self, tensors):
+        super().__init__()
+        for i, t in enumerate(tensors):
+            self.register_buffer(str(i), t)
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        return getattr(self, str(i))
+
+    def __len__(self) -> int:
+        return len(self._buffers)
+
+    def __iter__(self):
+        return iter(self._buffers.values())
+
+
+class VQEMA(nn.Module):
+    """EMA-codebook state, no parameters: per slice the buffers
+    ``codebooks.{i}`` (K_i, sub), ``cluster_size.{i}`` (K_i,) and
+    ``ema_w.{i}`` (K_i, sub); one slice of D when ``num_slices`` is 1."""
+
+    def __init__(self, K: int, D: int, num_slices: int = 1, K1: int | None = None, generator=None):
+        super().__init__()
+        if num_slices == 1:
+            sizes, sub = [K], D
+        else:
+            assert D % num_slices == 0
+            sizes, sub = _slice_sizes(K, K1, num_slices), D // num_slices
+        self.codebooks = BufferList(_uniform_codebook(s, sub, generator) for s in sizes)
+        self.cluster_size = BufferList(torch.zeros(s) for s in sizes)
+        self.ema_w = BufferList(torch.zeros(s, sub) for s in sizes)
+
+
+def vq_ema_apply(state: VQEMA, z: torch.Tensor, beta: float = 0.25, decay: float = 0.99, train: bool = True):
+    """Returns (quantized, vq_loss, perplexity, indices (B, T, slices)).
+
+    In training the statistics are updated in place first, with Laplace
+    smoothing (ε=1e-5), and the batch is quantized with the updated
+    codebook. The loss is β·mean((sg(q) - z)²) only: EMA codebooks get no
+    gradient. The counts and ``dw`` sums are global inside ``synced()``."""
+    B, T, D = z.shape
+    books = state.codebooks
+    n = len(books)
+    sub = D // n
+    flat = z.reshape(-1, D)
+    qs, idxs, perp = [], [], 0.0
+    for i in range(n):
+        cb = books[i]
+        part = flat[:, i * sub : (i + 1) * sub].detach().float()
+        K = cb.shape[0]
+        idx = _nearest_code(part, cb)
+        oh = F.one_hot(idx, K).float()
+        if train:
+            with torch.no_grad():
+                counts, dw = oh.sum(0), oh.T @ part
+                dist.all_sum_([counts, dw])
+                cs = state.cluster_size[i] * decay + (1.0 - decay) * counts
+                ntot = cs.sum()
+                cs = (cs + 1e-5) / (ntot + K * 1e-5) * ntot
+                ew = state.ema_w[i] * decay + (1.0 - decay) * dw
+                state.cluster_size[i].copy_(cs)
+                state.ema_w[i].copy_(ew)
+                cb.copy_(ew / cs[:, None])
+        qs.append(cb[idx])
+        perp = perp + _perplexity(oh)
+        idxs.append(idx.reshape(B, T))
+    q = torch.cat(qs, dim=1).reshape(B, T, D)
+    vq_loss = beta * (q.detach() - z).square().mean()
+    q_st = z + (q - z).detach()
+    return q_st, vq_loss, perp, torch.stack(idxs, dim=-1)
+
+
+def update_usage(usage: torch.Tensor, counts: torch.Tensor, decay: float) -> torch.Tensor:
+    """EMA of the per-code assignment fraction; ``counts`` is the batch's
+    mean one-hot (sums to 1)."""
+    return usage * decay + (1.0 - decay) * counts
+
+
+def reseed_slice(codebook: torch.Tensor, usage: torch.Tensor, z_slice: torch.Tensor, thresh: float, active: bool,
+                 *, cand_idx: torch.Tensor | None = None, generator: torch.Generator | None = None):
+    """Revive dead codes: rows whose usage EMA is below ``thresh/K`` (when
+    ``active``) become encoder outputs ``z_slice[cand_idx]`` (K indices,
+    drawn uniformly from ``generator`` unless given), and their usage is
+    reset to 1/K. Returns (new_codebook, new_usage, dead mask)."""
+    K = codebook.shape[0]
+    dead = (usage < thresh / K) & active
+    if cand_idx is None:
+        cand_idx = torch.randint(0, z_slice.shape[0], (K,), generator=generator, device=z_slice.device)
+    cand = z_slice[cand_idx.to(z_slice.device).long()].to(codebook.dtype)
+    new_cb = torch.where(dead[:, None], cand, codebook)
+    new_usage = torch.where(dead, torch.full_like(usage, 1.0 / K), usage)
+    return new_cb, new_usage, dead
+
+
 class Gumbel(nn.Module):
     """Per slice a logits head ``heads.{i}`` (D/slices -> k) and a code table
     ``codes.{i}`` (k, D/slices), N(0, 0.01²)."""
@@ -133,7 +245,8 @@ def gumbel_apply(p: Gumbel, z: torch.Tensor, *, tau: float = 0.1, hard: bool = F
             if uniforms is not None:
                 u = uniforms[i]
             else:
-                u = torch.rand(logits.shape, generator=generator, device=logits.device) * (1.0 - 1e-10) + 1e-10
+                u = global_draw(lambda n, _s=logits.shape[1:]: torch.rand(
+                    (n, *_s), generator=generator, device=logits.device), B) * (1.0 - 1e-10) + 1e-10
             w = torch.softmax((logits - torch.log(-torch.log(u))) / tau, dim=-1)
         else:
             w = F.one_hot(logits.argmax(-1), logits.shape[-1]).to(logits.dtype)
@@ -160,3 +273,46 @@ def adain(content: torch.Tensor, style: torch.Tensor, eps: float = 1e-5) -> torc
     s_mean = style.mean(1, keepdim=True)
     s_std = torch.sqrt(style.var(1, keepdim=True, correction=0) + eps)
     return instance_norm(content, eps) * s_std + s_mean
+
+
+def global_draw(fn, B: int):
+    """Noise for a rank's B rows: ``fn(rows)`` draws it for the global
+    batch's rows (B times the ranks inside ``synced()``, else B) and this
+    rank's slice is returned, so every rank's rows get the draw one process
+    would give them."""
+    ranks, r = dist.global_rows()
+    return fn(B * ranks)[r * B : (r + 1) * B]
+
+
+def time_jitter(z: torch.Tensor, prob: float = 0.12, per_side: bool = True, *,
+                u: torch.Tensor | None = None, generator: torch.Generator | None = None) -> torch.Tensor:
+    """Chorowski time jitter, from uniforms ``u`` (B, T') (drawn from
+    ``generator`` unless given). per_side=True: each frame is replaced by
+    its left / right neighbour with probability ``prob`` each; False: with
+    total probability ``prob``, direction uniform."""
+    B, T, D = z.shape
+    if u is None:
+        u = global_draw(lambda n: torch.rand(n, T, generator=generator, device=z.device), B)
+    u = u.to(z.device)
+    p = prob if per_side else prob / 2.0
+    zero = torch.zeros_like(u, dtype=torch.long)
+    shift = torch.where(u < p, zero - 1, torch.where(u > 1.0 - p, zero + 1, zero))
+    idx = (torch.arange(T, device=z.device)[None, :] + shift).clamp(0, T - 1)
+    return torch.gather(z, 1, idx[:, :, None].expand(B, T, D))
+
+
+def vq_dropout(z: torch.Tensor, drop_dim: int, *, start: torch.Tensor | None = None,
+               generator: torch.Generator | None = None) -> torch.Tensor:
+    """VQ-dropout: zero ``drop_dim`` contiguous latent channels from
+    ``start`` (B, 1) per utterance (uniform in [0, D - drop_dim] from
+    ``generator`` unless given) and rescale the rest by D / (D - drop_dim)."""
+    B, T, D = z.shape
+    if drop_dim <= 0:
+        return z
+    if start is None:
+        start = global_draw(
+            lambda n: torch.randint(0, D - drop_dim + 1, (n, 1), generator=generator, device=z.device), B)
+    start = start.to(z.device)
+    ch = torch.arange(D, device=z.device)[None, :]
+    keep = ~((ch >= start) & (ch < start + drop_dim))
+    return z * keep[:, None, :] * (D / float(D - drop_dim))

@@ -195,14 +195,18 @@ class WaveNet(nn.Module):
         return c
 
     def apply(self, x, c=None, g=None, *, softmax: bool = False, upsampled: bool = False,
-              train: bool = False, dtype=None):
+              train: bool = False, dtype=None, generator: torch.Generator | None = None,
+              dropout_masks=None):
         """Teacher-forced forward.
 
         x: (B, T, in_channels) one-hot or (B, T, 1) scalar input, or (B, T)
            integer codes (the first 1x1 then is a row gather of its weight).
         c: (B, T', cin) conditioning at frame rate (upsampled here unless
            ``upsampled``). g: (B,) int speaker ids or (B, gin) features.
-        train: training mode (dropout, which is not ported, raises).
+        train: training mode: with ``dropout`` > 0, one keep mask per layer
+           on the layer's input, ``dropout_masks[i]`` when given, else drawn
+           from ``generator``. A net with dropout never takes the fused
+           stack (as in the JAX package), in training or not.
         dtype: compute dtype of the convs (None = f32 throughout).
         Returns logits/params (B, T, out_channels).
         """
@@ -220,7 +224,8 @@ class WaveNet(nn.Module):
             for i, lp in enumerate(self.layers):
                 h, s = residual_glu_apply(
                     lp, h, c, g_feat, dilation=self.dilation(i),
-                    dropout=self.dropout if train else 0.0, dtype=dtype,
+                    dropout=self.dropout if train else 0.0, generator=generator,
+                    mask=None if dropout_masks is None else dropout_masks[i], dtype=dtype,
                 )
                 skips = skips + s
         skips = skips * math.sqrt(1.0 / self.n_layers)

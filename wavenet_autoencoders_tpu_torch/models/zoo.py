@@ -82,6 +82,15 @@ def _build(cfg: Config, gen: torch.Generator):
             ins_norm=cfg.ins_norm,
             post_conv=cfg.post_conv,
             adain=cfg.adain,
+            use_time_jitter=cfg.time_jitter,
+            time_jitter_prob=cfg.time_jitter_prob,
+            time_jitter_per_side=cfg.time_jitter_per_side,
+            vq_drop=cfg.vq_drop,
+            drop_dim=cfg.drop_dim,
+            reseed=cfg.vq_reseed,
+            reseed_thresh=cfg.vq_reseed_thresh,
+            reseed_decay=cfg.vq_reseed_decay,
+            reseed_start=cfg.vq_reseed_start,
         )
     if name in ("inae", "inae1"):
         return INWAE(build_wavenet(cfg, generator=gen), **ae, adain=cfg.adain, per_block_in=(name == "inae1"))

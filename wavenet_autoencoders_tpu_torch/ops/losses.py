@@ -3,7 +3,9 @@
 the MoL/MoG NLLs of the scalar-input path.
 
 Logits/parameters are channels-last (B, T, C); the reduction is the
-mask-weighted mean ``sum(loss * mask) / max(sum(mask), 1)``.
+mask-weighted mean ``sum(loss * mask) / max(sum(mask), 1)``, or
+``sum(loss * mask) / denom`` when the caller gives the denominator (a
+data-parallel rank divides its numerator by the global batch's).
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ def sequence_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     return (pos < lengths[:, None]).float()
 
 
-def masked_cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def masked_cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
+                         denom: torch.Tensor | None = None) -> torch.Tensor:
     """Softmax CE; logits (B, T, Q), integer targets (B, T) or (B, T, 1),
     mask (B, T) or (B, T, 1)."""
     if targets.ndim == 3:
@@ -27,24 +30,25 @@ def masked_cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask: torc
         mask = mask[..., 0]
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
-    denom = mask.sum().clamp_min(1.0)
+    if denom is None:
+        denom = mask.sum().clamp_min(1.0)
     return (nll * mask).sum() / denom
 
 
-def _masked_mean(losses: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _masked_mean(losses: torch.Tensor, mask: torch.Tensor, denom: torch.Tensor | None = None) -> torch.Tensor:
     if mask.ndim == 2:
         mask = mask[..., None]
-    return (losses * mask).sum() / mask.sum().clamp_min(1.0)
+    return (losses * mask).sum() / (mask.sum().clamp_min(1.0) if denom is None else denom)
 
 
-def masked_mol_loss(y_hat, y, mask, num_classes: int, log_scale_min: float) -> torch.Tensor:
+def masked_mol_loss(y_hat, y, mask, num_classes: int, log_scale_min: float, denom=None) -> torch.Tensor:
     """Masked discretized-MoL NLL; y_hat (B, T, 3M), y (B, T, 1)."""
     losses = discretized_mix_logistic_loss(
         y_hat, y, num_classes=num_classes, log_scale_min=log_scale_min, reduce=False
     )
-    return _masked_mean(losses, mask)
+    return _masked_mean(losses, mask, denom)
 
 
-def masked_mog_loss(y_hat, y, mask, log_scale_min: float) -> torch.Tensor:
+def masked_mog_loss(y_hat, y, mask, log_scale_min: float, denom=None) -> torch.Tensor:
     """Masked MoG NLL; y_hat (B, T, C), y (B, T, 1)."""
-    return _masked_mean(mix_gaussian_loss(y_hat, y, log_scale_min=log_scale_min, reduce=False), mask)
+    return _masked_mean(mix_gaussian_loss(y_hat, y, log_scale_min=log_scale_min, reduce=False), mask, denom)

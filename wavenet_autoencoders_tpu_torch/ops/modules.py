@@ -74,17 +74,25 @@ def residual_glu_apply(
     *,
     dilation: int = 1,
     dropout: float = 0.0,
+    generator: torch.Generator | None = None,
+    mask: torch.Tensor | None = None,
     dtype=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, T, residual); c: (B, T, cin) or None; g: (B, gin) or
     (B, T, gin). Returns (residual_out, skip) with the sqrt(0.5) residual
     scaling. ``dtype`` is the compute dtype of the convs; ``dropout`` is the
-    training-time rate (the caller passes 0 outside training)."""
+    training-time rate (the caller passes 0 outside training): the conv's
+    input is x times a Bernoulli(1 - dropout) keep mask over 1 - dropout,
+    the residual stays x. The mask is ``mask`` when given, else drawn from
+    ``generator`` (uniform < 1 - dropout, the JAX draw)."""
+    residual = x
     if dropout > 0.0:
-        raise NotImplementedError(
-            "dropout in the residual GLU block is not ported yet: see ROADMAP.md, "
-            "queue 1 (dropout)"
-        )
+        keep = 1.0 - dropout
+        if mask is None:
+            if generator is None:
+                raise ValueError("dropout needs a mask or a torch.Generator to draw it from")
+            mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        x = x * mask.to(x.dtype) / keep
     h = causal_conv1d_apply(p.conv, x, dilation=dilation, dtype=dtype)
     c_add = conv1d_apply(p.cproj, c, dtype=dtype) if c is not None else None
     g_add = None
@@ -94,7 +102,7 @@ def residual_glu_apply(
         g_add = conv1d_apply(p.gproj, g, dtype=dtype)
     gated = _gate(h, c_add, g_add)
     s = conv1d_apply(p.skip, gated, dtype=dtype)
-    out = (conv1d_apply(p.out, gated, dtype=dtype) + x) * math.sqrt(0.5)
+    out = (conv1d_apply(p.out, gated, dtype=dtype) + residual) * math.sqrt(0.5)
     return out, s
 
 

@@ -3,9 +3,9 @@
 resumes from the other's checkpoints:
 
 - one ``checkpoint_step{N:09d}.npz`` with every leaf under its tree path:
-  ``params/...``, ``opt_state/...`` (unless ``save_optimizer_state`` is off)
-  and ``step``; the model has no ``model_state/...`` leaves (no EMA
-  codebooks);
+  ``params/...``, ``model_state/...`` (the model's buffers: EMA codebooks,
+  their statistics, code usage), ``opt_state/...`` (unless
+  ``save_optimizer_state`` is off) and ``step``;
 - the ``_ema`` sibling, the same payload with ``params`` replaced by the
   parameter-EMA shadow;
 - rolling ``checkpoint_latest.npz`` / ``checkpoint_latest_ema.npz`` copies;
@@ -27,8 +27,10 @@ import torch
 
 from wavenet_autoencoders_tpu_torch.utils.params import (
     flatten_opt_state,
+    flatten_state,
     flatten_tensors,
     load_flat_params,
+    load_flat_state,
     unflatten_opt_state,
     unflatten_tensors,
 )
@@ -50,6 +52,7 @@ def save_npz(flat: dict, path: str | Path) -> None:
 def snapshot(state, save_optimizer_state: bool = True) -> tuple[dict, dict | None]:
     """Host copies of a TrainState's checkpoint payloads: (main, ema or None)."""
     main = flatten_tensors(state.params(), "params/")
+    main.update(flatten_tensors(flatten_state(state.model), "model_state/"))
     main["step"] = np.int64(state.step)
     if save_optimizer_state:
         main.update(flatten_opt_state(state.mu, state.nu, state.count, state.lr))
@@ -101,12 +104,13 @@ class AsyncCheckpointer:
 
 
 def load_checkpoint(state, path: str | Path, reset_optimizer: bool = False):
-    """Exact resume, in place: weights, step, the optimizer state (unless
-    ``reset_optimizer`` or the file has none) and the EMA shadow from the
-    ``_ema`` sibling (a copy of the weights when there is none). Returns
-    ``state``."""
+    """Exact resume, in place: weights, model state, step, the optimizer
+    state (unless ``reset_optimizer`` or the file has none) and the EMA
+    shadow from the ``_ema`` sibling (a copy of the weights when there is
+    none). Returns ``state``."""
     z = np.load(Path(path))
     load_flat_params(state.model, z, prefix="params/")
+    load_flat_state(state.model, z)
     params = state.params()
     if "step" in z.files:
         state.step = int(z["step"])

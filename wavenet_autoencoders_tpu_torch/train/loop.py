@@ -20,8 +20,18 @@ with code 3; and the hooks:
 The sample dump and the decode hooks use the EMA shadow once it is warm
 (``_hook_params``); an exception in one is printed as ``<hook> skipped:
 ...`` and training goes on. The resolved config is frozen into the
-checkpoint dir. Multi-process training is not ported yet (ROADMAP.md,
-queue 1).
+checkpoint dir.
+
+Data parallel: under a process group (``parallel.distributed``, joined by
+the CLI) every rank runs this function on its device and its slice of the
+global batch; rank 0's initial (or resumed) state is broadcast to all. The
+step and the dev pass reduce over the ranks, so the metrics are the global
+batch's (``samples_per_sec`` too). Only rank 0 writes the config, the logs,
+the checkpoints, the sample dumps and runs the decode hooks, from its own
+rows and replica, with no collective. A SIGTERM on any rank stops every
+rank after the same step (a flag all-reduced each step); the collapse
+monitor decides from the global metrics, so every rank stops at the same
+step there too.
 """
 from __future__ import annotations
 
@@ -36,6 +46,8 @@ import torch
 from wavenet_autoencoders_tpu_torch.config import Config
 from wavenet_autoencoders_tpu_torch.data.dataset import WaveDataset, data_iterator
 from wavenet_autoencoders_tpu_torch.models.zoo import build_model
+from wavenet_autoencoders_tpu_torch.parallel import distributed as dist
+from wavenet_autoencoders_tpu_torch.parallel.mesh import check_mesh
 from wavenet_autoencoders_tpu_torch.train.checkpoint import (
     AsyncCheckpointer,
     freeze_config,
@@ -52,6 +64,7 @@ from wavenet_autoencoders_tpu_torch.train.step import (
     make_train_step,
 )
 from wavenet_autoencoders_tpu_torch.utils.device import resolve_device
+from wavenet_autoencoders_tpu_torch.utils.params import flatten_state
 
 
 class CollapseAbort(SystemExit):
@@ -89,33 +102,48 @@ def train(
     dev_dump_root: str | None = None,
     device: str | torch.device = "cuda",
 ):
-    """Run training on ``device`` (default cuda; raises without it); returns
-    the final TrainState."""
-    dev = resolve_device(device)
+    """Run training on ``device`` (default cuda; raises without it; a rank
+    of a process group takes ``cuda:(rank % device_count)``); returns the
+    final TrainState."""
+    dev = dist.local_device(resolve_device(device))
+    world, main = dist.world_size(), dist.is_main_process()
     ckpt_dir = Path(checkpoint_dir)
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
-    freeze_config(cfg, ckpt_dir)
-    writer = MetricsWriter(ckpt_dir / "logs")
+    if main:
+        ckpt_dir.mkdir(parents=True, exist_ok=True)
+        freeze_config(cfg, ckpt_dir)
+    writer = MetricsWriter(ckpt_dir / "logs") if main else None
 
     model = build_model(cfg, device=dev).train()
     state = init_state(cfg, model)
     if resume:
         load_checkpoint(state, resume, reset_optimizer=reset_optimizer)
-        print(f"resumed from {resume} at step {state.step}")
+        if main:
+            print(f"resumed from {resume} at step {state.step}")
     elif restore_parts_from:
         restore_parts(model, restore_parts_from)
 
-    step_fn = make_train_step(cfg, model)
-    eval_fn = make_eval_step(cfg, model)
-    fwd_fn = make_sample_forward(cfg, model)
     train_ds = WaveDataset(dump_root, cfg, feat_type=feat_type)
     dev_ds = None
     if dev_dump_root is not None and Path(dev_dump_root, "train.txt").exists():
         dev_ds = WaveDataset(dev_dump_root, cfg, feat_type=feat_type)
+    check_mesh(cfg, world, ("batch_size", "dev_batch_size") if dev_ds is not None else ("batch_size",))
+    # under a process group every replica starts from rank 0's state
+    dist.broadcast_from_main(list(state.params().values()) + list(flatten_state(model).values())
+                             + list(state.mu.values()) + list(state.nu.values())
+                             + (list(state.ema.values()) if state.ema is not None else []))
+    host_slice = None
+    if world > 1:
+        host_slice = dist.host_local_batch_slice(cfg.batch_size)
+        if main:
+            print(f"data parallel: {world} processes, {host_slice[1]} of {cfg.batch_size} rows each", flush=True)
+
+    step_fn = make_train_step(cfg, model)
+    eval_fn = make_eval_step(cfg, model)
+    fwd_fn = make_sample_forward(cfg, model)
     limit = max_steps if max_steps is not None else cfg.max_train_steps
     # the sampler drops the ragged tail, so one epoch is len(ds) // batch_size steps
     steps_per_epoch = max(1, len(train_ds) // cfg.batch_size)
-    it = data_iterator(train_ds, cfg, transform=lambda b: batch_to_device(b, dev))
+    it = data_iterator(train_ds, cfg, host_slice=host_slice, transform=lambda b: batch_to_device(b, dev))
     step = state.step
     t0, last_log_step = time.time(), step
     metrics = None
@@ -125,9 +153,16 @@ def train(
     ckpt = AsyncCheckpointer()
 
     # SIGTERM == "checkpoint and exit cleanly" (SIGINT alone is not enough:
-    # shells start background children with SIGINT ignored)
+    # shells start background children with SIGINT ignored). Under a process
+    # group the handler only raises a flag; after each step the ranks agree
+    # on it, so every rank stops after the same step and none waits in a
+    # collective alone.
+    stop = []
+
     def _on_sigterm(signum, frame):
-        raise KeyboardInterrupt
+        if world == 1:
+            raise KeyboardInterrupt
+        stop.append(signum)
 
     old_term = None
     try:
@@ -139,26 +174,31 @@ def train(
             if step >= limit:
                 break
             # profiling hook: trace steps 10..15
-            if cfg.profile_dir and step == 10 and profiler is None:
+            if main and cfg.profile_dir and step == 10 and profiler is None:
                 profiler = _start_profiler(dev)
             if profiler is not None and step >= 15:
                 _stop_profiler(profiler, cfg.profile_dir)
                 profiler = None
-            samples_per_batch = batch["x"].shape[0] * batch["x"].shape[1]
+            samples_per_batch = batch["x"].shape[0] * batch["x"].shape[1] * world
             state, metrics = step_fn(state, batch)
             step += 1
+            if dist.any_rank(bool(stop)):
+                print(f"interrupted at step {step} — saving checkpoint before exit", flush=True)
+                break
 
             if step % log_every == 0 or step == 1:
                 m = {k: float(v) for k, v in metrics.items()}  # waits for the device
                 dt = time.time() - t0
                 sps = samples_per_batch * (step - last_log_step) / max(dt, 1e-9)
                 m["samples_per_sec"] = sps
-                writer.scalars(step, "train_no_dev", m)
-                print(
-                    f"step {step} loss {m['loss']:.4f} aux {m['aux_loss']:.4f} "
-                    f"perp {m['perplexity']:.1f} lr {m['lr']:.2e} {sps:,.0f} samp/s",
-                    flush=True,
-                )
+                if main:
+                    writer.scalars(step, "train_no_dev", m)
+                    reseed = f" reseed {m['reseeded']:.0f}" if m["reseeded"] else ""
+                    print(
+                        f"step {step} loss {m['loss']:.4f} aux {m['aux_loss']:.4f} "
+                        f"perp {m['perplexity']:.1f}{reseed} lr {m['lr']:.2e} {sps:,.0f} samp/s",
+                        flush=True,
+                    )
                 t0, last_log_step = time.time(), step
                 perp_ema = m["perplexity"] if perp_ema is None else 0.9 * perp_ema + 0.1 * m["perplexity"]
                 if (
@@ -172,9 +212,10 @@ def train(
                         "bottleneck collapsed; aborting (exit 3)"
                     )
                     print(msg, flush=True)
-                    ckpt.wait()
-                    save_checkpoint(state, ckpt_dir, save_optimizer_state=cfg.save_optimizer_state)
-                    writer.close()
+                    if main:
+                        ckpt.wait()
+                        save_checkpoint(state, ckpt_dir, save_optimizer_state=cfg.save_optimizer_state)
+                        writer.close()
                     raise CollapseAbort(msg)
 
             # per-epoch running averages, summed on the device
@@ -182,25 +223,27 @@ def train(
             epoch_acc = m_ep if epoch_acc is None else {k: epoch_acc[k] + m_ep[k] for k in m_ep}
             epoch_n += 1
 
-            if step % cfg.checkpoint_interval == 0:
+            if main and step % cfg.checkpoint_interval == 0:
                 ckpt.save(state, ckpt_dir, save_optimizer_state=cfg.save_optimizer_state)
                 _try_save_states(cfg, fwd_fn, state, step, batch, ckpt_dir)
 
-            if step % cfg.train_eval_interval == 0:
+            if main and step % cfg.train_eval_interval == 0:
                 _try_eval_model(cfg, state, step, batch, ckpt_dir)
 
             if step % steps_per_epoch == 0:
                 epoch = step // steps_per_epoch
-                avg_ep = {k: float(v) / epoch_n for k, v in epoch_acc.items()}
-                writer.scalars(epoch, "train_no_dev_epoch", avg_ep)
-                print(f"Step {step} [train_no_dev] epoch {epoch} loss {avg_ep['loss']:.4f}", flush=True)
+                if main:
+                    avg_ep = {k: float(v) / epoch_n for k, v in epoch_acc.items()}
+                    writer.scalars(epoch, "train_no_dev_epoch", avg_ep)
+                    print(f"Step {step} [train_no_dev] epoch {epoch} loss {avg_ep['loss']:.4f}", flush=True)
                 epoch_acc, epoch_n = None, 0
                 if dev_ds is not None and epoch % max(1, cfg.dev_epoch_interval) == 0:
                     _run_dev(cfg, eval_fn, state, dev_ds, writer, step, epoch, dev, ckpt_dir,
-                             do_ar_eval=epoch % cfg.test_eval_epoch_interval == 0)
+                             do_ar_eval=main and epoch % cfg.test_eval_epoch_interval == 0)
                 t0, last_log_step = time.time(), step  # dev time left out
                 if epoch >= cfg.nepochs:
-                    print(f"stopping: reached nepochs={cfg.nepochs}")
+                    if main:
+                        print(f"stopping: reached nepochs={cfg.nepochs}")
                     break
     except KeyboardInterrupt:
         print("interrupted — saving checkpoint before exit", flush=True)
@@ -209,11 +252,12 @@ def train(
             signal.signal(signal.SIGTERM, old_term)
         if profiler is not None:
             _stop_profiler(profiler, cfg.profile_dir)
-    if metrics is not None:
-        writer.scalars(state.step, "train_no_dev", {k: float(v) for k, v in metrics.items()})
-    ckpt.wait()
-    save_checkpoint(state, ckpt_dir, save_optimizer_state=cfg.save_optimizer_state)
-    writer.close()
+    if main:
+        if metrics is not None:
+            writer.scalars(state.step, "train_no_dev", {k: float(v) for k, v in metrics.items()})
+        ckpt.wait()
+        save_checkpoint(state, ckpt_dir, save_optimizer_state=cfg.save_optimizer_state)
+        writer.close()
     return state
 
 
@@ -293,11 +337,14 @@ def _try_eval_model(cfg: Config, state, step: int, batch: dict, ckpt_dir, phase:
 
 def _run_dev(cfg: Config, eval_fn, state, dev_ds, writer, step: int, epoch: int, dev: torch.device,
              ckpt_dir, do_ar_eval: bool = False) -> None:
-    """One pass over the dev dump at ``dev_batch_size``: averaged scalars
-    under ``dev`` (by step) and ``dev_epoch`` (by epoch); with
-    ``do_ar_eval``, an AR decode of the first dev batch."""
+    """One pass over the dev dump at ``dev_batch_size`` (each rank its
+    slice; the metrics are the global batch's): averaged scalars under
+    ``dev`` (by step) and ``dev_epoch`` (by epoch), written when ``writer``
+    is given (rank 0); with ``do_ar_eval``, an AR decode of the first dev
+    batch's rows of this rank."""
     t0 = time.perf_counter()
-    it = data_iterator(dev_ds, cfg, batch_size=cfg.dev_batch_size, prefetch=0, epochs=1,
+    host_slice = dist.host_local_batch_slice(cfg.dev_batch_size) if dist.world_size() > 1 else None
+    it = data_iterator(dev_ds, cfg, batch_size=cfg.dev_batch_size, prefetch=0, epochs=1, host_slice=host_slice,
                        transform=lambda b: batch_to_device(b, dev))
     acc, n, first = None, 0, None
     for batch in it:
@@ -306,7 +353,7 @@ def _run_dev(cfg: Config, eval_fn, state, dev_ds, writer, step: int, epoch: int,
         m = {k: float(v) for k, v in eval_fn(state, batch).items()}
         acc = m if acc is None else {k: acc[k] + m[k] for k in m}
         n += 1
-    if n:
+    if n and writer is not None:
         avg = {k: v / n for k, v in acc.items()}
         writer.scalars(step, "dev", avg)
         writer.scalars(epoch, "dev_epoch", avg)

@@ -1,17 +1,31 @@
 """The train step, the dev-pass eval step and the sample-dump forward
 (counterpart of ``wavenet_autoencoders_tpu/train/step.py``).
 
-One train-step call does what the JAX package's jitted step does: LR-schedule lookup,
-forward, masked one-step-ahead loss (mu-law CE, or the MoL / MoG NLL of
-scalar input; the feature AEs' MSE on the features) plus the bottleneck's
-aux loss (ramped in over ``vq_warmup_steps``), backward, global-norm
-clipping, the Adam update as optax computes it, and the parameter-EMA
-update. The model's parameters are
-the live weights and are updated in place; the optimizer moments and the
-EMA shadow are dicts keyed by the parameters' JAX tree paths, which is also
-how checkpoints store them (``train/checkpoint.py``). Stochastic
-bottlenecks (Gumbel) draw their noise from a device generator seeded from
-``cfg.seed`` and the step.
+One train-step call does what the JAX package's jitted step does, in its
+order: LR-schedule lookup, the commitment ramp and the time-jitter gate,
+forward (EMA codebooks updated in place), masked one-step-ahead loss (mu-law
+CE, or the MoL / MoG NLL of scalar input; the feature AEs' MSE on the
+features) plus the bottleneck's aux loss (ramped in over
+``vq_warmup_steps``), backward, global-norm clipping, the Adam update as
+optax computes it, dead-code revival, and the parameter-EMA update. The
+model's parameters are the live weights and are updated in place; the
+optimizer moments and the EMA shadow are dicts keyed by the parameters' JAX
+tree paths, which is also how checkpoints store them
+(``train/checkpoint.py``).
+
+Training noise comes from device generators seeded from ``cfg.seed`` and
+the step: one stream for the bottleneck (Gumbel, VQ-dropout, time jitter;
+the same on every rank), one for the reseed candidates, and one per rank for
+the decoder's dropout masks.
+
+Data parallel (``parallel.distributed``): each rank passes its slice of
+the global batch, and the step runs under ``synced()``, so it takes the
+step one process takes on the whole batch. Each rank's loss is its share
+of the global loss (masked sums over the global batch's mask count, means
+over the ranks), the gradients are summed over the ranks before the norm
+and the clip, and the bottleneck reduces its statistics (EMA counts and
+sums, code fractions, reseed candidates) and slices its noise from the
+global draw.
 """
 from __future__ import annotations
 
@@ -22,13 +36,15 @@ from torch import nn
 
 from wavenet_autoencoders_tpu_torch.config import Config
 from wavenet_autoencoders_tpu_torch.models.mfcc_ae import CatMfccAE, MfccAE
-from wavenet_autoencoders_tpu_torch.models.wae import CatWAE
+from wavenet_autoencoders_tpu_torch.models.wae import VQWAE, CatWAE
 from wavenet_autoencoders_tpu_torch.ops.losses import (
     masked_cross_entropy,
     masked_mog_loss,
     masked_mol_loss,
     sequence_mask,
 )
+from wavenet_autoencoders_tpu_torch.parallel import distributed as dist
+from wavenet_autoencoders_tpu_torch.parallel.mesh import check_mesh
 from wavenet_autoencoders_tpu_torch.train.schedule import get_schedule
 from wavenet_autoencoders_tpu_torch.utils.params import flatten_params
 
@@ -76,51 +92,52 @@ def prep_x(cfg: Config, x: torch.Tensor) -> torch.Tensor:
     return x[..., None].float()
 
 
-def recon_loss(cfg: Config, y_hat, y, mask):
+def recon_loss(cfg: Config, y_hat, y, mask, denom=None):
     """One-step-ahead objective: predict y[t+1] from y_hat[t], masked by the
-    shifted lengths."""
+    shifted lengths (over ``denom`` mask elements when given)."""
     y_hat, y, mask = y_hat[:, :-1], y[:, 1:], mask[:, 1:]
     if cfg.is_mulaw_quantize:
-        return masked_cross_entropy(y_hat, y, mask)
+        return masked_cross_entropy(y_hat, y, mask, denom)
     if cfg.output_distribution == "Logistic":
-        return masked_mol_loss(y_hat, y, mask, cfg.quantize_channels, cfg.log_scale_min)
+        return masked_mol_loss(y_hat, y, mask, cfg.quantize_channels, cfg.log_scale_min, denom)
     if cfg.output_distribution == "Normal":
-        return masked_mog_loss(y_hat, y, mask, cfg.log_scale_min)
+        return masked_mog_loss(y_hat, y, mask, cfg.log_scale_min, denom)
     raise ValueError(cfg.output_distribution)
 
 
-def check_ported(cfg: Config) -> None:
-    """Raise ``NotImplementedError``, naming its ROADMAP item, for a training
-    option of ``cfg`` that the port does not carry yet, instead of training
-    something else. (EMA codebooks fail in the model's constructor
-    already.)"""
-    vq_item = "EMA codebooks, reseed, time jitter and VQ-dropout"
-    for on, what, item in (
-        (cfg.time_jitter, "time jitter", vq_item),
-        (cfg.vq_drop and cfg.drop_dim > 0, "VQ-dropout", vq_item),
-        (cfg.vq_reseed, "dead-code reseed", vq_item),
-        (cfg.dropout > 0.0, "dropout in the residual GLU block", "dropout"),
-    ):
-        if on:
-            raise NotImplementedError(f"{what} is not ported yet: see ROADMAP.md, queue 1 ({item})")
-
-
 def objective(cfg: Config, model: nn.Module, y_hat, batch: dict, T: int):
-    """The reconstruction loss of a forward's output: the one-step-ahead
-    waveform loss, or for the MFCC-only AEs the MSE on the features."""
+    """This rank's share of the reconstruction loss of a forward's output:
+    the one-step-ahead waveform loss (the masked sum over the global batch's
+    mask count), or for the MFCC-only AEs the MSE on the features (over the
+    ranks). Summed over the ranks it is the global batch's loss; on one
+    process it is the loss."""
+    ranks, _ = dist.global_rows()
     if isinstance(model, MfccAE):
-        return (y_hat.float() - batch["c"]).square().mean()
+        return (y_hat.float() - batch["c"]).square().mean() / ranks
     mask = sequence_mask(batch["lengths"], T)[..., None]
-    return recon_loss(cfg, y_hat.float(), batch["y"], mask)
+    denom = dist.all_sum(mask[:, 1:].sum()).clamp_min(1.0) if dist.is_synced() else None
+    return recon_loss(cfg, y_hat.float(), batch["y"], mask, denom)
+
+
+def _seeded(gen: torch.Generator, cfg: Config, step: int, stream: int = 0) -> torch.Generator:
+    """``gen`` seeded for (seed, step, stream); stream 0 is the bottleneck's
+    noise, 1 the reseed candidates, 2 + rank a rank's dropout masks. A
+    resumed run repeats the streams."""
+    return gen.manual_seed(cfg.seed * 1_000_003 + step + (stream << 40))
 
 
 def make_train_step(cfg: Config, model: nn.Module):
     """``state, metrics = step_fn(state, batch)``; batch is a dict of tensors
     on the model's device: x (B, T) codes or samples, y (B, T, 1), c (B, T',
     dim_in), g (B,) when the config has global conditioning, and lengths
-    (B,). The metrics are 0-dim tensors (reading them waits for the
-    device)."""
-    check_ported(cfg)
+    (B,): the whole batch, or under a process group this rank's slice of it.
+    The metrics are 0-dim tensors (reading them waits for the device), the
+    same on every rank.
+
+    ``forward_kw`` adds keyword arguments to the model's forward (the
+    tests' injected noise: ``uniforms``, ``noise``, ``dropout_masks``);
+    ``cand_idx`` gives the reseed candidates (K indices per slice)."""
+    check_mesh(cfg, dist.world_size())
     op = cfg.optimizer_params
     if cfg.optimizer.lower() not in ("adam", "adamw"):
         raise ValueError(f"optimizer {cfg.optimizer!r} is not Adam")
@@ -131,27 +148,46 @@ def make_train_step(cfg: Config, model: nn.Module):
     warmup = int(cfg.vq_warmup_steps or 0)
     clip = float(cfg.clip_thresh or 0)
     names = list(flatten_params(model))
-    stochastic = isinstance(model, (CatWAE, CatMfccAE))  # Gumbel noise
-    gen = torch.Generator(device=next(model.parameters()).device) if stochastic else None
+    vq = model if isinstance(model, VQWAE) else None
+    reseed = vq is not None and vq.reseed
+    jitter_start = int(cfg.time_jitter_start or 0) if vq is not None and vq.use_time_jitter else 0
+    # draws of the bottleneck (Gumbel noise, VQ-dropout, time jitter)
+    noisy = isinstance(model, (CatWAE, CatMfccAE)) or (
+        vq is not None and (vq.use_time_jitter or (vq.vq_drop and vq.drop_dim > 0)))
+    dropout = cfg.dropout > 0.0 and not isinstance(model, MfccAE)
+    device = next(model.parameters()).device
+    gen = torch.Generator(device=device)
 
-    def step_fn(state: TrainState, batch: dict):
+    def step_fn(state: TrainState, batch: dict, *, forward_kw: dict | None = None, cand_idx=None):
         params = state.params()
         plist = [params[k] for k in names]
         for p in plist:
             p.grad = None
         x = prep_x(cfg, batch["x"])
         extra = {}
-        if stochastic:  # one noise stream per (seed, step), so a resumed run repeats it
-            extra["generator"] = gen.manual_seed(cfg.seed * 1_000_003 + state.step)
-        y_hat, aux, perp = model.forward(x, batch.get("c"), batch.get("g"), train=True, dtype=dtype, **extra)
-        recon = objective(cfg, model, y_hat, batch, x.shape[1])
+        if noisy:
+            extra["generator"] = _seeded(gen, cfg, state.step)
+        if jitter_start > 0:
+            # the jitter gate: no jitter before time_jitter_start
+            extra["jitter_scale"] = 1.0 if state.step >= jitter_start else 0.0
+        if dropout:
+            extra["dropout_generator"] = _seeded(torch.Generator(device=device), cfg, state.step, 2 + dist.rank())
+        extra.update(forward_kw or {})
         # commitment warm-up: the VQ aux loss is ramped in (and reported unscaled)
         ramp = min(max(state.step / warmup, 0.0), 1.0) if warmup > 0 else 1.0
-        loss = recon + ramp * aux
-        loss.backward()
+        with dist.synced():
+            ranks, _ = dist.global_rows()
+            y_hat, aux, perp = model.forward(x, batch.get("c"), batch.get("g"), train=True, dtype=dtype, **extra)
+            recon = objective(cfg, model, y_hat, batch, x.shape[1])
+            aux = torch.as_tensor(aux) / ranks
+            loss = recon + ramp * aux
+            loss.backward()
+            with torch.no_grad():
+                grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in plist]
+                dist.all_sum_(grads)
+                loss, recon, aux = (dist.all_sum(t.detach()) for t in (loss, recon, aux))
 
         with torch.no_grad():
-            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in plist]
             gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
             if clip > 0:
                 # the JAX formula, not clip_grad_norm_'s clip / (norm + 1e-6)
@@ -176,18 +212,23 @@ def make_train_step(cfg: Config, model: nn.Module):
             torch._foreach_add_(plist, upd, alpha=-lr)
             state.lr = lr
 
+            # dead-code revival after the update, from the forward's stash
+            # (the same on every rank: global codes, one candidate stream)
+            reseeded = (vq.revive(state.step, generator=_seeded(gen, cfg, state.step, 1), cand_idx=cand_idx)
+                        if reseed else torch.zeros((), device=device))
+
             if state.ema is not None:
                 # shadow -= (1 - decay) * (shadow - param)
                 torch._foreach_lerp_([state.ema[k] for k in names], plist, 1.0 - cfg.ema_decay)
         state.step += 1
         metrics = {
-            "loss": loss.detach(),
-            "recon_loss": recon.detach(),
-            "aux_loss": torch.as_tensor(aux).detach(),
+            "loss": loss,
+            "recon_loss": recon,
+            "aux_loss": aux,
             "perplexity": torch.as_tensor(perp).detach(),
             "grad_norm": gnorm,
             "lr": torch.tensor(lr),
-            "reseeded": torch.tensor(0.0),
+            "reseeded": reseeded,
         }
         return state, metrics
 
@@ -210,7 +251,7 @@ def make_eval_step(cfg: Config, model: nn.Module):
     ``wavenet_autoencoders_tpu/train/step.py:make_eval_step``).
 
     ``loss``, ``recon_loss``, ``aux_loss`` and ``perplexity`` come from the
-    live weights; with an EMA shadow, ``recon_loss_ema`` comes from the
+    live weights, over the global batch under a process group; with an EMA shadow, ``recon_loss_ema`` comes from the
     shadow, run through ``torch.func.functional_call`` (the live weights are
     not touched). The metrics are 0-dim tensors."""
     dtype = compute_dtype(cfg)
@@ -220,15 +261,17 @@ def make_eval_step(cfg: Config, model: nn.Module):
         x = prep_x(cfg, batch["x"])
         args = (x, batch.get("c"), batch.get("g"))
         kw = {"train": False, "dtype": dtype}
-        y_hat, aux, perp = model(*args, **kw)
-        recon = objective(cfg, model, y_hat, batch, x.shape[1])
-        aux = torch.as_tensor(aux)
-        out = {"loss": recon + aux, "recon_loss": recon, "aux_loss": aux, "perplexity": torch.as_tensor(perp)}
-        if state.ema is not None:
-            # the shadow's JAX tree paths back to module names (flatten_params' inverse)
-            shadow = {k.replace("/", "."): v for k, v in state.ema.items()}
-            y_hat_e, _, _ = torch.func.functional_call(model, shadow, args, kw)
-            out["recon_loss_ema"] = objective(cfg, model, y_hat_e, batch, x.shape[1])
+        with dist.synced():
+            ranks, _ = dist.global_rows()
+            y_hat, aux, perp = model(*args, **kw)
+            recon = dist.all_sum(objective(cfg, model, y_hat, batch, x.shape[1]))
+            aux = dist.all_sum(torch.as_tensor(aux) / ranks)
+            out = {"loss": recon + aux, "recon_loss": recon, "aux_loss": aux, "perplexity": torch.as_tensor(perp)}
+            if state.ema is not None:
+                # the shadow's JAX tree paths back to module names (flatten_params' inverse)
+                shadow = {k.replace("/", "."): v for k, v in state.ema.items()}
+                y_hat_e, _, _ = torch.func.functional_call(model, shadow, args, kw)
+                out["recon_loss_ema"] = dist.all_sum(objective(cfg, model, y_hat_e, batch, x.shape[1]))
         return out
 
     return eval_fn

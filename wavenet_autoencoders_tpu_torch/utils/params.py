@@ -6,6 +6,11 @@ with the same shapes, so the mapping is the identity on '/'-joined paths —
 the key format of the JAX package's npz checkpoints
 (``params/<path>``, ``train/checkpoint.py``).
 
+Model state that is not a parameter (EMA codebooks and their statistics,
+code usage) lives in buffers named after the JAX ``model_state`` paths
+(``vq.codebooks.0`` is ``model_state["vq"]["codebooks"][0]``), stored as
+``model_state/<path>``.
+
 The optimizer state and the EMA shadow are keyed the same way, under the
 paths optax gives the JAX package's ``inject_hyperparams(adam)`` state:
 ``opt_state/count``, ``opt_state/hyperparams/lr``,
@@ -24,6 +29,20 @@ from torch import nn
 def flatten_params(model: nn.Module) -> dict[str, torch.Tensor]:
     """{'/'-joined tree path: tensor} for every parameter of ``model``."""
     return {name.replace(".", "/"): p for name, p in model.named_parameters()}
+
+
+def flatten_state(model: nn.Module) -> dict[str, torch.Tensor]:
+    """{'/'-joined JAX ``model_state`` path: buffer} for every buffer of
+    ``model``."""
+    return {name.replace(".", "/"): b for name, b in model.named_buffers()}
+
+
+def load_flat_state(model: nn.Module, flat: Mapping, prefix: str = "model_state/") -> None:
+    """Copy ``flat[prefix + path]`` into every buffer of ``model``; raises on
+    a missing key or a shape mismatch."""
+    with torch.no_grad():
+        for path, b in flatten_state(model).items():
+            b.copy_(_tensor(flat, prefix + path, b))
 
 
 def _flatten_tree(tree, prefix="") -> dict:
@@ -53,10 +72,13 @@ def load_flat_params(model: nn.Module, flat: Mapping, prefix: str = "") -> None:
             p.copy_(torch.tensor(arr, dtype=p.dtype))
 
 
-def load_jax_params(model: nn.Module, tree) -> None:
+def load_jax_params(model: nn.Module, tree, state=None) -> None:
     """Fill ``model`` from a JAX params tree given as nested dicts/lists of
-    numpy arrays (``jax.tree.map(np.asarray, params)``)."""
+    numpy arrays (``jax.tree.map(np.asarray, params)``), and its buffers
+    from the JAX ``model_state`` tree when given."""
     load_flat_params(model, _flatten_tree(tree))
+    if state is not None:
+        load_flat_state(model, _flatten_tree(state), prefix="")
 
 
 def flatten_opt_state(mu: Mapping, nu: Mapping, count: int, lr: float) -> dict[str, np.ndarray]:
