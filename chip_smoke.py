@@ -105,6 +105,20 @@ Phases (each raises on failure, so the script exits non-zero):
    native loader and the Python collate path (phase 10's dump when it ran);
    and the supervisor taking a 3-step ``train`` to done after its CUDA
    probe.
+12. Tensor parallelism and reference weights, at full svqwae width. 12a:
+   two ranks of one model group (``mesh_shape`` model 2, data 1) on the
+   card (gloo on CUDA tensors; ``--tp-worker`` subprocesses), each on the
+   whole B=40 x T=5120 batch, 3 fused and 3 unfused bf16 steps against one
+   process (every loss and step 1's grad norm at phase 6's bounds; K2/K3
+   3/3 on each rank fused, 0/0 unfused); per rank ms a step, model-group
+   collectives and bytes a step, peak memory; the fused run's checkpoint
+   (the one-process npz's keys and shapes) loaded in one process, its f32
+   logits against the TP forward's; then ``train`` on the model group with
+   the checkpoint, sample-dump and decode hooks (K1 on rank 0's gathered
+   copy). 12b: a reference ``state_dict`` (the inverse mapping of seeded
+   weights) saved with ``torch.save``, imported with ``import_checkpoint``
+   on cuda (weights and logits bit for bit), then ``batch_wavegen`` at B=4
+   (K1) and ``export_representations`` from it.
 
 Prints the kernel table (K1, K2, K3; ``launches`` summed over every path
 driven, ``launches_by_path`` each path's count) as one JSON line, the
@@ -1501,11 +1515,16 @@ OPTIONS_HP = ("fused_stack=true,ema=true,vq_reseed=true,vq_reseed_start=0,vq_res
 DROPOUT_HP = "fused_stack=true,dropout=0.05"
 
 
-def dp_steps(dump: Path, host_slice, hp: str = "fused_stack=true") -> dict:
+def dp_steps(dump: Path, hp: str = "fused_stack=true", ckpt: Path | None = None) -> dict:
     """DP_STEPS svqwae train steps (``hp`` overrides; fused bf16 by default)
-    on ``host_slice`` of each of ``dump``'s batches (the whole batch when
-    None), through the native loader: per step the loss, grad norm and ms
-    (CUDA synchronized); K2/K3 launches; collectives issued."""
+    on this rank's slice of each of ``dump``'s batches (the mesh of ``hp``'s
+    ``mesh_shape`` over the process group; the whole batch without one),
+    through the native loader: per step the loss, grad norm and ms (CUDA
+    synchronized); K2/K3 launches; collectives issued, and the model
+    group's a step with their bytes; peak device memory. With ``ckpt``,
+    then a checkpoint there (every rank joins the gather, rank 0 writes)
+    and, from rank 0, ``logits.npy``: the f32 teacher-forced logits of the
+    first batch's first 4 rows."""
     import torch
 
     from wavenet_autoencoders_tpu_torch.config import load_preset
@@ -1513,8 +1532,10 @@ def dp_steps(dump: Path, host_slice, hp: str = "fused_stack=true") -> dict:
     from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
     from wavenet_autoencoders_tpu_torch.models import build_model
     from wavenet_autoencoders_tpu_torch.parallel import distributed as D
+    from wavenet_autoencoders_tpu_torch.parallel.mesh import model_axis
+    from wavenet_autoencoders_tpu_torch.train.checkpoint import save_checkpoint
     from wavenet_autoencoders_tpu_torch.train.loop import batch_to_device
-    from wavenet_autoencoders_tpu_torch.train.step import init_state, make_train_step
+    from wavenet_autoencoders_tpu_torch.train.step import init_state, make_train_step, prep_x, shard_state
     from wavenet_autoencoders_tpu_torch.utils.params import flatten_state
 
     dev = D.local_device("cuda")
@@ -1522,14 +1543,20 @@ def dp_steps(dump: Path, host_slice, hp: str = "fused_stack=true") -> dict:
     model = build_model(cfg, device=dev).train()
     state = init_state(cfg, model)
     D.broadcast_from_main(list(state.params().values()) + list(flatten_state(model).values()))
+    D.init_mesh(model_axis(cfg))
+    shard_state(cfg, state)
+    host_slice = D.host_local_batch_slice(cfg.batch_size) if D.world_size() > 1 else None
     step = make_train_step(cfg, model)
     it = data_iterator(WaveDataset(str(dump), cfg), cfg, prefetch=0, host_slice=host_slice,
                        transform=lambda b: batch_to_device(b, dev))
     K.LAUNCHES_FWD = K.LAUNCHES_BWD = 0
-    collectives = D.COLLECTIVES
+    counts = (D.COLLECTIVES, D.MODEL_COLLECTIVES, D.MODEL_BYTES)
+    torch.cuda.reset_peak_memory_stats(dev)
     rec = {"loss": [], "grad_norm": [], "ms": [], "rows": None}
+    first = None
     for _ in range(DP_STEPS):
         batch = next(it)
+        first = first or batch
         rec["rows"] = int(batch["x"].shape[0])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1539,7 +1566,17 @@ def dp_steps(dump: Path, host_slice, hp: str = "fused_stack=true") -> dict:
         rec["loss"].append(m["loss"].item())
         rec["grad_norm"].append(m["grad_norm"].item())
     rec["launches"] = [K.LAUNCHES_FWD, K.LAUNCHES_BWD]
-    rec["collectives"] = D.COLLECTIVES - collectives
+    rec["collectives"] = D.COLLECTIVES - counts[0]
+    rec["model_collectives_per_step"] = (D.MODEL_COLLECTIVES - counts[1]) / DP_STEPS
+    rec["model_bytes_per_step"] = (D.MODEL_BYTES - counts[2]) / DP_STEPS
+    rec["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    if ckpt is not None:
+        save_checkpoint(state, ckpt, write=D.rank() == 0)
+        with torch.no_grad():
+            y = model(prep_x(cfg, first["x"][:4]), first["c"][:4], first["g"][:4], train=False)[0]
+        if D.rank() == 0:
+            np.save(ckpt / "logits.npy", y.float().cpu().numpy())
+        rec["logits_launches"] = [K.LAUNCHES_FWD - rec["launches"][0], K.LAUNCHES_BWD - rec["launches"][1]]
     return rec
 
 
@@ -1555,7 +1592,7 @@ def dp_worker(init: str, rank: int, dump: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     D.initialize_distributed(init, DP_RANKS, rank, device="cuda", backend="gloo")
     try:
-        rec = {dtype: dp_steps(Path(dump), D.host_local_batch_slice(40), DP_HP[dtype]) for dtype in DP_HP}
+        rec = {dtype: dp_steps(Path(dump), DP_HP[dtype]) for dtype in DP_HP}
         rec.update(rank=rank, device=str(D.local_device("cuda")))
         print("DP_RANK " + json.dumps(rec), flush=True)
     finally:
@@ -1634,8 +1671,8 @@ def phase11(k2, k3, tmp: Path, recipe_dump: Path | None):
             raise AssertionError(f"DP rank {r} exited {p.returncode}:\n{out[-6000:]}")
     ranks = [json.loads(re.search(r"^DP_RANK (\{.*\})$", out, re.M).group(1)) for out in outs]
     dp_wall = time.perf_counter() - t0
-    refs = {dtype: dp_steps(dump, None, hp) for dtype, hp in DP_HP.items()}
-    unfused = {dtype: dp_steps(dump, None, hp.replace("fused_stack=true", "fused_stack=false"))
+    refs = {dtype: dp_steps(dump, hp) for dtype, hp in DP_HP.items()}
+    unfused = {dtype: dp_steps(dump, hp.replace("fused_stack=true", "fused_stack=false"))
                for dtype, hp in DP_HP.items()}
 
     def rel(a, b):
@@ -1760,6 +1797,203 @@ def phase11(k2, k3, tmp: Path, recipe_dump: Path | None):
     k2["phase11"] = rec
 
 
+# Phase 12a: tensor parallelism, 2 ranks of one model group on the one card
+# (gloo on CUDA tensors), B=40 x T=5120 each (the whole batch: data axis 1),
+# 3 steps fused and 3 unfused in bf16, against one process. Held to phase
+# 11's bf16 bounds: every step's loss 1e-4 and step 1's grad norm 5e-3
+# (TOL_STEP1); the logits of the TP checkpoint in one process against the
+# TP forward's, f32 (TF32 off) on 4 rows: 1e-4 abs, the f32 kernel bound
+# of phase 5 (only the summation order of the row-parallel post2 differs).
+TP_RANKS = 2
+TP_MESH = 'mesh_shape={"data": -1, "model": 2}'
+TP_HP = {"fused": "fused_stack=true", "unfused": "fused_stack=false"}
+TOL_TP_LOGITS = 1e-4
+# the loop on the model group: train() with its checkpoint, sample-dump and
+# decode hooks at step 2 (rank 0 runs them on the gathered weights)
+TP_TRAIN_HP = "fused_stack=true,checkpoint_interval=2,train_eval_interval=2," + TP_MESH
+
+
+def tp_worker(init: str, rank: int, dump: str, tmp: str) -> None:
+    """One rank of phase 12a (``--tp-worker``): joins a gloo group of
+    TP_RANKS on the card, takes the fused and the unfused TP steps (the
+    fused run's checkpoint and logits into ``tmp/tp_ckpt``), then trains 2
+    steps through ``train`` into ``tmp/tp_train``, and prints its record as
+    a line ``TP_RANK {json}``."""
+    import torch
+
+    from wavenet_autoencoders_tpu_torch.config import load_preset
+    from wavenet_autoencoders_tpu_torch.kernels import decode as K1
+    from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
+    from wavenet_autoencoders_tpu_torch.parallel import distributed as D
+    from wavenet_autoencoders_tpu_torch.train.loop import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    D.initialize_distributed(init, TP_RANKS, rank, device="cuda", backend="gloo")
+    try:
+        rec = {name: dp_steps(Path(dump), f"{hp},{TP_MESH}", ckpt=Path(tmp) / "tp_ckpt" if name == "fused" else None)
+               for name, hp in TP_HP.items()}
+        K1.LAUNCHES = K.LAUNCHES_FWD = K.LAUNCHES_BWD = 0
+        t0 = time.perf_counter()
+        train(load_preset("svqwae", TP_TRAIN_HP), dump, str(Path(tmp) / "tp_train"), max_steps=2, log_every=1,
+              device="cuda")
+        torch.cuda.synchronize()
+        rec["train"] = {"s": time.perf_counter() - t0, "launches": [K1.LAUNCHES, K.LAUNCHES_FWD, K.LAUNCHES_BWD]}
+        rec.update(rank=rank, device=str(D.local_device("cuda")))
+        print("TP_RANK " + json.dumps(rec), flush=True)
+    finally:
+        D.shutdown()
+
+
+def phase12(k1, k2, k3, tmp: Path, card: str):
+    """Tensor parallelism on the card (12a) and reference ``.pth`` weights
+    through the importer, on the card and through K1 (12b)."""
+    import torch
+
+    from wavenet_autoencoders_tpu_torch.config import load_preset
+    from wavenet_autoencoders_tpu_torch.data.dataset import WaveDataset, data_iterator
+    from wavenet_autoencoders_tpu_torch.eval.infer import export_representations
+    from wavenet_autoencoders_tpu_torch.eval.synthesize import batch_wavegen
+    from wavenet_autoencoders_tpu_torch.kernels import decode as K1
+    from wavenet_autoencoders_tpu_torch.models import build_model
+    from wavenet_autoencoders_tpu_torch.train.loop import batch_to_device
+    from wavenet_autoencoders_tpu_torch.train.step import prep_x
+    from wavenet_autoencoders_tpu_torch.utils.params import flatten_params, load_flat_params, load_flat_state, load_jax_params
+    from wavenet_autoencoders_tpu_torch.utils.torch_import import import_checkpoint, reference_state_dict
+
+    t_phase = time.perf_counter()
+    dump = tmp / "dump"
+    make_dump(dump, np.random.default_rng(12))
+    rec = {}
+
+    # 12a. 2 TP ranks on the card against 1 process
+    t0 = time.perf_counter()
+    init = f"file://{tmp / 'tp_store'}"
+    me = Path(__file__).resolve()
+    procs = [subprocess.Popen([sys.executable, str(me), "--tp-worker", init, str(r), str(dump), str(tmp)], cwd=me.parent,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(TP_RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=700)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"TP rank {r} exited {p.returncode}:\n{out[-6000:]}")
+    ranks = [json.loads(re.search(r"^TP_RANK (\{.*\})$", out, re.M).group(1)) for out in outs]
+    tp_wall = time.perf_counter() - t0
+    refs = {name: dp_steps(dump, hp, ckpt=tmp / "one_ckpt" if name == "fused" else None) for name, hp in TP_HP.items()}
+    diff = {name: {k: [abs(x - y) / abs(y) for x, y in zip(ranks[0][name][k], refs[name][k])]
+                   for k in ("loss", "grad_norm")} for name in TP_HP}
+    for name in TP_HP:
+        r0, r1, ref = ranks[0][name], ranks[1][name], refs[name]
+        log(f"phase 12a: TP {name} bf16, {TP_RANKS} ranks of one model group x B={r0['rows']} on one card (gloo), "
+            f"{card}: losses {r0['loss']}, grad norms {r0['grad_norm']}, ms/step "
+            f"{[round(v, 2) for v in r0['ms']]} (rank 1 {[round(v, 2) for v in r1['ms']]}); model-group collectives "
+            f"a step {r0['model_collectives_per_step']:.1f}, {r0['model_bytes_per_step'] / 1e9:.4f} GB a step; peak "
+            f"{r0['peak_gib']:.2f} / {r1['peak_gib']:.2f} GiB; 1 process B={ref['rows']}: losses {ref['loss']}, "
+            f"grad norms {ref['grad_norm']}, ms/step {[round(v, 2) for v in ref['ms']]}, peak {ref['peak_gib']:.2f} "
+            f"GiB; rel diff {json.dumps(diff[name])}; K2/K3 launches per rank {[r[name]['launches'] for r in ranks]}")
+    want = {"fused": [DP_STEPS, DP_STEPS], "unfused": [0, 0]}
+    for name in TP_HP:
+        for i, r in enumerate(ranks):
+            if r[name]["launches"] != want[name]:
+                raise AssertionError(f"TP {name} rank {i} launched K2/K3 {r[name]['launches']} (predicted {want[name]})")
+            if r[name]["rows"] != 40 or r[name]["loss"] != ranks[0][name]["loss"]:
+                raise AssertionError(f"TP {name} rank {i}: rows {r[name]['rows']}, losses {r[name]['loss']} vs rank 0's")
+        if refs[name]["launches"] != want[name]:
+            raise AssertionError(f"the 1-process {name} steps launched K2/K3 {refs[name]['launches']}")
+        if not max(diff[name]["loss"]) <= TOL_STEP1["loss"]:
+            raise AssertionError(f"TP {name} losses differ from 1 process: {diff[name]['loss']} > {TOL_STEP1['loss']}")
+        if not diff[name]["grad_norm"][0] <= TOL_STEP1["grad_norm"]:
+            raise AssertionError(f"TP {name} step-1 grad norm differs: {diff[name]['grad_norm'][0]}")
+    # the TP checkpoint: the 1-process npz's keys and shapes; in 1 process, the TP forward's logits
+    z_tp, z_one = (np.load(tmp / d / "checkpoint_step000000003.npz") for d in ("tp_ckpt", "one_ckpt"))
+    if sorted(z_tp.files) != sorted(z_one.files) or any(z_tp[k].shape != z_one[k].shape for k in z_tp.files):
+        raise AssertionError("the TP checkpoint's keys or shapes differ from the 1-process checkpoint's")
+    cfg = load_preset("svqwae", "fused_stack=true")
+    one = build_model(cfg, device="cuda").train()
+    load_flat_params(one, z_tp, prefix="params/")
+    load_flat_state(one, z_tp)
+    first = next(data_iterator(WaveDataset(str(dump), cfg), cfg, prefetch=0,
+                               transform=lambda b: batch_to_device(b, torch.device("cuda"))))
+    with torch.no_grad():
+        y = one(prep_x(cfg, first["x"][:4]), first["c"][:4], first["g"][:4], train=False)[0].float().cpu().numpy()
+    tp_logits = np.load(tmp / "tp_ckpt" / "logits.npy")
+    logit_err = float(np.abs(y - tp_logits).max())
+    log(f"phase 12a: TP checkpoint in 1 process: max|logits - TP logits| {logit_err:.3e} (bound {TOL_TP_LOGITS}, "
+        f"max|logits| {np.abs(y).max():.3f}); {len(z_tp.files)} leaves as the 1-process checkpoint")
+    if not logit_err <= TOL_TP_LOGITS:
+        raise AssertionError(f"TP checkpoint logits differ by {logit_err}")
+    # train() on the model group: hooks on rank 0 from the gathered weights
+    text0 = outs[0]
+    tr = [r["train"] for r in ranks]
+    log(f"phase 12a: train() on the model group, 2 steps with the hooks at step 2: {json.dumps(tr)}; "
+        f"{tp_wall:.1f} s for both ranks' processes")
+    if "mesh: {'data': 1, 'model': 2} over 2 devices" not in text0 or "skipped:" in text0:
+        raise AssertionError(f"train() on the model group:\n{text0[-4000:]}")
+    # K2: each rank's 2 steps, and rank 0's sample dump (a forward of the full copy)
+    if tr[0]["launches"][0] < 1 or tr[1]["launches"][0] != 0 or [t["launches"][1:] for t in tr] != [[3, 2], [2, 2]]:
+        raise AssertionError(f"train() on the model group launched K1/K2/K3 {[t['launches'] for t in tr]}")
+    for name in ("checkpoint_step000000002.npz", "intermediate/train_no_dev_eval/step000000002_predicted.wav"):
+        if not (tmp / "tp_train" / name).exists():
+            raise AssertionError(f"train() on the model group wrote no {name}")
+    for i, r in enumerate(ranks):
+        count_launches(k2, f"tp_step_rank{i}", r["fused"]["launches"][0])
+        count_launches(k3, f"tp_step_rank{i}", r["fused"]["launches"][1])
+        count_launches(k2, f"tp_checkpoint_logits_rank{i}", r["fused"]["logits_launches"][0])
+        count_launches(k1, f"tp_train_hooks_rank{i}", r["train"]["launches"][0])
+        count_launches(k2, f"tp_train_rank{i}", r["train"]["launches"][1])
+        count_launches(k3, f"tp_train_rank{i}", r["train"]["launches"][2])
+    count_launches(k2, "tp_reference", refs["fused"]["launches"][0] + refs["fused"]["logits_launches"][0])
+    count_launches(k3, "tp_reference", refs["fused"]["launches"][1])
+    rec["tp"] = {"ranks": ranks, "one_process": refs, "rel_diff": diff, "tol": TOL_STEP1, "logit_err": logit_err,
+                 "wall_s": tp_wall}
+
+    # 12b. a reference state_dict (of seeded svqwae weights) through the importer, on the card
+    cfg = load_preset("svqwae")
+    src = build_model(cfg, device="cuda", seed=12)
+    pth = tmp / "reference.pth"
+    torch.save({"state_dict": {k: torch.from_numpy(v) for k, v in reference_state_dict(src).items()}, "global_step": 0},
+               pth)
+    model = build_model(cfg, device="cuda", seed=13)
+    load_jax_params(model, import_checkpoint(str(pth), cfg))
+    same = all(torch.equal(p, flatten_params(src)[k]) for k, p in flatten_params(model).items())
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.integers(0, 256, (2, 5120))).cuda()
+    c = torch.from_numpy(rng.standard_normal((2, 32, 39)).astype(np.float32)).cuda()
+    g = torch.tensor([3, 70]).cuda()
+    with torch.no_grad():
+        y_src, y_imp = (m(x, c, g, train=False)[0] for m in (src, model))
+    bitwise = bool(torch.equal(y_src, y_imp))
+    K1.LAUNCHES = 0
+    t0 = time.perf_counter()
+    wav = batch_wavegen(cfg, model, rng.standard_normal((4, 40, 39)).astype(np.float32), g=np.array([0, 1, 2, 3]))
+    torch.cuda.synchronize()
+    wavegen_s, k1_launches = time.perf_counter() - t0, K1.LAUNCHES
+    test, utts, _, _, _, scp = make_test_set(tmp / "ref_test", rng, 4, 200, target=None)
+    export_representations(cfg, model, str(scp), str(tmp / "ref_abx"), lan="english")
+    abx = [np.loadtxt(tmp / "ref_abx" / "2019" / "english" / "test" / f"{u}.txt") for u in utts]
+    rec["reference_pth"] = {"params_equal": same, "logits_bitwise": bitwise, "wav_shape": list(wav.shape),
+                            "wavegen_s": wavegen_s, "k1_launches": k1_launches, "abx_shapes": [a.shape for a in abx]}
+    log(f"phase 12b: reference .pth (svqwae, {len(reference_state_dict(src))} tensors) imported on cuda: "
+        f"{json.dumps(rec['reference_pth'])}")
+    if not (same and bitwise):
+        raise AssertionError(f"the imported weights' logits differ from their source's: {rec['reference_pth']}")
+    if wav.shape != (4, 6400) or not np.isfinite(wav).all() or k1_launches < 1:
+        raise AssertionError(f"batch_wavegen from the imported weights: {rec['reference_pth']}")
+    if any(a.shape != (50, 64) or not np.isfinite(a).all() for a in abx):
+        raise AssertionError(f"ABX export from the imported weights: {rec['reference_pth']}")
+    count_launches(k1, "reference_pth_batch_wavegen", k1_launches)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 12: {rec['phase_s']:.1f} s")
+    k2["phase12"] = rec
+
+
 KERNELS = {
     "K1": ("wavenet_decode", "decode.cu", "wavenet_autoencoders_tpu/kernels/decode.py:352"),
     "K2": ("glu_stack_forward", "glu_stack.cu", "wavenet_autoencoders_tpu/kernels/glu_stack.py:157"),
@@ -1769,11 +2003,15 @@ KERNELS = {
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11")
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12")
     ap.add_argument("--dp-worker", nargs=3, metavar=("INIT", "RANK", "DUMP"), help=argparse.SUPPRESS)
+    ap.add_argument("--tp-worker", nargs=4, metavar=("INIT", "RANK", "DUMP", "TMP"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.dp_worker:
         dp_worker(args.dp_worker[0], int(args.dp_worker[1]), args.dp_worker[2])
+        return 0
+    if args.tp_worker:
+        tp_worker(args.tp_worker[0], int(args.tp_worker[1]), args.tp_worker[2], args.tp_worker[3])
         return 0
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -1843,6 +2081,9 @@ def main(argv=None) -> int:
         if 11 in phases:
             (Path(tmp) / "p11").mkdir()
             phase11(k2, k3, Path(tmp) / "p11", recipe_dump)
+    if 12 in phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            phase12(k1, k2, k3, Path(tmp), card)
 
     print(json.dumps({"kernels": list(res.values())}))
     print(card)

@@ -1,6 +1,6 @@
 """The port's multi-process data parallelism on the CPU (gloo), mirroring
 tests/test_distributed.py: the batch slice, the data-axis rule and the
-refusal of tensor parallelism; a 2-process train step against the
+refusal of uneven tensor-parallel meshes; a 2-process train step against the
 1-process step on the same global batch with EMA codebooks, reseed, time
 jitter and VQ-dropout on, and rows of other lengths on the two ranks (the
 global masked mean); the CLI ``train`` over 2 processes (only rank 0
@@ -90,13 +90,31 @@ def test_data_axis_is_the_jax_mesh_rule(batch, devices):
     assert data_axis(batch, devices) == want
 
 
-def test_non_unit_model_axis_raises_naming_its_roadmap_item():
+def test_uneven_worlds_and_gate_halves_raise():
+    """A model axis that does not divide the ranks, ranks that cannot split
+    the batch, and a sharded dimension the model axis does not divide (each
+    half of a gate leaf) raise ValueError: the port refuses the uneven
+    shards the JAX partitioner would pad."""
+    from wavenet_autoencoders_tpu_torch.models import build_model
+    from wavenet_autoencoders_tpu_torch.utils.params import flatten_params
+
     cfg = dp_config().replace(mesh_shape={"data": -1, "model": 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*the last slice.*tensor parallelism"):
+    with pytest.raises(ValueError, match="model=2 does not divide 3 processes"):
+        check_mesh(cfg, 3)
+    with pytest.raises(ValueError, match="model=2 does not divide 1 processes"):
         check_mesh(cfg, 1)
     with pytest.raises(ValueError, match="cannot split batch_size=4"):
         check_mesh(dp_config(), 3)
     check_mesh(dp_config(), 2)
+    for gate, ok in ((36, True), (18, False)):
+        shapes = {k: tuple(v.shape) for k, v in flatten_params(build_model(cfg.replace(gate_channels=gate),
+                                                                           device="cpu")).items()}
+        if ok:
+            check_mesh(cfg, 4, shapes=shapes)
+        else:
+            with pytest.raises(ValueError, match=r"layers/0/conv/g: each half of dimension 0 \(9\) does not divide by "
+                                                 r"mesh_shape model=2"):
+                check_mesh(cfg, 4, shapes=shapes)
 
 
 def test_two_process_step_equals_one_process_step(tmp_path):

@@ -105,11 +105,15 @@ def test_unknown_model_name_raises():
 
 
 @pytest.mark.parametrize("module", ["parallel/distributed.py", "parallel/mesh.py", "data/native.py",
-                                    "train/supervisor.py"])
+                                    "train/supervisor.py", "utils/torch_import.py", "utils/params.py",
+                                    "ops/conv.py", "ops/modules.py", "models/encoder.py", "models/wavenet.py",
+                                    "train/step.py", "train/checkpoint.py", "train/loop.py"])
 def test_data_parallel_loader_and_supervisor_modules_are_held_to_it(module):
-    """The modules of the data-parallel slice are among the sources checked
-    above and the modules imported; the loader's C++ source is the port's
-    own copy (the port shares no file with the JAX package)."""
+    """The modules of the data-parallel slice, the tensor-parallel slice
+    (the mesh, its collectives and the layers and training code they
+    shard) and the reference-checkpoint importer are among the sources
+    checked above and the modules imported; the loader's C++ source is the
+    port's own copy (the port shares no file with the JAX package)."""
     assert PORT / module in SOURCES
     assert not re.search(r"^\s*(import|from)\s+jax(lib)?\b", (PORT / module).read_text(), re.M)
     assert (PORT / "native" / "dataload.cpp").exists()

@@ -289,15 +289,15 @@ def test_cli_train_then_infer_on_cpu(tmp_path, capsys):
 ], ids=["time_jitter", "vq_drop", "reseed", "dropout"])
 def test_unported_training_options_raise(over):
     """The options an earlier slice refused (time jitter, VQ-dropout, reseed,
-    dropout) now train: one step gives finite metrics. What is still not
-    ported, tensor parallelism (a non-1 ``mesh_shape.model``), raises with
-    each of them, naming its ROADMAP item, instead of training something
-    else."""
+    dropout) now train: one step gives finite metrics. A model axis one
+    process cannot form (``mesh_shape.model`` 2 over 1 process) raises with
+    each of them instead of training something else (tensor parallelism
+    itself is tests/test_torch_port_tensor_parallel.py's)."""
     _, cfg = tiny_cfgs()
     cfg = cfg.replace(**over)
     model = build_model(cfg, device="cpu").train()
     _, m = make_train_step(cfg, model)(init_state(cfg, model), torch_batch(tiny_batch()))
     assert all(np.isfinite(float(v)) for v in m.values()), m
     tp = cfg.replace(mesh_shape={"data": -1, "model": 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="mesh_shape model=2 does not divide 1 processes"):
         make_train_step(tp, build_model(tp, device="cpu"))

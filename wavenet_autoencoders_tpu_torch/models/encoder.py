@@ -6,6 +6,14 @@ The content encoder is a 10-block Conv-ReLU stack with identity residuals
 a linear projection; the number of stride-2 blocks is log2(downsample).
 The speaker encoder (NewINWAE's continuous speaker code) is three conv
 blocks, a mean pool over time and a linear projection.
+
+Tensor parallel (``parallel.mesh``): the blocks the rules shard are
+column-parallel (their replicated input passes through ``copy_to_model``)
+and their channel shards are gathered before the next block, where the
+identity residual is added to the full tensor; the last block's output
+stays sharded (its residual is this rank's channels of the input) into the
+row-parallel ``lin``, whose partial products are summed over the model
+group before its replicated bias.
 """
 from __future__ import annotations
 
@@ -14,13 +22,24 @@ import torch.nn.functional as F
 from torch import nn
 
 from wavenet_autoencoders_tpu_torch.ops.conv import Conv1d, Linear, conv1d_apply, linear_apply
+from wavenet_autoencoders_tpu_torch.parallel.distributed import copy_to_model, gather_from_model, model_index
 
 
-def _block_apply(p, x, k, stride, residual, dtype=None):
+def _block_apply(p, x, k, stride, residual, dtype=None, gather=True):
     # torch-style padding k//2 both sides, strided conv, ReLU, residual
-    # AFTER the ReLU
+    # AFTER the ReLU; a column-parallel block returns the full channels
+    # when ``gather``, else this rank's (and adds its channels of x)
     pad = k // 2
-    out = F.relu(conv1d_apply(p, x, stride=stride, padding=[(pad, pad)], dtype=dtype))
+    col = getattr(p, "tp", None) == "col"
+    xin = copy_to_model(x) if col else x
+    out = F.relu(conv1d_apply(p, xin, stride=stride, padding=[(pad, pad)], dtype=dtype))
+    if col:
+        if gather:
+            out = gather_from_model(out)
+        elif residual:
+            # a slice of the replicated x: its gradient, too, sums over the ranks
+            w, m = out.shape[-1], model_index()
+            x = xin[..., m * w : (m + 1) * w]
     if residual:
         out = out + x
     return out
@@ -52,9 +71,9 @@ class Encoder(nn.Module):
         """x: (B, T, c_in) -> (B, T/downsample, c_out); ``dtype`` is the
         compute dtype of the convs and the projection. ``per_block``, when
         given, runs on every block's output (INAE1's instance norm)."""
-        h, cin = x, self.c_in
-        for p, (k, s) in zip(self.blocks, self._blocks()):
-            h = _block_apply(p, h, k, s, residual=(s == 1 and cin == self.hid), dtype=dtype)
+        h, cin, last = x, self.c_in, len(self.blocks) - 1
+        for i, (p, (k, s)) in enumerate(zip(self.blocks, self._blocks())):
+            h = _block_apply(p, h, k, s, residual=(s == 1 and cin == self.hid), dtype=dtype, gather=i < last)
             if per_block is not None:
                 h = per_block(h)
             cin = self.hid
@@ -78,7 +97,7 @@ class SpeakerEncoder(nn.Module):
         """x: (B, T, c_in) -> (B, c_out)."""
         h = x
         for i, p in enumerate(self.blocks):
-            h = _block_apply(p, h, 3, 1, residual=i > 0, dtype=dtype)
+            h = _block_apply(p, h, 3, 1, residual=i > 0, dtype=dtype, gather=i < len(self.blocks) - 1)
         return linear_apply(self.lin, h.mean(1), dtype=dtype)
 
     forward = apply

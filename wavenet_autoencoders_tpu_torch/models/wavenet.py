@@ -16,6 +16,16 @@ the JAX tree paths (``first``, ``layers.3.conv.g``, ``post1``, ``post2``,
   over ``step``), for any kernel size.
 - ``decode_kernel``: the fused decode of ``kernels/decode.py`` — the CUDA
   kernel on a CUDA device, its plain PyTorch version on the CPU.
+
+Tensor parallel (a model sharded by ``parallel.mesh.shard_module``): the
+stack runs layer by layer on this rank's gate columns
+(``residual_glu_apply``), c and g entering through one ``copy_to_model``;
+``post1`` is column-parallel and ``post2`` row-parallel, one reduce at the
+logits. The fused stack does what XLA can only do with a ``pallas_call``
+it cannot partition: every layer's sharded leaves are gathered into the
+full layout in one collective, every model rank runs ``FusedGLUStack`` on
+the whole stack, and each keeps its slice of the weight gradients (no
+collective backward: the full gradient is the same on every rank).
 """
 from __future__ import annotations
 
@@ -31,6 +41,7 @@ from wavenet_autoencoders_tpu_torch.ops.conv import (
     conv1d_apply,
     conv1d_weight,
     receptive_field_size,
+    wn_fold,
 )
 from wavenet_autoencoders_tpu_torch.ops.mixture import (
     sample_from_discretized_mix_logistic,
@@ -49,6 +60,7 @@ from wavenet_autoencoders_tpu_torch.ops.upsample import (
     conv_in_upsample_apply,
     upsample_network_apply,
 )
+from wavenet_autoencoders_tpu_torch.parallel.distributed import copy_to_model, gather_shards
 
 
 class WaveNet(nn.Module):
@@ -220,6 +232,9 @@ class WaveNet(nn.Module):
         if self.fused_stack and self.kernel_size == 3 and self.dropout == 0.0:
             skips = self._fused_stack(h, c, g_feat, dtype)
         else:
+            if getattr(self.layers[0].conv, "tp", None):
+                c = None if c is None else copy_to_model(c)
+                g_feat = None if g_feat is None else copy_to_model(g_feat)
             skips = 0.0
             for i, lp in enumerate(self.layers):
                 h, s = residual_glu_apply(
@@ -228,8 +243,10 @@ class WaveNet(nn.Module):
                     mask=None if dropout_masks is None else dropout_masks[i], dtype=dtype,
                 )
                 skips = skips + s
-        skips = skips * math.sqrt(1.0 / self.n_layers)
-        out = conv1d_apply(self.post1, F.relu(skips), dtype=dtype)
+        skips = F.relu(skips * math.sqrt(1.0 / self.n_layers))
+        if getattr(self.post1, "tp", None):
+            skips = copy_to_model(skips)
+        out = conv1d_apply(self.post1, skips, dtype=dtype)
         out = conv1d_apply(self.post2, F.relu(out), dtype=dtype)
         if softmax:
             out = torch.softmax(out, dim=-1)
@@ -247,24 +264,43 @@ class WaveNet(nn.Module):
         if dtype is not None:
             h = h.to(dtype)
             c = None if c is None else c.to(dtype)
-        lays = self.layers
-        wc = None if c is None else torch.stack([conv1d_weight(lp.cproj, dtype)[0] for lp in lays])
+        lays = self._stack_leaves()
+
+        def w(i, name):
+            leaf = lays[i][name]
+            t = wn_fold(leaf["g"], leaf["v"])
+            return t if dtype is None else t.to(dtype)
+
+        L = range(self.n_layers)
+        wc = None if c is None else torch.stack([w(i, "cproj")[0] for i in L])
         g_adds = None
-        if g_feat is not None and lays[0].gproj is not None:
-            g_adds = torch.stack(
-                [g_feat @ conv1d_weight(lp.gproj, dtype)[0].float() for lp in lays], dim=1
-            )
+        if g_feat is not None and "gproj" in lays[0]:
+            g_adds = torch.stack([g_feat @ w(i, "gproj")[0].float() for i in L], dim=1)
         return FusedGLUStack.apply(
             h, c, g_adds,
-            torch.stack([conv1d_weight(lp.conv, dtype) for lp in lays]),
-            torch.stack([lp.conv.b for lp in lays]),
+            torch.stack([w(i, "conv") for i in L]),
+            torch.stack([lays[i]["conv"]["b"] for i in L]),
             wc,
-            torch.stack([conv1d_weight(lp.out, dtype)[0] for lp in lays]),
-            torch.stack([lp.out.b for lp in lays]),
-            torch.stack([conv1d_weight(lp.skip, dtype)[0] for lp in lays]),
-            torch.stack([lp.skip.b for lp in lays]),
-            tuple(self.dilation(i) for i in range(self.n_layers)),
+            torch.stack([w(i, "out")[0] for i in L]),
+            torch.stack([lays[i]["out"]["b"] for i in L]),
+            torch.stack([w(i, "skip")[0] for i in L]),
+            torch.stack([lays[i]["skip"]["b"] for i in L]),
+            tuple(self.dilation(i) for i in L),
         ).float()
+
+    def _stack_leaves(self) -> list[dict]:
+        """Per layer {conv|cproj|gproj|out|skip: {g, v[, b]}} in the full
+        layout: a tensor-parallel model's sharded leaves are gathered over
+        the model group, all layers in one collective."""
+        lays = [{name: {a: getattr(m, a) for a in ("g", "v", "b") if getattr(m, a) is not None}
+                 for name in ("conv", "cproj", "gproj", "out", "skip") if (m := getattr(lp, name)) is not None}
+                for lp in self.layers]
+        where = [(i, name, a, sh) for i, lp in enumerate(self.layers) for name in lays[i]
+                 for a, sh in getattr(getattr(lp, name), "tp_shards", {}).items()]
+        full = gather_shards([lays[i][name][a] for i, name, a, _ in where], [sh for *_, sh in where])
+        for (i, name, a, _), t in zip(where, full):
+            lays[i][name][a] = t
+        return lays
 
     # ------------------------------------------------------------------
     # AR decoding

@@ -16,6 +16,14 @@ around ``F.conv1d``.
 autocast): the folded weight and the input are cast to it, the product
 accumulates in f32 but its result stays in ``dtype`` (bf16 under bf16), and
 the f32 bias added after it promotes the output to f32. Parameters stay f32.
+
+Tensor parallelism (``parallel.mesh``) marks a sharded layer with ``tp``:
+``"col"`` (output channels sharded; the caller passes the replicated input
+through ``copy_to_model``) or ``"row"`` (input channels sharded: the
+partial products, in f32, are summed over the model group and rounded to
+``dtype`` once, then the replicated bias is added once). A row-parallel
+weight norm takes its norm over the sharded (K, Cin) as the sum of the
+ranks' partial sums of squares.
 """
 from __future__ import annotations
 
@@ -24,6 +32,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from wavenet_autoencoders_tpu_torch.parallel.distributed import copy_to_model, reduce_from_model
 
 
 def _kaiming_normal(k, cin, cout, generator=None):
@@ -69,15 +79,39 @@ class Linear(nn.Module):
         self.b = nn.Parameter(_uniform((cout,), bound, generator)) if bias else None
 
 
+def _is_row(p: nn.Module) -> bool:
+    return getattr(p, "tp", None) == "row"
+
+
+def wn_fold(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """w = g·v/max(‖v‖, 1e-12), the norm over (K, Cin) per output channel."""
+    norm = v.square().sum((0, 1), keepdim=True).sqrt()
+    return g[None, None, :] * v / norm.clamp_min(1e-12)
+
+
 def conv1d_weight(p: nn.Module, dtype=None) -> torch.Tensor:
     """Fold (g, v) -> w (K, Cin, Cout), cast to ``dtype`` when given. For
-    plain convs returns w."""
+    plain convs returns w. A row-parallel fold is this rank's rows of the
+    full fold."""
     if isinstance(p, WNConv1d):
-        norm = p.v.square().sum((0, 1), keepdim=True).sqrt()
-        w = p.g[None, None, :] * p.v / norm.clamp_min(1e-12)
+        if _is_row(p):
+            norm = reduce_from_model(p.v.square().sum((0, 1))).sqrt()
+            # g and the norm act on every rank's rows: their gradients sum over the ranks
+            g, norm = copy_to_model(torch.stack([p.g, norm]))
+            w = g[None, None, :] * p.v / norm.clamp_min(1e-12)[None, None, :]
+        else:
+            w = wn_fold(p.g, p.v)
     else:
         w = p.w
     return w if dtype is None else w.to(dtype)
+
+
+def _row_sum(y: torch.Tensor, dtype) -> torch.Tensor:
+    """A row-parallel layer's partial products (f32) summed over the model
+    group, then rounded to ``dtype`` once, as one process rounds its whole
+    product."""
+    y = reduce_from_model(y)
+    return y if dtype is None else y.to(dtype)
 
 
 def conv1d_apply(
@@ -97,6 +131,8 @@ def conv1d_apply(
     w = conv1d_weight(p, dtype)
     if dtype is not None:
         x = x.to(dtype)
+        if _is_row(p):
+            x, w = x.float(), w.float()
     k = w.shape[0]
     if k == 1 and stride == 1:
         y = x @ w[0]
@@ -113,6 +149,8 @@ def conv1d_apply(
         xt = F.pad(x.transpose(1, 2), (lo, hi))
         y = F.conv1d(xt, w.permute(2, 1, 0), stride=stride, dilation=dilation)
         y = y.transpose(1, 2)
+    if _is_row(p):
+        y = _row_sum(y, dtype)
     if p.b is not None:
         y = y + p.b
     return y
@@ -126,7 +164,11 @@ def linear_apply(p: Linear, x: torch.Tensor, dtype=None) -> torch.Tensor:
     w = p.w
     if dtype is not None:
         x, w = x.to(dtype), w.to(dtype)
+        if _is_row(p):
+            x, w = x.float(), w.float()
     y = x @ w
+    if _is_row(p):
+        y = _row_sum(y, dtype)
     if p.b is not None:
         y = y + p.b
     return y

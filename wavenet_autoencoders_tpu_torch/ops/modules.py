@@ -19,6 +19,7 @@ from wavenet_autoencoders_tpu_torch.ops.conv import (
     conv1d_apply,
     conv1d_weight,
 )
+from wavenet_autoencoders_tpu_torch.parallel.distributed import copy_to_model
 
 
 class Embedding(nn.Module):
@@ -84,7 +85,16 @@ def residual_glu_apply(
     training-time rate (the caller passes 0 outside training): the conv's
     input is x times a Bernoulli(1 - dropout) keep mask over 1 - dropout,
     the residual stays x. The mask is ``mask`` when given, else drawn from
-    ``generator`` (uniform < 1 - dropout, the JAX draw)."""
+    ``generator`` (uniform < 1 - dropout, the JAX draw).
+
+    Tensor parallel (``parallel.mesh``: ``conv``, ``cproj``, ``gproj``
+    column-parallel per gate half, ``out``/``skip`` row-parallel): x is
+    replicated and passes into the conv through ``copy_to_model`` (the mask
+    acts on the replicated x, so every model rank draws the same one); c and
+    g must come through ``copy_to_model`` from the caller (once for the
+    whole stack); the local gate halves give this rank's columns of the
+    gated activation, and the out/skip products are summed over the model
+    group before their replicated biases."""
     residual = x
     if dropout > 0.0:
         keep = 1.0 - dropout
@@ -93,6 +103,8 @@ def residual_glu_apply(
                 raise ValueError("dropout needs a mask or a torch.Generator to draw it from")
             mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
         x = x * mask.to(x.dtype) / keep
+    if getattr(p.conv, "tp", None):
+        x = copy_to_model(x)
     h = causal_conv1d_apply(p.conv, x, dilation=dilation, dtype=dtype)
     c_add = conv1d_apply(p.cproj, c, dtype=dtype) if c is not None else None
     g_add = None

@@ -10,6 +10,9 @@ resumes from the other's checkpoints:
   parameter-EMA shadow;
 - rolling ``checkpoint_latest.npz`` / ``checkpoint_latest_ema.npz`` copies;
 - atomic writes (temporary file + rename);
+- under tensor parallelism the same keys and shapes as one process: the
+  shards are gathered on save (every rank of the model group joins, rank 0
+  writes), and a restore loads the full layout that ``train`` then shards;
 - ``load_checkpoint`` (exact resume, optionally resetting the optimizer),
   ``restore_parts`` (shape-tolerant partial load of the weights) and
   ``freeze_config``.
@@ -27,6 +30,7 @@ import torch
 
 from wavenet_autoencoders_tpu_torch.utils.params import (
     flatten_opt_state,
+    gather_params,
     flatten_state,
     flatten_tensors,
     load_flat_params,
@@ -50,16 +54,18 @@ def save_npz(flat: dict, path: str | Path) -> None:
 
 
 def snapshot(state, save_optimizer_state: bool = True) -> tuple[dict, dict | None]:
-    """Host copies of a TrainState's checkpoint payloads: (main, ema or None)."""
-    main = flatten_tensors(state.params(), "params/")
+    """Host copies of a TrainState's checkpoint payloads: (main, ema or None),
+    in the full layout: under tensor parallelism the shards are gathered
+    over the model group, so every rank of the group calls it."""
+    main = flatten_tensors(gather_params(state.params()), "params/")
     main.update(flatten_tensors(flatten_state(state.model), "model_state/"))
     main["step"] = np.int64(state.step)
     if save_optimizer_state:
-        main.update(flatten_opt_state(state.mu, state.nu, state.count, state.lr))
+        main.update(flatten_opt_state(gather_params(state.mu), gather_params(state.nu), state.count, state.lr))
     ema = None
     if state.ema is not None:
         ema = {k: v for k, v in main.items() if not k.startswith("params/")}
-        ema.update(flatten_tensors(state.ema, "params/"))
+        ema.update(flatten_tensors(gather_params(state.ema), "params/"))
     return main, ema
 
 
@@ -77,10 +83,14 @@ def write_checkpoint(main: dict, ema: dict | None, checkpoint_dir: str | Path) -
     return path
 
 
-def save_checkpoint(state, checkpoint_dir: str | Path, save_optimizer_state: bool = True) -> Path:
+def save_checkpoint(state, checkpoint_dir: str | Path, save_optimizer_state: bool = True,
+                    write: bool = True) -> Path | None:
     """Write checkpoint_step{N}.npz (+ _ema) and refresh the rolling
-    checkpoint_latest copies. Returns the main checkpoint's path."""
-    return write_checkpoint(*snapshot(state, save_optimizer_state), checkpoint_dir)
+    checkpoint_latest copies. Returns the main checkpoint's path. A rank of
+    a model group other than the writer passes ``write=False``: it joins
+    the gather and writes nothing."""
+    snap = snapshot(state, save_optimizer_state)
+    return write_checkpoint(*snap, checkpoint_dir) if write else None
 
 
 class AsyncCheckpointer:
@@ -91,9 +101,11 @@ class AsyncCheckpointer:
     def __init__(self):
         self._thread: threading.Thread | None = None
 
-    def save(self, state, checkpoint_dir, save_optimizer_state: bool = True):
+    def save(self, state, checkpoint_dir, save_optimizer_state: bool = True, write: bool = True):
         self.wait()
         main, ema = snapshot(state, save_optimizer_state)
+        if not write:
+            return
         self._thread = threading.Thread(target=write_checkpoint, args=(main, ema, checkpoint_dir), daemon=True)
         self._thread.start()
 

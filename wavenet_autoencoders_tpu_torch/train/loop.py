@@ -22,16 +22,23 @@ The sample dump and the decode hooks use the EMA shadow once it is warm
 ...`` and training goes on. The resolved config is frozen into the
 checkpoint dir.
 
-Data parallel: under a process group (``parallel.distributed``, joined by
-the CLI) every rank runs this function on its device and its slice of the
-global batch; rank 0's initial (or resumed) state is broadcast to all. The
-step and the dev pass reduce over the ranks, so the metrics are the global
-batch's (``samples_per_sec`` too). Only rank 0 writes the config, the logs,
-the checkpoints, the sample dumps and runs the decode hooks, from its own
-rows and replica, with no collective. A SIGTERM on any rank stops every
-rank after the same step (a flag all-reduced each step); the collapse
-monitor decides from the global metrics, so every rank stops at the same
-step there too.
+Data and tensor parallel: under a process group (``parallel.distributed``,
+joined by the CLI) every rank runs this function on its device. The ranks
+form the JAX package's mesh (``parallel.mesh``: ``mesh_shape["model"]``
+ranks a model group, the data axis the largest divisor of the batch that
+fits the rest; the ``mesh: {...}`` line is printed as the JAX loop prints
+it). Rank 0's initial (or resumed) state, in the full layout, is broadcast
+to all, and each rank keeps its shards of it. Each data rank loads its
+slice of the global batch (the ranks of a model group the same rows); the
+step and the dev pass reduce over the data group and run the sharded
+layers over the model group, so the metrics are the global batch's
+(``samples_per_sec`` too). Only rank 0 writes the config, the logs, the
+checkpoints and the sample dumps and runs the decode hooks, from its own
+rows: with a model axis every rank first joins the gather of the shards
+into the full layout, and rank 0 runs the hooks on a full copy of the
+model, with no collective. A SIGTERM on any rank stops every rank after
+the same step (a flag all-reduced each step); the collapse monitor decides
+from the global metrics, so every rank stops at the same step there too.
 """
 from __future__ import annotations
 
@@ -47,7 +54,7 @@ from wavenet_autoencoders_tpu_torch.config import Config
 from wavenet_autoencoders_tpu_torch.data.dataset import WaveDataset, data_iterator
 from wavenet_autoencoders_tpu_torch.models.zoo import build_model
 from wavenet_autoencoders_tpu_torch.parallel import distributed as dist
-from wavenet_autoencoders_tpu_torch.parallel.mesh import check_mesh
+from wavenet_autoencoders_tpu_torch.parallel.mesh import check_mesh, mesh_axes
 from wavenet_autoencoders_tpu_torch.train.checkpoint import (
     AsyncCheckpointer,
     freeze_config,
@@ -57,14 +64,16 @@ from wavenet_autoencoders_tpu_torch.train.checkpoint import (
 )
 from wavenet_autoencoders_tpu_torch.train.metrics import MetricsWriter
 from wavenet_autoencoders_tpu_torch.train.step import (
+    TrainState,
     ema_warm_steps,
     init_state,
     make_eval_step,
     make_sample_forward,
     make_train_step,
+    shard_state,
 )
 from wavenet_autoencoders_tpu_torch.utils.device import resolve_device
-from wavenet_autoencoders_tpu_torch.utils.params import flatten_state
+from wavenet_autoencoders_tpu_torch.utils.params import flatten_params, flatten_state, gather_params
 
 
 class CollapseAbort(SystemExit):
@@ -126,20 +135,54 @@ def train(
     dev_ds = None
     if dev_dump_root is not None and Path(dev_dump_root, "train.txt").exists():
         dev_ds = WaveDataset(dev_dump_root, cfg, feat_type=feat_type)
-    check_mesh(cfg, world, ("batch_size", "dev_batch_size") if dev_ds is not None else ("batch_size",))
-    # under a process group every replica starts from rank 0's state
+    check_mesh(cfg, world, ("batch_size", "dev_batch_size") if dev_ds is not None else ("batch_size",),
+               shapes={k: tuple(p.shape) for k, p in state.params().items()})
+    data, n_model = mesh_axes(cfg, world)
+    dist.init_mesh(n_model)
+    tp = n_model > 1
+    # under a process group every replica starts from rank 0's state, then keeps its shards
     dist.broadcast_from_main(list(state.params().values()) + list(flatten_state(model).values())
                              + list(state.mu.values()) + list(state.nu.values())
                              + (list(state.ema.values()) if state.ema is not None else []))
+    shard_state(cfg, state)
     host_slice = None
+    if main:
+        print(f"mesh: {dict(data=data, model=n_model)} over {world} devices", flush=True)
     if world > 1:
         host_slice = dist.host_local_batch_slice(cfg.batch_size)
-        if main:
+        if main and not tp:
             print(f"data parallel: {world} processes, {host_slice[1]} of {cfg.batch_size} rows each", flush=True)
+        elif main:
+            print(f"tensor parallel: {n_model} ranks a model group, {data} data ranks of {host_slice[1]} of "
+                  f"{cfg.batch_size} rows", flush=True)
 
     step_fn = make_train_step(cfg, model)
     eval_fn = make_eval_step(cfg, model)
     fwd_fn = make_sample_forward(cfg, model)
+    full_model = None  # rank 0's full copy of a sharded model, for the hooks
+
+    def hook_state():
+        """The state the hooks run on: ``state``, or under tensor parallelism
+        (a collective: every rank calls it) a TrainState over rank 0's full
+        copy of the model, with the gathered weights and EMA shadow (None on
+        the other ranks)."""
+        nonlocal fwd_fn, full_model
+        if not tp:
+            return state
+        params = gather_params(state.params())
+        ema = gather_params(state.ema) if state.ema is not None else None
+        if not main:
+            return None
+        if full_model is None:
+            full_model = build_model(cfg, device=dev).train()
+            fwd_fn = make_sample_forward(cfg, full_model)
+        with torch.no_grad():
+            for k, p in flatten_params(full_model).items():
+                p.copy_(params[k])
+            buffers = flatten_state(model)
+            for k, b in flatten_state(full_model).items():
+                b.copy_(buffers[k])
+        return TrainState(model=full_model, mu={}, nu={}, count=state.count, lr=state.lr, ema=ema, step=state.step)
     limit = max_steps if max_steps is not None else cfg.max_train_steps
     # the sampler drops the ragged tail, so one epoch is len(ds) // batch_size steps
     steps_per_epoch = max(1, len(train_ds) // cfg.batch_size)
@@ -179,7 +222,7 @@ def train(
             if profiler is not None and step >= 15:
                 _stop_profiler(profiler, cfg.profile_dir)
                 profiler = None
-            samples_per_batch = batch["x"].shape[0] * batch["x"].shape[1] * world
+            samples_per_batch = batch["x"].shape[0] * batch["x"].shape[1] * data
             state, metrics = step_fn(state, batch)
             step += 1
             if dist.any_rank(bool(stop)):
@@ -212,9 +255,10 @@ def train(
                         "bottleneck collapsed; aborting (exit 3)"
                     )
                     print(msg, flush=True)
-                    if main:
+                    if main or tp:
                         ckpt.wait()
-                        save_checkpoint(state, ckpt_dir, save_optimizer_state=cfg.save_optimizer_state)
+                        save_checkpoint(state, ckpt_dir, save_optimizer_state=cfg.save_optimizer_state, write=main)
+                    if main:
                         writer.close()
                     raise CollapseAbort(msg)
 
@@ -223,12 +267,16 @@ def train(
             epoch_acc = m_ep if epoch_acc is None else {k: epoch_acc[k] + m_ep[k] for k in m_ep}
             epoch_n += 1
 
-            if main and step % cfg.checkpoint_interval == 0:
-                ckpt.save(state, ckpt_dir, save_optimizer_state=cfg.save_optimizer_state)
-                _try_save_states(cfg, fwd_fn, state, step, batch, ckpt_dir)
+            if (main or tp) and step % cfg.checkpoint_interval == 0:
+                ckpt.save(state, ckpt_dir, save_optimizer_state=cfg.save_optimizer_state, write=main)
+                hs = hook_state()
+                if main:
+                    _try_save_states(cfg, fwd_fn, hs, step, batch, ckpt_dir)
 
-            if main and step % cfg.train_eval_interval == 0:
-                _try_eval_model(cfg, state, step, batch, ckpt_dir)
+            if (main or tp) and step % cfg.train_eval_interval == 0:
+                hs = hook_state()
+                if main:
+                    _try_eval_model(cfg, hs, step, batch, ckpt_dir)
 
             if step % steps_per_epoch == 0:
                 epoch = step // steps_per_epoch
@@ -238,8 +286,9 @@ def train(
                     print(f"Step {step} [train_no_dev] epoch {epoch} loss {avg_ep['loss']:.4f}", flush=True)
                 epoch_acc, epoch_n = None, 0
                 if dev_ds is not None and epoch % max(1, cfg.dev_epoch_interval) == 0:
+                    ar_eval = epoch % cfg.test_eval_epoch_interval == 0 and (main or tp)
                     _run_dev(cfg, eval_fn, state, dev_ds, writer, step, epoch, dev, ckpt_dir,
-                             do_ar_eval=main and epoch % cfg.test_eval_epoch_interval == 0)
+                             ar_state=hook_state() if ar_eval else None)
                 t0, last_log_step = time.time(), step  # dev time left out
                 if epoch >= cfg.nepochs:
                     if main:
@@ -252,11 +301,12 @@ def train(
             signal.signal(signal.SIGTERM, old_term)
         if profiler is not None:
             _stop_profiler(profiler, cfg.profile_dir)
-    if main:
-        if metrics is not None:
-            writer.scalars(state.step, "train_no_dev", {k: float(v) for k, v in metrics.items()})
+    if main and metrics is not None:
+        writer.scalars(state.step, "train_no_dev", {k: float(v) for k, v in metrics.items()})
+    if main or tp:
         ckpt.wait()
-        save_checkpoint(state, ckpt_dir, save_optimizer_state=cfg.save_optimizer_state)
+        save_checkpoint(state, ckpt_dir, save_optimizer_state=cfg.save_optimizer_state, write=main)
+    if main:
         writer.close()
     return state
 
@@ -336,12 +386,12 @@ def _try_eval_model(cfg: Config, state, step: int, batch: dict, ckpt_dir, phase:
 
 
 def _run_dev(cfg: Config, eval_fn, state, dev_ds, writer, step: int, epoch: int, dev: torch.device,
-             ckpt_dir, do_ar_eval: bool = False) -> None:
-    """One pass over the dev dump at ``dev_batch_size`` (each rank its
+             ckpt_dir, ar_state=None) -> None:
+    """One pass over the dev dump at ``dev_batch_size`` (each data rank its
     slice; the metrics are the global batch's): averaged scalars under
     ``dev`` (by step) and ``dev_epoch`` (by epoch), written when ``writer``
-    is given (rank 0); with ``do_ar_eval``, an AR decode of the first dev
-    batch's rows of this rank."""
+    is given (rank 0); given ``ar_state`` (rank 0's hook state), an AR
+    decode of the first dev batch's rows of this rank from it."""
     t0 = time.perf_counter()
     host_slice = dist.host_local_batch_slice(cfg.dev_batch_size) if dist.world_size() > 1 else None
     it = data_iterator(dev_ds, cfg, batch_size=cfg.dev_batch_size, prefetch=0, epochs=1, host_slice=host_slice,
@@ -362,5 +412,5 @@ def _run_dev(cfg: Config, eval_fn, state, dev_ds, writer, step: int, epoch: int,
             f"perp {avg['perplexity']:.1f} ({n} batches, {time.perf_counter() - t0:.2f} s)",
             flush=True,
         )
-    if do_ar_eval and first is not None:
-        _try_eval_model(cfg, state, step, first, ckpt_dir, phase="dev")
+    if ar_state is not None and first is not None:
+        _try_eval_model(cfg, ar_state, step, first, ckpt_dir, phase="dev")

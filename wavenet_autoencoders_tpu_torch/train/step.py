@@ -15,17 +15,24 @@ tree paths, which is also how checkpoints store them
 
 Training noise comes from device generators seeded from ``cfg.seed`` and
 the step: one stream for the bottleneck (Gumbel, VQ-dropout, time jitter;
-the same on every rank), one for the reseed candidates, and one per rank for
-the decoder's dropout masks.
+the same on every rank), one for the reseed candidates, and one per data
+rank for the decoder's dropout masks.
 
-Data parallel (``parallel.distributed``): each rank passes its slice of
-the global batch, and the step runs under ``synced()``, so it takes the
+Data parallel (``parallel.distributed``): each data rank passes its slice
+of the global batch, and the step runs under ``synced()``, so it takes the
 step one process takes on the whole batch. Each rank's loss is its share
 of the global loss (masked sums over the global batch's mask count, means
-over the ranks), the gradients are summed over the ranks before the norm
-and the clip, and the bottleneck reduces its statistics (EMA counts and
-sums, code fractions, reseed candidates) and slices its noise from the
-global draw.
+over the data ranks), the gradients are summed over the data group before
+the norm and the clip, and the bottleneck reduces its statistics (EMA
+counts and sums, code fractions, reseed candidates) over the data group
+and slices its noise from the global draw.
+
+Tensor parallel (``parallel.mesh``, after ``shard_state``): the model's
+sharded leaves, their Adam moments and their EMA shadow are this rank's
+shards; the ranks of a model group hold the same rows and the same
+replicated loss. The grad norm sums the squares of the sharded gradients
+over the model group and counts the replicated ones once; the clip, Adam
+and the EMA act on the shards.
 """
 from __future__ import annotations
 
@@ -44,9 +51,9 @@ from wavenet_autoencoders_tpu_torch.ops.losses import (
     sequence_mask,
 )
 from wavenet_autoencoders_tpu_torch.parallel import distributed as dist
-from wavenet_autoencoders_tpu_torch.parallel.mesh import check_mesh
+from wavenet_autoencoders_tpu_torch.parallel.mesh import check_mesh, leaf_shard, model_axis, shard_module
 from wavenet_autoencoders_tpu_torch.train.schedule import get_schedule
-from wavenet_autoencoders_tpu_torch.utils.params import flatten_params
+from wavenet_autoencoders_tpu_torch.utils.params import flatten_params, shard_params
 
 ADAM_B1, ADAM_B2 = 0.9, 0.999
 
@@ -76,6 +83,23 @@ def init_state(cfg: Config, model: nn.Module) -> TrainState:
         ema = {k: p.detach().clone() for k, p in params.items()} if cfg.exponential_moving_average else None
     return TrainState(model=model, mu=zeros(), nu=zeros(), count=0,
                       lr=float(cfg.optimizer_params["lr"]), ema=ema, step=0)
+
+
+def shard_state(cfg: Config, state: TrainState) -> TrainState:
+    """Cut this rank's shards out of a full-layout TrainState in place (the
+    model's parameters, the Adam moments and the EMA shadow), on the model
+    axis of ``parallel.distributed.init_mesh``, which must be ``cfg``'s."""
+    n = dist.model_size()
+    if n != model_axis(cfg):
+        raise ValueError(f"mesh_shape model={model_axis(cfg)} but the process mesh has model={n}: "
+                         "call parallel.distributed.init_mesh first")
+    if n > 1:
+        where = (dist.data_index(), dist.model_index())
+        state.mu, state.nu = shard_params(state.mu, cfg, where), shard_params(state.nu, cfg, where)
+        if state.ema is not None:
+            state.ema = shard_params(state.ema, cfg, where)
+        shard_module(state.model, n, where[1])
+    return state
 
 
 def compute_dtype(cfg: Config):
@@ -121,8 +145,9 @@ def objective(cfg: Config, model: nn.Module, y_hat, batch: dict, T: int):
 
 def _seeded(gen: torch.Generator, cfg: Config, step: int, stream: int = 0) -> torch.Generator:
     """``gen`` seeded for (seed, step, stream); stream 0 is the bottleneck's
-    noise, 1 the reseed candidates, 2 + rank a rank's dropout masks. A
-    resumed run repeats the streams."""
+    noise, 1 the reseed candidates, 2 + data index a data rank's dropout
+    masks (the same on every rank of its model group). A resumed run
+    repeats the streams."""
     return gen.manual_seed(cfg.seed * 1_000_003 + step + (stream << 40))
 
 
@@ -138,6 +163,10 @@ def make_train_step(cfg: Config, model: nn.Module):
     tests' injected noise: ``uniforms``, ``noise``, ``dropout_masks``);
     ``cand_idx`` gives the reseed candidates (K indices per slice)."""
     check_mesh(cfg, dist.world_size())
+    tp = dist.model_size() > 1
+    if dist.model_size() != model_axis(cfg) or tp != any(hasattr(m, "tp") for m in model.modules()):
+        raise ValueError(f"mesh_shape model={model_axis(cfg)} needs init_mesh({model_axis(cfg)}) and a model "
+                         "sharded by shard_state")
     op = cfg.optimizer_params
     if cfg.optimizer.lower() not in ("adam", "adamw"):
         raise ValueError(f"optimizer {cfg.optimizer!r} is not Adam")
@@ -147,7 +176,8 @@ def make_train_step(cfg: Config, model: nn.Module):
     dtype = compute_dtype(cfg)
     warmup = int(cfg.vq_warmup_steps or 0)
     clip = float(cfg.clip_thresh or 0)
-    names = list(flatten_params(model))
+    leaves = flatten_params(model)
+    names = list(leaves)
     vq = model if isinstance(model, VQWAE) else None
     reseed = vq is not None and vq.reseed
     jitter_start = int(cfg.time_jitter_start or 0) if vq is not None and vq.use_time_jitter else 0
@@ -157,6 +187,8 @@ def make_train_step(cfg: Config, model: nn.Module):
     dropout = cfg.dropout > 0.0 and not isinstance(model, MfccAE)
     device = next(model.parameters()).device
     gen = torch.Generator(device=device)
+    # which gradients are shards (their squares are summed over the model group)
+    sharded = torch.tensor([leaf_shard(k, p.shape) is not None for k, p in leaves.items()], device=device)
 
     def step_fn(state: TrainState, batch: dict, *, forward_kw: dict | None = None, cand_idx=None):
         params = state.params()
@@ -171,7 +203,8 @@ def make_train_step(cfg: Config, model: nn.Module):
             # the jitter gate: no jitter before time_jitter_start
             extra["jitter_scale"] = 1.0 if state.step >= jitter_start else 0.0
         if dropout:
-            extra["dropout_generator"] = _seeded(torch.Generator(device=device), cfg, state.step, 2 + dist.rank())
+            extra["dropout_generator"] = _seeded(torch.Generator(device=device), cfg, state.step,
+                                                 2 + dist.data_index())
         extra.update(forward_kw or {})
         # commitment warm-up: the VQ aux loss is ramped in (and reported unscaled)
         ramp = min(max(state.step / warmup, 0.0), 1.0) if warmup > 0 else 1.0
@@ -188,7 +221,12 @@ def make_train_step(cfg: Config, model: nn.Module):
                 loss, recon, aux = (dist.all_sum(t.detach()) for t in (loss, recon, aux))
 
         with torch.no_grad():
-            gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            norms = torch.stack(torch._foreach_norm(grads))
+            if tp:
+                sq = norms.square()
+                gnorm = (dist.model_sum(sq[sharded].sum()) + sq[~sharded].sum()).sqrt()
+            else:
+                gnorm = torch.linalg.vector_norm(norms)
             if clip > 0:
                 # the JAX formula, not clip_grad_norm_'s clip / (norm + 1e-6)
                 scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-6), max=1.0)

@@ -16,6 +16,11 @@ paths optax gives the JAX package's ``inject_hyperparams(adam)`` state:
 ``opt_state/count``, ``opt_state/hyperparams/lr``,
 ``opt_state/inner_state/0/count`` and
 ``opt_state/inner_state/0/{mu,nu}/<path>``.
+
+Under tensor parallelism each rank holds shards of some leaves
+(``parallel.mesh``): ``shard_params`` cuts a rank's shards out of the full
+layout and ``gather_params`` (a collective over the model group) puts them
+back together, for parameters, Adam moments and the EMA shadow alike.
 """
 from __future__ import annotations
 
@@ -24,6 +29,9 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from wavenet_autoencoders_tpu_torch.parallel import distributed as dist
+from wavenet_autoencoders_tpu_torch.parallel.mesh import leaf_shard, local_slice, model_axis, tp_shards
 
 
 def flatten_params(model: nn.Module) -> dict[str, torch.Tensor]:
@@ -128,3 +136,26 @@ def _tensor(flat: Mapping, key: str, like: torch.Tensor) -> torch.Tensor:
     if tuple(arr.shape) != tuple(like.shape):
         raise ValueError(f"{key}: shape {arr.shape} vs the port's {tuple(like.shape)}")
     return torch.tensor(arr, dtype=like.dtype, device=like.device)
+
+
+def shard_params(flat_full: Mapping, cfg, coords: tuple[int, int]) -> dict:
+    """{path: tensor} in the full layout -> the shards of the rank at
+    ``coords`` (data index, model index) on ``cfg``'s model axis; the
+    replicated leaves are returned as they are. Raises ``ValueError`` on a
+    dimension the model axis does not divide."""
+    n, m = model_axis(cfg), coords[1]
+    shards = tp_shards({k: tuple(v.shape) for k, v in flat_full.items()}, n)
+    return {k: local_slice(v, shards[k], n, m) if k in shards else v for k, v in flat_full.items()}
+
+
+def gather_params(local: Mapping) -> dict:
+    """{path: this rank's tensor} -> {path: tensor} in the full JAX layout
+    (the gate leaves' halves in their order), gathered over the model group
+    in one collective: every rank of the group calls it. The identity
+    without a model axis."""
+    if dist.model_size() == 1:
+        return dict(local)
+    keys = [k for k, v in local.items() if leaf_shard(k, v.shape) is not None]
+    with torch.no_grad():
+        full = dist.gather_shards([local[k].detach() for k in keys], [leaf_shard(k, local[k].shape) for k in keys])
+    return {**local, **dict(zip(keys, full))}
