@@ -137,7 +137,33 @@ Phases (each raises on failure, so the script exits non-zero):
    B=1 forwards (trained weights), K2/K3 at B=40 x T=5120 bf16 (seeded),
    both at phase 5's bf16 bounds, and K1 in teacher mode at B=1 and B=40
    (T=1100, seeded run-K-width weights) at phase 1's bounds; then K2/K3
-   and K1 timed at this depth. ``--phases 0,13`` runs it alone.
+   and K1 timed at this depth, beside their bounds. ``--phases 0,13`` runs
+   it alone.
+14. Run K to step 4000 (``--phases 0,14``, not in the default list): the
+   same corpus and recipe, 4000 fused steps of run K's schedule (the lr
+   halves at step 3000; the dev pass at step 2500), held to run K's mean
+   loss over steps 3550-4000 within 0.10 nats, perplexity >= 150 there and
+   K2/K3 launched as the loop predicts (steps, sample dumps, the dev
+   pass); the ABX of the step-4000 codes held below the MFCC baseline's
+   across speakers, beside run K's; the VC F0 of 40 utterances (K1 counted).
+15. Run F, IN-WAE with AdaIN (``quality2/exp/inwae_r5``: encoder 384, gin
+   64, no VQ, B=24; ``--phases 0,15``, not in the default list): 3000 fused
+   steps of run F's schedule held to its mean loss over steps 2550-3000
+   within 0.10 nats with K2/K3 launched as predicted; the ABX of the
+   continuous latent and 2 dev reconstructions (K1 at B=1), printed beside
+   run F's; AdaIN voice conversion of 40 utterances through K1 (tar_c from
+   the train dump), its F0 beside run F's and K1 launched as predicted;
+   then K2/K3 at B=24 x T=5120 bf16 and K1 in teacher mode at B=1 and 24
+   (T=1100) against their plain versions, and their times beside their
+   bounds.
+
+Phases 13-15 share one corpus when they run together. ``--quality-hparams
+k=v,...`` appends to their hparams (``fused_stack=false``: the fused
+stack's part in a difference from the JAX run; ``seed=N``: another init
+draw); the launch predictions follow the config the run saved.
+``--vq-bf16-product`` rounds the inputs of the VQ distance product to bf16,
+as a TPU's default-precision dot does in the JAX runs (the port computes it
+in f32).
 
 Prints the kernel table (K1, K2, K3; ``launches`` summed over every path
 driven, ``launches_by_path`` each path's count) as one JSON line, the
@@ -149,11 +175,13 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2015,10 +2043,14 @@ def phase12(k1, k2, k3, tmp: Path, card: str):
     k2["phase12"] = rec
 
 
-# Phase 13: the quality run of SVQ-WAE run K (QUALITY.md §2-3; the frozen
-# config and log in quality2/exp/svqwae_r5_cs0005) on the card, at its
-# published widths (residual 256, gate 368, skip 256, 16 layers in 2 stacks,
-# encoder 768, sliced VQ 2 x 256, frame rate 50, B=40 x 5120, bf16), fused.
+# Phases 13-15: the quality runs of QUALITY.md's two headline models on the
+# card, each at the published widths of its JAX run's frozen config
+# (quality2/exp/<run>/config.json) and held to that run's log
+# (logs/metrics.jsonl), through the port's quality tools: run K (SVQ-WAE:
+# residual 256, gate 368, skip 256, 16 layers in 2 stacks, encoder 768,
+# sliced VQ 2 x 256, frame rate 50, B=40 x 5120, bf16) to steps 1500 (13) and
+# 4000 (14), and run F (IN-WAE with AdaIN: the same WaveNet, gin 64, encoder
+# 384, no VQ, B=24) to step 3000 (15); all fused.
 QUALITY = Path(__file__).resolve().parent / "quality2"
 RUN_K = QUALITY / "exp" / "svqwae_r5_cs0005"
 # the "sharp" corpus of QUALITY.md §1 (seed 0)
@@ -2033,75 +2065,119 @@ SHARP_CORPUS = ("--n-unit", "4000", "--n-spk", "20", "--n-voice", "60", "--n-tes
 MFCC_ABX_CPU = {"abx_across_speaker_err_pct": 11.13, "abx_within_speaker_err_pct": 9.75,
                 "abx_dtw_across_speaker_err_pct": 10.45, "abx_dtw_within_speaker_err_pct": 9.3}
 TOL_ABX_PTS = 0.1
-# run K's length (the launcher halves the lr every steps // 2 = 3000 steps)
-# and where phase 13 stops; the held window of log lines
-QR_STEPS, QR_MAX_STEPS, QR_WINDOW = 6000, 1500, (1050, 1500)
-# Run K's mean train loss over the window is 3.204 nats (10 lines, each
-# within 0.069 of it); other healthy runs read 3.13-3.15 and the collapsed
-# svqwae_sharp 3.437 with perplexity 4 (run K: 261-314).
+# The held window is the run's last 10 log lines. Run K's mean train loss
+# over steps 1050-1500 is 3.204 nats (each line within 0.069 of it), over
+# 3550-4000 3.048 (2.992-3.097); run F's over 2550-3000 3.059 (2.939-3.152);
+# other healthy runs read 3.13-3.15 at 1500 and the collapsed svqwae_sharp
+# 3.437 with perplexity 4 (run K: 261-314 at 1500, 316-333 at 4000).
 TOL_QR_LOSS = 0.10
 MIN_QR_PERPLEXITY = 150.0
-# Launches of the 1500 steps, as the loop makes them: one K2 and one K3 a
-# fused step, and one forward-only K2 for the sample dump at the checkpoint
-# of step 1000 (the launcher's checkpoint_interval); no decode hook
-# (train_eval_interval 1e6) and no dev pass (every 25 epochs of 4020 // 40 =
-# 100 steps, first at step 2500).
-QR_TRAIN_LAUNCHES = {"K1": 0, "K2": QR_MAX_STEPS + 1, "K3": QR_MAX_STEPS}
-# evaluation sizes: reconstruction decodes (B=1, one K1 each), VC
-# utterances (the first of synthesis.txt's 80), batch and length bucket
-# (frames, as QUALITY.md's VC run), CE-by-segment utterances (one
-# forward-only K2 each)
-QR_RECON_UTTS, QR_VC_UTTS, QR_VC_BATCH, QR_VC_PAD, QR_CE_UTTS = 2, 40, 40, 64, 8
-# K1's teacher-mode check at this path's depth: T past the ring wrap of the
-# largest dilation (128)
-QR_K1_T = 1100
+# Phase 13's fused run on an NVIDIA H100 80GB HBM3 at 700 W: its window mean
+# loss, perplexity range and step-1500 ABX across speakers, printed beside
+# the unfused run and phase 14's ABX.
+K1500_FUSED = {"window_mean_loss": 3.1577, "perplexity": (318.9, 360.3), "abx_across_speaker_err_pct": 32.70}
+# VC utterances (the first of synthesis.txt's 80), batch and length bucket
+# (frames, as QUALITY.md's VC run); K1's teacher-mode check
+# at the runs' depth: T past the ring wrap of the largest dilation (128)
+QR_VC_UTTS, QR_VC_BATCH, QR_VC_PAD, QR_K1_T = 40, 40, 64, 1100
 
 
-def vc_decodes(dump: Path, syn_list: Path, frame_rate: int, pad: int, batch: int) -> int:
+def nearest_code_bf16_product(flat, codebook):
+    """The VQ nearest-code search with the z . e product's inputs rounded
+    to bf16 (f32 sums), as a TPU's default-precision f32 dot computes the
+    JAX package's ``_nearest_code``; the port computes it in f32. A probe
+    of the JAX run's numerics (``--vq-bf16-product``), never the port's
+    default."""
+    import torch
+
+    flat, codebook = flat.float(), codebook.float()
+    cross = flat.to(torch.bfloat16).float() @ codebook.to(torch.bfloat16).float().T
+    return (flat.square().sum(1, keepdim=True) + codebook.square().sum(1)[None, :] - 2.0 * cross).argmin(1)
+
+
+@dataclasses.dataclass(frozen=True)
+class QualityRun:
+    """One quality run on the card and the records it is held to. The
+    corpus, its dumps and the MFCC-baseline hold are shared by every run."""
+    phase: int
+    run: str                      # the JAX run under quality2/exp: config.json, logs/metrics.jsonl
+    label: str                    # its name in QUALITY.md
+    key: str                      # the port's experiment dir, and the name of this run's records
+    steps: int                    # the launcher's --steps: the lr halves every steps // 2
+    max_steps: int                # where the port stops, on that schedule
+    window: tuple                 # the held log lines, first and last step
+    shown: tuple                  # steps printed beside the record
+    abx_refs: tuple               # (label, trajectory run, step) printed beside the ABX
+    f0_ref: str                   # quality2 dir of the JAX run's vc_f0_check.json
+    abx_below_baseline: bool = False  # hold the ABX across speakers under the MFCC baseline's
+    recon_utts: int = 0           # dev reconstructions (K1 at B=1)
+    recon_ref: tuple = ()         # (label, quality_metrics.json under quality2) printed beside them
+    ce_utts: int = 0              # CE-by-segment utterances (one forward-only K2 each)
+    k1_batches: tuple = ()        # kernel checks and times at this depth: K1 at these B, K2/K3 at the run's B
+    hparams: str = "fused_stack=true"
+
+
+QUALITY_RUNS = {
+    13: QualityRun(13, "svqwae_r5_cs0005", "run K", "quality", 6000, 1500, (1050, 1500), (1, 500, 1000, 1500),
+                   abx_refs=(("run I", "run_I", 2000), ("run K", "run_K", 4000)), f0_ref="syn_out_svqK",
+                   recon_utts=2, recon_ref=("run D at step 14000", "exp/svqwae_r4/quality_metrics.json"),
+                   ce_utts=8, k1_batches=(1, 40)),
+    14: QualityRun(14, "svqwae_r5_cs0005", "run K", "quality_k4000", 6000, 4000, (3550, 4000),
+                   (1, 1000, 2000, 3000, 3500, 4000),
+                   abx_refs=(("run K", "run_K", 4000), ("run K", "run_K", 6000)), f0_ref="syn_out_svqK",
+                   abx_below_baseline=True),
+    15: QualityRun(15, "inwae_r5", "run F", "quality_f", 20000, 3000, (2550, 3000), (1, 500, 1000, 2000, 3000),
+                   abx_refs=(("run F", "run_inwae_r5", 9000),), f0_ref="syn_out_inwae",
+                   recon_utts=2, recon_ref=("run F at step 20000", "exp/inwae_r5/quality_metrics.json"),
+                   k1_batches=(1, 24)),
+}
+
+
+def vc_decodes(dump: Path, syn_list: Path, frame_rate: int, pad: int, batch: int, by_target: bool = False) -> int:
     """K1 launches of ``synthesize --batch B --pad-frames-multiple P`` over
     a synthesis list: ``run_synthesis_list`` decodes each group of equal
-    padded frame counts in chunks of B."""
+    padded frame counts (and, for the IN family, equal target speaker) in
+    chunks of B."""
     div, sizes = 100 // frame_rate, {}
     for line in syn_list.read_text().split("\n"):
         if line.strip():
-            n = len(np.load(dump / line.split()[0] / "mfcc.norm.npy"))
+            utt, tar = line.split()
+            n = len(np.load(dump / utt / "mfcc.norm.npy"))
             n += -n % div
             n += -n % pad
-            sizes[n] = sizes.get(n, 0) + 1
+            k = (n, tar if by_target else None)
+            sizes[k] = sizes.get(k, 0) + 1
     return sum(-(-v // batch) for v in sizes.values())
 
 
-def phase13(k1, k2, k3, tmp: Path):
-    """The quality run: the corpus, the MFCC baseline, 1500 fused steps of
-    run K held against its log, then ABX, reconstruction, voice conversion
-    and CE by segment through the port's quality tools."""
-    import torch
+def quality_train_launches(cfg, n_train: int, n_dev: int, steps: int) -> dict:
+    """Launches of a quality run's ``train`` call, as the loop makes them:
+    one K2 and one K3 a fused step; one forward-only K2 for the sample dump
+    at each checkpoint (every ``checkpoint_interval`` steps); at each
+    ``dev_epoch_interval``-th epoch (the sampler drops the ragged tail, so
+    an epoch is n_train // batch_size steps) the dev pass, one K2 for each
+    of its n_dev // dev_batch_size batches and one more on the EMA shadow;
+    no decode hook (the launcher's intervals are 1e6). Unfused, none."""
+    if not cfg.fused_stack:
+        return {"K1": 0, "K2": 0, "K3": 0}
+    epochs = steps // (n_train // cfg.batch_size)
+    dev = epochs // cfg.dev_epoch_interval * (n_dev // cfg.dev_batch_size)
+    dev *= 2 if cfg.exponential_moving_average else 1
+    return {"K1": 0, "K2": steps + steps // cfg.checkpoint_interval + dev, "K3": steps}
 
-    from wavenet_autoencoders_tpu_torch.cli.main import _load_model
+
+def quality_corpus(q: Path, timed, p: str) -> dict:
+    """The sharp corpus under ``q`` and its dumps (``subset``,
+    ``preprocess``, ``cmvn``, ``normalize``), and the MFCC-baseline ABX held
+    to the CPU's. Run K's config prepares it; run F's differs from it in no
+    key the preparation reads."""
     from wavenet_autoencoders_tpu_torch.cli.main import main as cli
-    from wavenet_autoencoders_tpu_torch.config import Config
-    from wavenet_autoencoders_tpu_torch.kernels import decode as K1
-    from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
-    from wavenet_autoencoders_tpu_torch.models import build_model
-    from wavenet_autoencoders_tpu_torch.quality import abx, ce_by_segment, corpus, recon, run, vc_f0
+    from wavenet_autoencoders_tpu_torch.quality import abx, corpus
 
-    t_phase = time.perf_counter()
-    q = tmp
-    raw, dumps, scp, exp = q / "raw", q / "dump" / "2019" / "english", q / "scp" / "2019", q / "exp" / "svqwae_K"
+    raw, dumps, scp = q / "raw", q / "dump" / "2019" / "english", q / "scp" / "2019"
     preset, jobs = str(RUN_K / "config.json"), str(os.cpu_count() or 1)
     sp2ind = scp / "2019_speaker2ind_english.json"
     splits = ("train_no_dev", "dev", "test")
-    secs, rec = {}, {}
-
-    def timed(name, fn):
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        secs[name] = time.perf_counter() - t0
-        log(f"phase 13: {name}: {secs[name]:.1f} s")
-        return out
-
-    # 1. the corpus and its dumps
     timed("corpus", lambda: corpus.main([str(raw), *SHARP_CORPUS, "--jobs", jobs]))
 
     def prep():
@@ -2118,158 +2194,256 @@ def phase13(k1, k2, k3, tmp: Path):
     if n_utts != {"train_no_dev": 4020, "dev": 40, "test": 80}:
         raise AssertionError(f"the sharp corpus split into {n_utts}, expected 4020 / 40 / 80")
 
-    # 2. the MFCC baseline (host only, deterministic)
+    # the MFCC baseline (host only, deterministic)
     labels = json.loads((raw / "test_phone_labels.json").read_text())
     traj = json.loads((QUALITY / "abx_trajectory_r5.json").read_text())
     base = timed("mfcc_abx", lambda: abx.score(abx.mfcc_vectors(dumps / "test", sorted(labels)), labels, 100.0))
     off = {k: abs(base[k] - v) for k, v in MFCC_ABX_CPU.items()}
-    log(f"phase 13: MFCC baseline ABX across / within / DTW across / DTW within "
+    log(f"{p}: MFCC baseline ABX across / within / DTW across / DTW within "
         f"{' / '.join(str(base[k]) for k in MFCC_ABX_CPU)} % ({base['n_segments']} segments); CPU "
         f"{' / '.join(str(v) for v in MFCC_ABX_CPU.values())}; recorded (abx_trajectory_r5.json) "
         f"{' / '.join(str(traj['mfcc_baseline'][k]) for k in MFCC_ABX_CPU)}")
     if not max(off.values()) <= TOL_ABX_PTS:
         raise AssertionError(f"MFCC-baseline ABX {base} is off the CPU's {MFCC_ABX_CPU} by {off}")
-    rec["mfcc_abx"] = base
+    return {"q": q, "raw": raw, "dumps": dumps, "sp2ind": sp2ind, "traj": traj, "mfcc_abx": base}
 
-    # 3. 1500 fused steps of run K
+
+def quality_run(spec: QualityRun, k1, k2, k3, tmp: Path, shared: dict | None) -> dict:
+    """One quality run (phase 13, 14 or 15): the shared corpus (made here
+    when ``shared`` is None), the run's steps through ``quality.run`` held
+    to its JAX run's log, then the ABX, reconstructions, voice conversion
+    and CE by segment the spec asks for, each beside its JAX run's record,
+    and the kernels at the run's depth against their plain versions.
+    Returns the shared corpus."""
+    import torch
+
+    from wavenet_autoencoders_tpu_torch.config import Config
+    from wavenet_autoencoders_tpu_torch.data.dataset import WaveDataset
+    from wavenet_autoencoders_tpu_torch.kernels import decode as K1
+    from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
+    from wavenet_autoencoders_tpu_torch.quality import recon, run
+
+    t_phase = time.perf_counter()
+    p = f"phase {spec.phase}"
+    ref_dir = QUALITY / "exp" / spec.run
+    secs, rec = {}, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        log(f"{p}: {name}: {secs[name]:.1f} s")
+        return out
+
+    shared = shared or quality_corpus(tmp, timed, p)
+    q, raw, dumps, sp2ind, traj = (shared[k] for k in ("q", "raw", "dumps", "sp2ind", "traj"))
+    exp = q / "exp" / spec.key
+    rec["mfcc_abx"] = shared["mfcc_abx"]
+
+    # 1. the run's steps on its JAX run's schedule
     K.LAUNCHES_FWD = K.LAUNCHES_BWD = K1.LAUNCHES = 0
     with tee_stdout() as out:
         timed("train", lambda: run.train_main(["--root", str(q), "--exp", str(exp.relative_to(q)),
-                                               "--steps", str(QR_STEPS), "--max-steps", str(QR_MAX_STEPS),
-                                               "--preset", preset, "--hparams", "fused_stack=true"]))
+                                               "--steps", str(spec.steps), "--max-steps", str(spec.max_steps),
+                                               "--preset", str(ref_dir / "config.json"),
+                                               "--hparams", spec.hparams]))
     launches = {"K1": K1.LAUNCHES, "K2": K.LAUNCHES_FWD, "K3": K.LAUNCHES_BWD}
     text = out.getvalue()
+    cfg = Config.load(exp / "config.json")
+    n_train, n_dev = (len(WaveDataset(str(dumps / s), cfg)) for s in ("train_no_dev", "dev"))
+    predicted = quality_train_launches(cfg, n_train, n_dev, spec.max_steps)
     got = {r["step"]: r for r in recon.read_metrics(exp)[0]}  # the closing line repeats the last step
-    ref = {r["step"]: r for r in recon.read_metrics(RUN_K)[0]}
-    win = [s for s in sorted(got) if QR_WINDOW[0] <= s <= QR_WINDOW[1]]
-    loss, ref_loss = (float(np.mean([d[s]["loss"] for s in win])) for d in (got, ref))
-    perps = [got[s]["perplexity"] for s in win]
-    ms_step = (got[1500]["time"] - got[100]["time"]) / 1400 * 1e3
+    ref = {r["step"]: r for r in recon.read_metrics(ref_dir)[0]}
+    lines, loss = recon.log_window(exp, *spec.window)
+    ref_lines, ref_loss = recon.log_window(ref_dir, *spec.window)
+    win = [r["step"] for r in lines]
+    perps = [r["perplexity"] for r in lines]
+    vq = max(r["perplexity"] for r in ref_lines) > 0  # a codebook: its perplexity floor is held
+    last = max(got)
+    ms_step = (got[last]["time"] - got[100]["time"]) / (last - 100) * 1e3
     reseeded = {s: got[s]["reseeded"] for s in sorted(got) if got[s]["reseeded"]}
-    for s in (1, 500, 1000, 1500):
-        log(f"phase 13: step {s}: loss {got[s]['loss']:.4f} perplexity {got[s]['perplexity']:.1f} "
-            f"(run K {ref[s]['loss']:.4f}, {ref[s]['perplexity']:.1f})")
-    log(f"phase 13: steps {win[0]}-{win[-1]} ({len(win)} lines): mean loss {loss:.4f} nats (run K {ref_loss:.4f}, "
-        f"bound +-{TOL_QR_LOSS}), perplexity {min(perps):.1f}-{max(perps):.1f} (floor {MIN_QR_PERPLEXITY}; run K "
-        f"{min(ref[s]['perplexity'] for s in win):.1f}-{max(ref[s]['perplexity'] for s in win):.1f}); reseeded "
-        f"{json.dumps(reseeded)}; grad norm at step {max(got)} {got[max(got)]['grad_norm']:.4f}; "
-        f"{ms_step:.2f} ms a step over steps 100-1500 (host clock, log times); launches {json.dumps(launches)} "
-        f"(predicted {json.dumps(QR_TRAIN_LAUNCHES)})")
-    if len(win) != 10 or not abs(loss - ref_loss) <= TOL_QR_LOSS:
-        raise AssertionError(f"mean train loss over {win} is {loss}, run K's {ref_loss} +- {TOL_QR_LOSS}")
-    if not min(perps) >= MIN_QR_PERPLEXITY:
+    for s in spec.shown:
+        log(f"{p}: step {s}: loss {got[s]['loss']:.4f} perplexity {got[s]['perplexity']:.1f} "
+            f"({spec.label} {ref[s]['loss']:.4f}, {ref[s]['perplexity']:.1f})")
+    perp_txt = (f"perplexity {min(perps):.1f}-{max(perps):.1f} (floor {MIN_QR_PERPLEXITY}; {spec.label} "
+                f"{min(r['perplexity'] for r in ref_lines):.1f}-{max(r['perplexity'] for r in ref_lines):.1f}); "
+                f"reseeded {json.dumps(reseeded)}; " if vq else "")
+    log(f"{p}: steps {win[0]}-{win[-1]} ({len(win)} lines): mean loss {loss:.4f} nats ({spec.label} {ref_loss:.4f}, "
+        f"bound +-{TOL_QR_LOSS}), {perp_txt}grad norm at step {last} {got[last]['grad_norm']:.4f}; "
+        f"{ms_step:.2f} ms a step over steps 100-{last} (host clock, log times); launches {json.dumps(launches)} "
+        f"(predicted {json.dumps(predicted)})")
+    if not cfg.fused_stack and spec.phase == 13:
+        log(f"{p}: {spec.hparams}: beside the fused run's mean loss {K1500_FUSED['window_mean_loss']}, perplexity "
+            f"{K1500_FUSED['perplexity'][0]}-{K1500_FUSED['perplexity'][1]} and ABX across speakers "
+            f"{K1500_FUSED['abx_across_speaker_err_pct']} % (phase 13 on an H100)")
+    if len(win) != 10 or win[-1] != spec.max_steps or not abs(loss - ref_loss) <= TOL_QR_LOSS:
+        raise AssertionError(f"mean train loss over {win} is {loss}, {spec.label}'s {ref_loss} +- {TOL_QR_LOSS}")
+    if vq and not min(perps) >= MIN_QR_PERPLEXITY:
         raise AssertionError(f"perplexity fell to {min(perps)} in steps {win} (floor {MIN_QR_PERPLEXITY})")
     if "collapse_abort" in text:
         raise AssertionError("the collapse monitor aborted the quality run")
-    if launches != QR_TRAIN_LAUNCHES:
-        raise AssertionError(f"quality train launched {launches}, the loop predicts {QR_TRAIN_LAUNCHES}")
-    rec["train"] = {"window_mean_loss": loss, "run_k_window_mean_loss": ref_loss, "perplexity": perps,
-                    "reseeded": reseeded, "last_grad_norm": got[max(got)]["grad_norm"], "ms_per_step": ms_step,
-                    "launches": launches}
+    if launches != predicted:
+        raise AssertionError(f"quality train launched {launches}, the loop predicts {predicted}")
+    rec["train"] = {"window_mean_loss": loss, "ref_window_mean_loss": ref_loss, "perplexity": perps,
+                    "reseeded": reseeded, "last_grad_norm": got[last]["grad_norm"], "ms_per_step": ms_step,
+                    "launches": launches, "n_train": n_train, "n_dev": n_dev}
+    count_launches(k2, f"{spec.key}_train", launches["K2"])
+    count_launches(k3, f"{spec.key}_train", launches["K3"])
+    quality_evaluations(spec, cfg, exp, shared, timed, secs, rec, k1, k2, k3)
+    rec["host_s"] = secs
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"{p}: host seconds {json.dumps({k: round(v, 1) for k, v in secs.items()})}; {rec['phase_s']:.1f} s")
+    k2[f"{spec.key}_run"] = rec
+    shutil.rmtree(exp)  # its checkpoints; a later run needs the disk
+    return shared
 
-    # 4. ABX of the trained model (printed: no JAX run recorded step 1500)
-    ckpt = exp / "checkpoint_latest.npz"
-    timed("infer", lambda: run.infer_main(["--root", str(q), str(ckpt.relative_to(q)), "abx_K1500"]))
-    cfg = Config.load(exp / "config.json")
-    lat = timed("abx", lambda: abx.main([str(q / "abx_K1500" / "2019" / "english" / "test"),
+
+def quality_evaluations(spec: QualityRun, cfg, exp: Path, shared: dict, timed, secs: dict, rec: dict, k1, k2, k3):
+    """A quality run's evaluations of its last checkpoint (the raw weights:
+    the 0.9999 shadow is not warm before step 50000): the ABX of its
+    export, dev reconstructions, voice conversion and its F0, CE by segment,
+    each beside its JAX run's record and with K1/K2 launched as predicted;
+    then the kernels at the run's depth."""
+    from wavenet_autoencoders_tpu_torch.cli.main import _load_model
+    from wavenet_autoencoders_tpu_torch.cli.main import main as cli
+    from wavenet_autoencoders_tpu_torch.kernels import decode as K1
+    from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
+    from wavenet_autoencoders_tpu_torch.quality import abx, ce_by_segment, recon, run, vc_f0
+
+    p, step = f"phase {spec.phase}", spec.max_steps
+    q, raw, dumps, sp2ind, traj = (shared[k] for k in ("q", "raw", "dumps", "sp2ind", "traj"))
+    ckpt, abx_dir = exp / "checkpoint_latest.npz", f"abx_{spec.key}"
+    timed("infer", lambda: run.infer_main(["--root", str(q), str(ckpt.relative_to(q)), abx_dir]))
+    lat = timed("abx", lambda: abx.main([str(q / abx_dir / "2019" / "english" / "test"),
                                          str(raw / "test_phone_labels.json"), str(dumps / "test"),
                                          str(cfg.frame_rate)]))["latents"]
-    run_i = next(p["abx"] for p in traj["runs"]["run_I"] if p["step"] == 2000)
-    run_k = next(p["abx"] for p in traj["runs"]["run_K"] if p["step"] == 4000)
     keys = ("abx_across_speaker_err_pct", "abx_within_speaker_err_pct", "abx_dtw_across_speaker_err_pct")
-    log(f"phase 13: ABX at step 1500 across / within / DTW across {' / '.join(str(lat[k]) for k in keys)} %; "
-        f"run I at step 2000 {' / '.join(str(run_i[k]) for k in keys)}, run K at step 4000 "
-        f"{' / '.join(str(run_k[k]) for k in keys)}")
-    rec["abx_step1500"] = lat
+    refs = [f"{label} at step {s} {' / '.join(str(pt['abx'][k]) for k in keys)}"
+            for label, r, s in spec.abx_refs for pt in traj["runs"][r] if pt["step"] == s]
+    log(f"{p}: ABX at step {step} across / within / DTW across {' / '.join(str(lat[k]) for k in keys)} %; "
+        f"{', '.join(refs)}")
+    rec[f"abx_step{step}"] = lat
+    across, base = lat[keys[0]], MFCC_ABX_CPU[keys[0]]
+    if spec.abx_below_baseline:  # held after the evaluations below have printed
+        log(f"{p}: ABX across speakers {across} % against the MFCC baseline's {base} % (held below it); phase "
+            f"13's codes at step 1500 {K1500_FUSED['abx_across_speaker_err_pct']} %")
 
-    # 5-7. reconstruction, voice conversion, CE by segment (raw weights:
-    # the 0.9999 shadow is not warm at step 1500)
     model = _load_model(cfg, str(ckpt), use_ema="auto", device="cuda")
-    syn_list = q / "synthesis_vc.txt"
+    syn_list = q / f"synthesis_{spec.key}.txt"
     syn_list.write_text("".join(f"{line}\n" for line in (raw / "synthesis.txt").read_text().split("\n")[:QR_VC_UTTS]))
-    predicted = {"K1": QR_RECON_UTTS + vc_decodes(dumps / "test", syn_list, cfg.frame_rate, QR_VC_PAD, QR_VC_BATCH),
-                 "K2": QR_CE_UTTS, "K3": 0}
+    in_family = cfg.name.lower() in ("inae", "inae1", "new_inae")
+    predicted = {"K1": spec.recon_utts + vc_decodes(dumps / "test", syn_list, cfg.frame_rate, QR_VC_PAD, QR_VC_BATCH,
+                                                    by_target=in_family),
+                 "K2": spec.ce_utts if cfg.fused_stack else 0, "K3": 0}
     K.LAUNCHES_FWD = K.LAUNCHES_BWD = K1.LAUNCHES = 0
-    rows = timed("recon", lambda: recon.reconstruction_metrics(cfg, model, dumps / "dev", n_utts=QR_RECON_UTTS))
+    finite = {}
+    if spec.recon_utts:
+        rows = timed("recon", lambda: recon.reconstruction_metrics(cfg, model, dumps / "dev", n_utts=spec.recon_utts))
+        calib = timed("calibration", lambda: recon.mismatched_calibration(cfg, dumps / "test"))
+        ref_label, ref_path = spec.recon_ref
+        rq = json.loads((QUALITY / ref_path).read_text())
+        mcd, l1 = float(np.mean([r["mcd_db"] for r in rows])), float(np.mean([r["mel_l1"] for r in rows]))
+        samples = sum(r["dur_sec"] for r in rows) * cfg.sample_rate
+        log(f"{p}: reconstruction of {len(rows)} dev utterances ({samples:.0f} samples, K1 at B=1, "
+            f"{secs['recon'] / samples * 1e3:.4f} ms a sample with scoring): MCD {mcd:.2f} dB, mel-L1 {l1:.3f}; "
+            f"calibration {calib['mcd_db_mismatched_gt_pairs']:.2f} dB / {calib['mel_l1_mismatched_gt_pairs']:.3f}; "
+            f"{ref_label} dev {rq['dev_mcd_db_mean']:.2f} / {rq['dev_mel_l1_mean']:.3f}, calibration "
+            f"{rq['mcd_db_mismatched_gt_pairs']:.2f} / {rq['mel_l1_mismatched_gt_pairs']:.3f}")
+        finite[f"{len(rows)} reconstructions"] = [mcd, l1]
+        rec["recon"] = {"mcd_db": mcd, "mel_l1": l1, **calib}
     recon_k1 = K1.LAUNCHES
-    calib = timed("calibration", lambda: recon.mismatched_calibration(cfg, dumps / "test"))
-    run_d = json.loads((QUALITY / "exp" / "svqwae_r4" / "quality_metrics.json").read_text())
-    mcd, l1 = float(np.mean([r["mcd_db"] for r in rows])), float(np.mean([r["mel_l1"] for r in rows]))
-    samples = sum(r["dur_sec"] for r in rows) * cfg.sample_rate
-    log(f"phase 13: reconstruction of {len(rows)} dev utterances ({samples:.0f} samples, K1 at B=1, "
-        f"{secs['recon'] / samples * 1e3:.4f} ms a sample with scoring): MCD {mcd:.2f} dB, mel-L1 {l1:.3f}; "
-        f"calibration {calib['mcd_db_mismatched_gt_pairs']:.2f} dB / {calib['mel_l1_mismatched_gt_pairs']:.3f}; "
-        f"run D at step 14000 dev {run_d['dev_mcd_db_mean']:.2f} / {run_d['dev_mel_l1_mean']:.3f}, calibration "
-        f"{run_d['mcd_db_mismatched_gt_pairs']:.2f} / {run_d['mel_l1_mismatched_gt_pairs']:.3f}")
-    syn = q / "syn_out"
+    syn = q / f"syn_out_{spec.key}"
     timed("synthesize", lambda: cli(["synthesize", "--preset", str(exp / "config.json"), str(ckpt), str(dumps / "test"),
                                      str(syn), str(syn_list), str(sp2ind), "english",
                                      "--train-dump-root", str(dumps / "train_no_dev"), "--batch", str(QR_VC_BATCH),
                                      "--pad-frames-multiple", str(QR_VC_PAD)]))
     vc_k1 = K1.LAUNCHES - recon_k1
     f0 = timed("vc_f0", lambda: vc_f0.main([str(q), str(syn), "V001"]))
-    f0_k = json.loads((QUALITY / "syn_out_svqK" / "vc_f0_check.json").read_text())
+    f0_ref = json.loads((QUALITY / spec.f0_ref / "vc_f0_check.json").read_text())
     parts = ("source_test", "target_natural", "vc_output")
-    log(f"phase 13: VC median F0 source / target / output {' / '.join(str(f0[p]['median_f0_hz']) for p in parts)} Hz; "
-        f"run K {' / '.join(str(f0_k[p]['median_f0_hz']) for p in parts)} Hz")
+    log(f"{p}: VC median F0 source / target / output {' / '.join(str(f0[k]['median_f0_hz']) for k in parts)} Hz; "
+        f"{spec.label} {' / '.join(str(f0_ref[k]['median_f0_hz']) for k in parts)} Hz")
+    finite["VC F0"] = [f0[k]["median_f0_hz"] for k in parts]
+    rec["vc_f0"] = f0
     # keep the inputs of each of CE's K2 forwards (B=1 x a whole utterance)
     # to hold the kernel against its plain version on them below
-    ce_args, k2_wrapper = [], K.glu_stack_forward
+    ce_args, k2_wrapper, ce_txt = [], K.glu_stack_forward, ""
+    if spec.ce_utts:
+        def keep_inputs(*a):
+            ce_args.append(a)
+            return k2_wrapper(*a)
 
-    def keep_inputs(*a):
-        ce_args.append(a)
-        return k2_wrapper(*a)
-
-    K.glu_stack_forward = keep_inputs
-    try:
-        ce = timed("ce_by_segment", lambda: ce_by_segment.ce_by_segment(cfg, model, q, QR_CE_UTTS))
-    finally:
-        K.glu_stack_forward = k2_wrapper
+        K.glu_stack_forward = keep_inputs
+        try:
+            ce = timed("ce_by_segment", lambda: ce_by_segment.ce_by_segment(cfg, model, q, spec.ce_utts))
+        finally:
+            K.glu_stack_forward = k2_wrapper
+        finite["CE by segment"] = [ce[c]["ce_nats"] for c in ce_by_segment.CLASSES]
+        rec["ce_by_segment"] = ce
+        ce_txt = " / ".join(f"{ce[c]['ce_nats']:.3f}" for c in ce_by_segment.CLASSES)
+        ce_txt = f"CE by segment vowel / fricative / other {ce_txt} nats; "
     ev_launches = {"K1": K1.LAUNCHES, "K2": K.LAUNCHES_FWD, "K3": K.LAUNCHES_BWD}
-    ce_txt = " / ".join(f"{ce[c]['ce_nats']:.3f}" for c in ce_by_segment.CLASSES)
-    log(f"phase 13: CE by segment vowel / fricative / other "
-        f"{ce_txt} nats; evaluation launches "
-        f"{json.dumps(ev_launches)} (predicted {json.dumps(predicted)}: K1 {QR_RECON_UTTS} reconstructions + "
-        f"{vc_k1} VC decodes)")
+    log(f"{p}: {ce_txt}evaluation launches {json.dumps(ev_launches)} (predicted {json.dumps(predicted)}: K1 "
+        f"{spec.recon_utts} reconstructions + {vc_k1} VC decodes)")
     if ev_launches != predicted:
         raise AssertionError(f"evaluation launched {ev_launches}, the code predicts {predicted}")
-    for name, v in ((f"{len(rows)} reconstructions", [mcd, l1]), ("VC F0", [f0[p]["median_f0_hz"] for p in parts]),
-                    ("CE by segment", [ce[c]["ce_nats"] for c in ce_by_segment.CLASSES])):
+    for name, v in finite.items():
         if not np.isfinite(v).all():
             raise AssertionError(f"{name}: {v}")
-    rec.update({"recon": {"mcd_db": mcd, "mel_l1": l1, **calib}, "vc_f0": f0, "ce_by_segment": ce,
-                "eval_launches": ev_launches})
-    count_launches(k2, "quality_train", launches["K2"])
-    count_launches(k3, "quality_train", launches["K3"])
-    count_launches(k1, "quality_recon", recon_k1)
-    count_launches(k1, "quality_synthesize", vc_k1)
-    count_launches(k2, "quality_ce_by_segment", ev_launches["K2"])
+    rec["eval_launches"] = ev_launches
+    if spec.recon_utts:
+        count_launches(k1, f"{spec.key}_recon", recon_k1)
+    count_launches(k1, f"{spec.key}_synthesize", vc_k1)
+    if spec.ce_utts:
+        count_launches(k2, f"{spec.key}_ce_by_segment", ev_launches["K2"])
+    if spec.k1_batches:
+        t0 = time.perf_counter()
+        depth_checks(spec, cfg, model, dumps, ce_args, k1, k2, k3, rec)
+        secs["l16_checks_and_times"] = time.perf_counter() - t0
+    if spec.abx_below_baseline and not across < base:
+        raise AssertionError(f"ABX across speakers of the step-{step} codes is {across} %, not below the MFCC "
+                             f"baseline's {base} %")
 
-    # K1, K2 and K3 at this path's depth (L=16, frame rate 50) against their
-    # plain versions on the same inputs, at phase 1's and phase 5's bounds;
-    # then their times (CUDA events). None of these launches is counted.
-    t0 = time.perf_counter()
+
+def depth_checks(spec: QualityRun, cfg, model, dumps: Path, ce_args: list, k1, k2, k3, rec: dict):
+    """K1, K2 and K3 at a quality run's depth (L=16, frame rate 50) against
+    their plain versions on the same inputs, at phase 1's and phase 5's
+    bounds: K2 on the inputs of CE's forwards (trained weights), K2/K3 at
+    the run's B x T=5120 bf16 (seeded), K1 in teacher mode at the spec's
+    batches (T=1100, seeded weights of the run's widths); then their times
+    (CUDA events) beside their bounds. None of these launches is counted."""
+    import torch
+
+    from wavenet_autoencoders_tpu_torch.kernels import decode as K1
+    from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
+    from wavenet_autoencoders_tpu_torch.models import build_model
+
+    p, L, B = f"phase {spec.phase}", cfg.layers, cfg.batch_size
+    tag = f"L{L}" if spec.phase == 13 else f"{spec.key}_L{L}"
     errs_l16 = {}
     with torch.no_grad():
         # K2 on CE's own inputs: B=1 x each whole utterance, the trained weights
         for i, a in enumerate(ce_args):
             got, want = K.glu_stack_forward(*a), K.glu_stack_forward_reference(*a)
-            errs = {k: rel_err(g, p) for k, g, p in zip(("skips", "hfin", "ab"), got, want)}
+            errs = {k: rel_err(g, w) for k, g, w in zip(("skips", "hfin", "ab"), got, want)}
             ce_store = "bfloat16" if a[0].dtype == torch.bfloat16 else "float32"
             check_glu(errs, ce_store, f"CE forward {i} B=1 T={a[0].shape[1]}")
             errs_l16[f"ce{i}_B1_T{a[0].shape[1]}"] = errs
             k2["max_abs_err"] = max(k2["max_abs_err"] or 0.0,
-                                    max((g.float() - p.float()).abs().max().item() for g, p in zip(got, want)))
+                                    max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want)))
             del got, want
-        del ce_args
-    ce_rel = max(max(e.values()) for e in errs_l16.values())
-    log(f"phase 13: K2 on CE's {len(errs_l16)} forwards ({', '.join(errs_l16)}) against the plain version: "
-        f"{ce_store} storage, max rel error {ce_rel:.3g} (bound {TOL_GLU[ce_store][0]})")
-    # K2/K3 at the training shape, B=40 x T=5120 bf16, seeded inputs
+        ce_args.clear()
+    if errs_l16:
+        ce_rel = max(max(e.values()) for e in errs_l16.values())
+        log(f"{p}: K2 on CE's {len(errs_l16)} forwards ({', '.join(errs_l16)}) against the plain version: "
+            f"{ce_store} storage, max rel error {ce_rel:.3g} (bound {TOL_GLU[ce_store][0]})")
+    # K2/K3 at the training shape, B x T=5120 bf16, seeded inputs
     rng = np.random.default_rng(13)
-    x, c, g_add, w, dils = glu_inputs(40, 5120, torch.bfloat16, rng, L=cfg.layers, stacks=cfg.stacks)
+    C, G, S, cin = cfg.residual_channels, cfg.gate_channels, cfg.skip_out_channels, cfg.cin_channels
+    x, c, g_add, w, dils = glu_inputs(B, 5120, torch.bfloat16, rng, C=C, G=G, S=S, cin=cin, L=L, stacks=cfg.stacks)
     args = (x, c, g_add, w["wconv"], w["bconv"], w["wc"], w["wout"], w["bout"], w["wskip"], w["bskip"], dils)
-    dskips = torch.from_numpy(rng.standard_normal((40, 5120, 256)).astype(np.float32)).cuda().to(torch.bfloat16)
+    dskips = torch.from_numpy(rng.standard_normal((B, 5120, S)).astype(np.float32)).cuda().to(torch.bfloat16)
     with torch.no_grad():
         fwd = K.glu_stack_forward(*args)
         p_fwd = K.glu_stack_forward_reference(*args)
@@ -2280,52 +2454,54 @@ def phase13(k1, k2, k3, tmp: Path):
         torch.cuda.synchronize()
         errs, a2, a3 = glu_errors(fwd, p_fwd, grads, p_grads)
         del fwd, p_fwd, grads, p_grads
-        log(f"phase 13: K2/K3 at L={cfg.layers}, B=40 x T=5120 bfloat16 against the plain versions: "
+        log(f"{p}: K2/K3 at L={L}, B={B} x T=5120 bfloat16 against the plain versions: "
             f"rel errors {json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}")
-        check_glu(errs, "bfloat16", f"L={cfg.layers} B=40 T=5120")
-        errs_l16["B40_T5120"] = errs
+        check_glu(errs, "bfloat16", f"L={L} B={B} T=5120")
+        errs_l16[f"B{B}_T5120"] = errs
         k2["max_abs_err"], k3["max_abs_err"] = max(k2["max_abs_err"] or 0.0, a2), max(k3["max_abs_err"] or 0.0, a3)
         k2_ms = cuda_time(lambda: K.glu_stack_forward(*args), reps=3)
         k3_ms = cuda_time(lambda: K.glu_stack_backward(dskips, hfin, *bargs), reps=3)
         del x, c, g_add, w, args, hfin, ab, bargs, dskips
-        # K1 in teacher mode at run K's widths, seeded weights (phase 1's
-        # bounds hold at random init), B=1 (reconstruction) and B=40 (VC)
+        # K1 in teacher mode at the run's widths, seeded weights (phase 1's
+        # bounds hold at random init), at B=1 (reconstruction) and the
+        # spec's larger batch
         k1_errs = {}
         net = build_model(cfg, device="cuda", seed=13).wavenet
-        for b in (1, 40):
+        for b in spec.k1_batches:
             e = k1_errors(net, b, QR_K1_T, np.random.default_rng(13), ("bfloat16",))
-            log(f"phase 13: K1 at L={cfg.layers}, frame rate {cfg.frame_rate}, B={b} T={QR_K1_T} teacher mode: "
+            log(f"{p}: K1 at L={L}, frame rate {cfg.frame_rate}, B={b} T={QR_K1_T} teacher mode: "
                 f"max|kernel - plain| {json.dumps(e)} bounds {json.dumps(K1_BOUNDS)}")
             for k, v in e.items():
                 if not np.isfinite(v) or v > K1_BOUNDS[k]:
-                    raise AssertionError(f"K1 L={cfg.layers} B={b} {k} = {v} exceeds {K1_BOUNDS[k]}")
-            k1_errs[f"L{cfg.layers}_B{b}_T{QR_K1_T}"] = e
+                    raise AssertionError(f"K1 L={L} B={b} {k} = {v} exceeds {K1_BOUNDS[k]}")
+            k1_errs[f"{tag}_B{b}_T{QR_K1_T}"] = e
         del net
         k1.setdefault("errors", {}).update(k1_errs)
         k1["max_abs_err"] = max([k1["max_abs_err"] or 0.0] + [e["bf16_vs_plain_bf16"] for e in k1_errs.values()])
-        feats = np.load(dumps / "dev" / sorted(p.name for p in (dumps / "dev").iterdir() if p.is_dir())[0]
+        feats = np.load(dumps / "dev" / sorted(d.name for d in (dumps / "dev").iterdir() if d.is_dir())[0]
                         / "mfcc.norm.npy").astype(np.float32)[: 5120 // cfg.get_hop_size()]
         lat = model.encode(torch.from_numpy(feats).cuda()[None])
-        k1_ms = {}
-        for b in (1, 40):
+        k1_ms, k1_bound_ms = {}, {}
+        packed = K1.pack_decode_weights(model.wavenet)
+        for b in spec.k1_batches:
             g = torch.zeros(b, dtype=torch.long, device="cuda")
             k1_ms[b] = cuda_time(lambda: model.wavenet.decode_kernel(5120, c=lat.expand(b, -1, -1), g=g, seed=0),
                                  reps=1) / 5120
-    f2, _, f3, _ = glu_bound(40, 5120, L=cfg.layers)
-    log(f"phase 13: at L={cfg.layers}, B=40 x T=5120 bf16: K2 {k2_ms:.2f} ms, K3 {k3_ms:.2f} ms (bounds by "
+            k1_bound_ms[b] = max(k1_bound(model.wavenet, packed, b, 5120, True)[1:]) / 5120
+    f2, by2, f3, by3 = glu_bound(B, 5120, C=C, G=G, S=S, cin=cin, L=L)
+    log(f"{p}: at L={L}, B={B} x T=5120 bf16: K2 {k2_ms:.2f} ms, K3 {k3_ms:.2f} ms (bounds by "
         f"operations {f2 / H100_BF16_FLOPS * 1e3:.3f} / {f3 / H100_BF16_FLOPS * 1e3:.3f} ms); K1 ms a step at "
-        f"T=5120: B=1 {k1_ms[1]:.4f}, B=40 {k1_ms[40]:.4f}")
-    rec["l16_ms"] = {"K2": k2_ms, "K3": k3_ms, "K1_per_step": k1_ms}
-    secs["l16_checks_and_times"] = time.perf_counter() - t0
+        f"T=5120: {', '.join(f'B={b} {k1_ms[b]:.4f}' for b in spec.k1_batches)}")
+    log(f"{p}: K1 bound a step at T=5120 (the larger of operations and bytes, k1_bound): "
+        f"{', '.join(f'B={b} {k1_bound_ms[b] * 1e3:.4f} us' for b in spec.k1_batches)}; K2/K3 bounds by bytes "
+        f"{by2 / H100_BYTES_PER_S * 1e3:.3f} / {by3 / H100_BYTES_PER_S * 1e3:.3f} ms")
+    rec["l16_ms"] = {"K2": k2_ms, "K3": k3_ms, "K1_per_step": k1_ms, "K1_bound_per_step": k1_bound_ms,
+                     "K2_bound": f2 / H100_BF16_FLOPS * 1e3, "K3_bound": f3 / H100_BF16_FLOPS * 1e3}
     k2.setdefault("max_rel_err", {}).update(
-        {f"L16_{case}": max(e[k] for k in FWD_OUTPUTS) for case, e in errs_l16.items()})
-    k3.setdefault("max_rel_err", {})["L16_B40_T5120"] = max(
-        v for k, v in errs_l16["B40_T5120"].items() if k not in FWD_OUTPUTS)
+        {f"{tag}_{case}": max(e[k] for k in FWD_OUTPUTS) for case, e in errs_l16.items()})
+    k3.setdefault("max_rel_err", {})[f"{tag}_B{B}_T5120"] = max(
+        v for k, v in errs_l16[f"B{B}_T5120"].items() if k not in FWD_OUTPUTS)
     rec["l16_errors"] = {"K2_K3": errs_l16, "K1": k1_errs}
-    rec["host_s"] = secs
-    rec["phase_s"] = time.perf_counter() - t_phase
-    log(f"phase 13: host seconds {json.dumps({k: round(v, 1) for k, v in secs.items()})}; {rec['phase_s']:.1f} s")
-    k2["quality_run"] = rec
 
 
 KERNELS = {
@@ -2338,6 +2514,10 @@ KERNELS = {
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13")
+    ap.add_argument("--quality-hparams", default="",
+                    help='"k=v,..." appended to the quality phases\' (13-15) hparams, e.g. fused_stack=false, seed=1')
+    ap.add_argument("--vq-bf16-product", action="store_true",
+                    help="quality phases: round the VQ distance product's inputs to bf16 (a TPU's default dot)")
     ap.add_argument("--dp-worker", nargs=3, metavar=("INIT", "RANK", "DUMP"), help=argparse.SUPPRESS)
     ap.add_argument("--tp-worker", nargs=4, metavar=("INIT", "RANK", "DUMP", "TMP"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -2418,9 +2598,18 @@ def main(argv=None) -> int:
     if 12 in phases:
         with tempfile.TemporaryDirectory() as tmp:
             phase12(k1, k2, k3, Path(tmp), card)
-    if 13 in phases:
+    quality = [QUALITY_RUNS[n] for n in sorted(phases & set(QUALITY_RUNS))]
+    if args.quality_hparams:
+        quality = [dataclasses.replace(s, hparams=f"{s.hparams},{args.quality_hparams}") for s in quality]
+    if args.vq_bf16_product:
+        from wavenet_autoencoders_tpu_torch.models import bottlenecks
+
+        bottlenecks._nearest_code = nearest_code_bf16_product
+    if quality:
         with tempfile.TemporaryDirectory() as tmp:
-            phase13(k1, k2, k3, Path(tmp))
+            shared = None  # the corpus, made by the first quality run
+            for spec in quality:
+                shared = quality_run(spec, k1, k2, k3, Path(tmp), shared)
 
     print(json.dumps({"kernels": list(res.values())}))
     print(card)

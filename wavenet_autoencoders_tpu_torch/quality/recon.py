@@ -125,6 +125,15 @@ def read_metrics(exp_dir) -> tuple[list[dict], list[dict]]:
     return tr, dv
 
 
+def log_window(exp_dir, first: int, last: int) -> tuple[list[dict], float]:
+    """The train log lines of steps ``first..last`` (both included; the
+    closing line, which repeats the last step, counts once) and their mean
+    loss: the window a quality run is held to."""
+    by_step = {r["step"]: r for r in read_metrics(exp_dir)[0]}
+    lines = [by_step[s] for s in sorted(by_step) if first <= s <= last]
+    return lines, float(np.mean([r["loss"] for r in lines])) if lines else float("nan")
+
+
 def curve_data(exp_dir, out_json) -> tuple[list[dict], list[dict]]:
     """The training curves' data (what ``scripts/quality_eval.py`` plots):
     train step / loss / perplexity / aux loss and dev step / loss."""
