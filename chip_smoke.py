@@ -275,6 +275,26 @@ def cuda_time(fn, reps: int, warmup: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
+def build_model_s(cfg, reps: int = 3) -> list:
+    """Seconds of ``build_model`` on the card (the JAX draw of every initial
+    weight as torch ops there), each call after a synchronize; the first
+    includes CUDA's start-up."""
+    import torch
+
+    from wavenet_autoencoders_tpu_torch.models import build_model
+
+    secs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        model = build_model(cfg, device="cuda")
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    n = sum(p.numel() for p in model.parameters())
+    log(f"phase 0: build_model of {cfg.name} at run K's full width ({n:,} parameters): "
+        f"{' / '.join(f'{t:.3f}' for t in secs)} s")
+    return secs
+
+
 def full_model(seed=0):
     from wavenet_autoencoders_tpu_torch.config import load_preset
     from wavenet_autoencoders_tpu_torch.models import build_model
@@ -343,12 +363,13 @@ def phase1(res):
     import torch
 
     from wavenet_autoencoders_tpu_torch.models.wavenet import WaveNet
+    from wavenet_autoencoders_tpu_torch.utils.jax_random import PRNGKey
 
     _cfg, model = full_model(seed=1)
     net = model.wavenet
     # full width without c and g (K = 3C in the gate product, no g_add)
     bare = WaveNet(out_channels=256, layers=20, stacks=2, residual_channels=256, gate_channels=368,
-                   skip_out_channels=256, dropout=0.0, generator=torch.Generator().manual_seed(1)).cuda()
+                   skip_out_channels=256, dropout=0.0, key=PRNGKey(1, "cuda"))
     # the old case (f32 and bf16), then bf16 at B=256 and a ragged B=37 past
     # the d=512 ring wrap (the large-batch schedule and the tile edges), B=1,
     # and the net without conditioning
@@ -377,6 +398,7 @@ def phase2(res):
 
     from wavenet_autoencoders_tpu_torch.kernels import decode as K
     from wavenet_autoencoders_tpu_torch.models.wavenet import WaveNet
+    from wavenet_autoencoders_tpu_torch.utils.jax_random import PRNGKey
 
     _cfg, model = full_model(seed=2)
     net = model.wavenet
@@ -430,7 +452,7 @@ def phase2(res):
         for dist in ("Logistic", "Normal"):
             snet = WaveNet(out_channels=30, layers=4, stacks=2, residual_channels=16, gate_channels=32,
                            skip_out_channels=16, dropout=0.0, scalar_input=True,
-                           output_distribution=dist, generator=torch.Generator().manual_seed(0)).cuda()
+                           output_distribution=dist, key=PRNGKey(0, "cuda"))
             sp = {k: torch.zeros_like(v) for k, v in K.pack_decode_weights(snet).items()}
             sp["bp2"][10:20] = 0.5    # means
             sp["bp2"][20:30] = -10.0  # log scales
@@ -517,6 +539,7 @@ def phase4(res):
 
     from wavenet_autoencoders_tpu_torch.kernels import decode as K
     from wavenet_autoencoders_tpu_torch.models.wavenet import WaveNet
+    from wavenet_autoencoders_tpu_torch.utils.jax_random import PRNGKey
 
     _cfg, model = full_model(seed=4)
     net = model.wavenet
@@ -539,8 +562,7 @@ def phase4(res):
         # 20-layer net of width 16 at B=4, whose steps are almost all
         # stage hand-offs and per-stage latency (2L+3 stages per step)
         tiny = WaveNet(out_channels=256, layers=20, stacks=2, residual_channels=16, gate_channels=32,
-                       skip_out_channels=16, cin_channels=16, dropout=0.0,
-                       generator=torch.Generator().manual_seed(0)).cuda()
+                       skip_out_channels=16, cin_channels=16, dropout=0.0, key=PRNGKey(0, "cuda"))
         short = 256
         breakdown = {}
         for name, m, b in (("full_B256", net, 256), ("full_B64", net, 64), ("full_B4", net, 4), ("full_B1", net, 1),
@@ -2080,6 +2102,13 @@ K1500_FUSED = {"window_mean_loss": 3.1577, "perplexity": (318.9, 360.3), "abx_ac
 # (frames, as QUALITY.md's VC run); K1's teacher-mode check
 # at the runs' depth: T past the ring wrap of the largest dilation (128)
 QR_VC_UTTS, QR_VC_BATCH, QR_VC_PAD, QR_K1_T = 40, 40, 64, 1100
+# Step 1 of a quality run against its JAX run's log line: the port draws the
+# JAX run's initial weights (PRNGKey(seed) through each module's key splits)
+# and reads the same first batch, so only the arithmetic differs (bf16 on an
+# H100 against bf16 on a TPU). Held where the record has the metric (run F
+# has no codebook); 5e-2 on the grad norm is the bound for two frameworks'
+# bf16 convs (tests/test_torch_port_train.py).
+TOL_RECORD_STEP1 = {"loss": 1e-3, "aux_loss": 1e-2, "perplexity": 2e-2, "grad_norm": 5e-2}
 
 
 def nearest_code_bf16_product(flat, codebook):
@@ -2263,12 +2292,21 @@ def quality_run(spec: QualityRun, k1, k2, k3, tmp: Path, shared: dict | None) ->
     last = max(got)
     ms_step = (got[last]["time"] - got[100]["time"]) / (last - 100) * 1e3
     reseeded = {s: got[s]["reseeded"] for s in sorted(got) if got[s]["reseeded"]}
+    ref_reseeded = {s: ref[s]["reseeded"] for s in sorted(ref) if s <= last and ref[s].get("reseeded")}
+    step1 = {k: (got[1][k], ref[1][k], abs(got[1][k] - ref[1][k]) / abs(ref[1][k]))
+             for k in TOL_RECORD_STEP1 if ref[1].get(k)}
+    step1_off = {k: v for k, v in step1.items() if not v[2] <= TOL_RECORD_STEP1[k]}
+    log(f"{p}: step 1 against {spec.label}'s record: "
+        + "; ".join(f"{k} {g:.5g} ({spec.label} {r:.5g}, rel {d:.2e}, bound {TOL_RECORD_STEP1[k]:g})"
+                    for k, (g, r, d) in step1.items())
+        + ("" if step1_off else " -- held"))
+    rec["step1"] = step1
     for s in spec.shown:
         log(f"{p}: step {s}: loss {got[s]['loss']:.4f} perplexity {got[s]['perplexity']:.1f} "
             f"({spec.label} {ref[s]['loss']:.4f}, {ref[s]['perplexity']:.1f})")
     perp_txt = (f"perplexity {min(perps):.1f}-{max(perps):.1f} (floor {MIN_QR_PERPLEXITY}; {spec.label} "
                 f"{min(r['perplexity'] for r in ref_lines):.1f}-{max(r['perplexity'] for r in ref_lines):.1f}); "
-                f"reseeded {json.dumps(reseeded)}; " if vq else "")
+                f"reseeded {json.dumps(reseeded)} ({spec.label} {json.dumps(ref_reseeded)}); " if vq else "")
     log(f"{p}: steps {win[0]}-{win[-1]} ({len(win)} lines): mean loss {loss:.4f} nats ({spec.label} {ref_loss:.4f}, "
         f"bound +-{TOL_QR_LOSS}), {perp_txt}grad norm at step {last} {got[last]['grad_norm']:.4f}; "
         f"{ms_step:.2f} ms a step over steps 100-{last} (host clock, log times); launches {json.dumps(launches)} "
@@ -2296,6 +2334,9 @@ def quality_run(spec: QualityRun, k1, k2, k3, tmp: Path, shared: dict | None) ->
     log(f"{p}: host seconds {json.dumps({k: round(v, 1) for k, v in secs.items()})}; {rec['phase_s']:.1f} s")
     k2[f"{spec.key}_run"] = rec
     shutil.rmtree(exp)  # its checkpoints; a later run needs the disk
+    # held last, so that a miss still prints every evaluation of the run
+    if step1_off:
+        raise AssertionError(f"step 1 is off {spec.label}'s record: {step1_off} (bounds {TOL_RECORD_STEP1})")
     return shared
 
 
@@ -2548,7 +2589,7 @@ def main(argv=None) -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  {name}: {line.strip()}")
-    from wavenet_autoencoders_tpu_torch.config import load_preset
+    from wavenet_autoencoders_tpu_torch.config import Config, load_preset
     from wavenet_autoencoders_tpu_torch.kernels import decode as K1
 
     cfg = load_preset("svqwae")
@@ -2558,6 +2599,7 @@ def main(argv=None) -> int:
     log(f"phase 0: K1 bf16 (decode_tc_kernel) at svqwae width on {plan.n_blocks} blocks: dynamic shared memory "
         f"{plan.smem} bytes a block (resident weights {int(share.min())}..{int(share.max())} bytes, "
         f"{int(share.sum())} in all, + {plan.smem - int(share.max())} of partial sums); {len(plan.units)} tiles")
+    build_model_s(Config.load(RUN_K / "config.json"))
 
     res = {k: {"name": n, "route": "cuda", "source": f"wavenet_autoencoders_tpu_torch/csrc/{src}",
                "replaces": rep, "launches": None, "max_abs_err": None, "ms": None, "plain_ms": None,

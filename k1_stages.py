@@ -88,11 +88,11 @@ def run() -> dict:
     from wavenet_autoencoders_tpu_torch.kernels import decode as K
     from wavenet_autoencoders_tpu_torch.models import build_model
     from wavenet_autoencoders_tpu_torch.models.wavenet import WaveNet
+    from wavenet_autoencoders_tpu_torch.utils.jax_random import PRNGKey
 
     net = build_model(load_preset("svqwae"), device="cuda", seed=4).wavenet
     tiny = WaveNet(out_channels=256, layers=20, stacks=2, residual_channels=16, gate_channels=32,
-                   skip_out_channels=16, cin_channels=16, dropout=0.0,
-                   generator=torch.Generator().manual_seed(0)).cuda()
+                   skip_out_channels=16, cin_channels=16, dropout=0.0, key=PRNGKey(0, "cuda"))
     lib = K._lib(("WAE_STAMPS",))
     lib.wae_stamps.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
     lib.wae_stamps.restype = ctypes.c_int

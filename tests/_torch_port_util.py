@@ -45,12 +45,13 @@ def nets(seed=0, **kw):
 
     from wavenet_autoencoders_tpu.models.wavenet import WaveNet as JWaveNet
     from wavenet_autoencoders_tpu_torch.models.wavenet import WaveNet
+    from wavenet_autoencoders_tpu_torch.utils.jax_random import PRNGKey
     from wavenet_autoencoders_tpu_torch.utils.params import load_jax_params
 
     d = tiny_net_kwargs(**kw)
     jnet = JWaveNet(**{k: (tuple(v) if isinstance(v, list) else v) for k, v in d.items()})
     params = jnet.init(jax.random.PRNGKey(seed))
-    net = WaveNet(**d)
+    net = WaveNet(**d, key=PRNGKey(seed))
     load_jax_params(net, to_np(params))
     return jnet, params, net
 

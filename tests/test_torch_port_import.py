@@ -106,13 +106,14 @@ def test_unknown_family_raises_as_jax(tmp_path):
 
 def test_conv_layout_matches_torch():
     from wavenet_autoencoders_tpu_torch.ops.conv import Conv1d, causal_conv1d_apply
+    from wavenet_autoencoders_tpu_torch.utils.jax_random import PRNGKey
 
     torch.manual_seed(0)
     Cout, Cin, K, d, T = 6, 4, 3, 4, 32
     w, b, x = torch.randn(Cout, Cin, K), torch.randn(Cout), torch.randn(1, Cin, T)
     # reference-style causal conv: symmetric pad (k-1)*d then truncate
     y_t = F.conv1d(x, w, b, padding=(K - 1) * d, dilation=d)[:, :, :T]
-    p = Conv1d(Cin, Cout, K)
+    p = Conv1d(Cin, Cout, K, key=PRNGKey(0))
     with torch.no_grad():
         p.w.copy_(torch.from_numpy(ti._conv_w(w.numpy())))
         p.b.copy_(b)
@@ -122,11 +123,12 @@ def test_conv_layout_matches_torch():
 
 def test_weight_norm_fold_matches_torch():
     from wavenet_autoencoders_tpu_torch.ops.conv import WNConv1d, conv1d_apply
+    from wavenet_autoencoders_tpu_torch.utils.jax_random import PRNGKey
 
     torch.manual_seed(1)
     conv = torch.nn.utils.weight_norm(torch.nn.Conv1d(4, 6, 3, bias=True, padding=1))
     sd = {f"c.{k}": v.detach().numpy() for k, v in conv.state_dict().items()}
-    p = WNConv1d(4, 6, 3)
+    p = WNConv1d(4, 6, 3, key=PRNGKey(1))
     with torch.no_grad():
         for k, v in ti._wn_conv(sd, "c").items():
             getattr(p, k).copy_(torch.from_numpy(v))
@@ -137,10 +139,11 @@ def test_weight_norm_fold_matches_torch():
 
 def test_linear_layout_matches_torch():
     from wavenet_autoencoders_tpu_torch.ops.conv import Linear, linear_apply
+    from wavenet_autoencoders_tpu_torch.utils.jax_random import PRNGKey
 
     torch.manual_seed(2)
     lin, x = torch.nn.Linear(8, 3), torch.randn(5, 8)
-    p = Linear(8, 3)
+    p = Linear(8, 3, key=PRNGKey(2))
     with torch.no_grad():
         p.w.copy_(torch.from_numpy(ti._lin_w(lin.weight.numpy())))
         p.b.copy_(lin.bias)

@@ -48,6 +48,18 @@ def test_source_names_no_jax_and_no_jax_package(path):
     assert "from wavenet_autoencoders_tpu import" not in text
 
 
+def test_jax_random_is_among_the_sources_checked():
+    """The JAX PRNG of the port is torch ops: its source is one of the files
+    checked above, and it runs with no JAX loaded."""
+    assert PORT / "utils" / "jax_random.py" in SOURCES
+    out = subprocess.run(
+        [sys.executable, "-c", "import sys; from wavenet_autoencoders_tpu_torch.utils import jax_random as jr; "
+                               "jr.normal(jr.PRNGKey(0), (3,)); print(any(n.split('.')[0] in ('jax', 'jaxlib') "
+                               "for n in sys.modules))"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "False", out.stdout + out.stderr
+
+
 def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 

@@ -21,6 +21,7 @@ from wavenet_autoencoders_tpu.ops import modules as jmod  # noqa: E402
 from wavenet_autoencoders_tpu.ops import upsample as jup  # noqa: E402
 from wavenet_autoencoders_tpu_torch.models import bottlenecks as bn  # noqa: E402
 from wavenet_autoencoders_tpu_torch.ops import conv, modules, upsample  # noqa: E402
+from wavenet_autoencoders_tpu_torch.utils import jax_random as jr  # noqa: E402
 from wavenet_autoencoders_tpu_torch.utils.params import load_jax_params  # noqa: E402
 
 ATOL = 1e-5
@@ -49,10 +50,10 @@ def test_conv1d_matches_jax(padding, stride, dilation, weight_norm):
     key = jax.random.PRNGKey(0)
     if weight_norm:
         jp = jconv.conv1d_init(key, 4, 6, 3)
-        p = _port(conv.WNConv1d(4, 6, 3), jp)
+        p = _port(conv.WNConv1d(4, 6, 3, key=jr.PRNGKey(0)), jp)
     else:
         jp = jconv.plain_conv1d_init(key, 4, 6, 3)
-        p = _port(conv.Conv1d(4, 6, 3), jp)
+        p = _port(conv.Conv1d(4, 6, 3, key=jr.PRNGKey(0)), jp)
     x = _rand(1, 2, 17, 4)
     want = jconv.conv1d_apply(jp, x, stride=stride, dilation=dilation, padding=padding)
     got = conv.conv1d_apply(p, torch.from_numpy(x), stride=stride, dilation=dilation, padding=padding)
@@ -61,7 +62,7 @@ def test_conv1d_matches_jax(padding, stride, dilation, weight_norm):
 
 def test_linear_and_receptive_field_match_jax():
     jp = jconv.linear_init(jax.random.PRNGKey(2), 5, 3)
-    p = _port(conv.Linear(5, 3), jp)
+    p = _port(conv.Linear(5, 3, key=jr.PRNGKey(2)), jp)
     x = _rand(3, 4, 5)
     _close(conv.linear_apply(p, torch.from_numpy(x)), jconv.linear_apply(jp, x))
     assert conv.receptive_field_size(20, 2, 3) == jconv.receptive_field_size(20, 2, 3)
@@ -70,7 +71,8 @@ def test_linear_and_receptive_field_match_jax():
 def _glu(seed=0, cin=5, gin=6):
     jp = jmod.residual_glu_init(jax.random.PRNGKey(seed), 8, 12, 3, skip_out_channels=7,
                                 cin_channels=cin, gin_channels=gin)
-    p = _port(modules.ResidualGLU(8, 12, 3, skip_out_channels=7, cin_channels=cin, gin_channels=gin), jp)
+    p = _port(modules.ResidualGLU(8, 12, 3, skip_out_channels=7, cin_channels=cin, gin_channels=gin,
+                                   key=jr.PRNGKey(seed)), jp)
     return jp, p
 
 
@@ -104,7 +106,7 @@ def test_residual_glu_step_matches_jax():
 def test_conv_in_upsample_matches_jax(cin_pad):
     scales = (2, 3)
     jp = jup.conv_in_upsample_init(jax.random.PRNGKey(3), 4, cin_pad, scales)
-    p = _port(upsample.ConvInUpsample(4, cin_pad, scales), jp)
+    p = _port(upsample.ConvInUpsample(4, cin_pad, scales, key=jr.PRNGKey(3)), jp)
     c = _rand(7, 2, 6, 4)
     want = jup.conv_in_upsample_apply(jp, c, scales)
     got = upsample.conv_in_upsample_apply(p, torch.from_numpy(c), scales)
@@ -115,7 +117,7 @@ def test_conv_in_upsample_matches_jax(cin_pad):
 def test_upsample_network_with_cin_pad_trim_matches_jax():
     scales = (2, 2)
     jp = jup.upsample_network_init(None, scales, 3)
-    p = _port(upsample.UpsampleNetwork(scales, 3), jp)
+    p = _port(upsample.UpsampleNetwork(scales, 3, key=jr.PRNGKey(0)), jp)
     # perturb the smoothing weights so the test is not of the constant init
     for i, cv in enumerate(p.convs):
         v = _rand(10 + i, *cv.v.shape)
@@ -135,7 +137,7 @@ def test_instance_norm_and_adain_match_jax():
 @pytest.mark.parametrize("K1", [None, 5])
 def test_sliced_vq_matches_jax(K1):
     jp = jbn.sliced_vq_init(jax.random.PRNGKey(4), 8, 6, num_slices=2, K1=K1)
-    p = _port(bn.SlicedVQ(8, 6, 2, K1), jp)
+    p = _port(bn.SlicedVQ(8, 6, 2, K1, key=jr.PRNGKey(4)), jp)
     z = 0.1 * _rand(11, 2, 9, 6)
     jq, jl, jperp, jidx = jbn.sliced_vq_apply(jp, z, beta=0.25, commit_scale=0.5)
     q, l, perp, idx = bn.sliced_vq_apply(p, torch.from_numpy(z), beta=0.25, commit_scale=0.5)
@@ -147,7 +149,7 @@ def test_sliced_vq_matches_jax(K1):
 
 def test_vq_matches_jax():
     jp = jbn.vq_init(jax.random.PRNGKey(5), 8, 4)
-    p = _port(bn.VQ(8, 4), jp)
+    p = _port(bn.VQ(8, 4, key=jr.PRNGKey(5)), jp)
     z = 0.1 * _rand(12, 3, 7, 4)
     jq, jl, jperp, jidx = jbn.vq_apply(jp, z, beta=0.3)
     q, l, perp, idx = bn.vq_apply(p, torch.from_numpy(z), beta=0.3)
@@ -158,7 +160,7 @@ def test_vq_matches_jax():
 
 
 def test_vq_straight_through_gradient():
-    p = bn.VQ(8, 4, generator=torch.Generator().manual_seed(0))
+    p = bn.VQ(8, 4, key=jr.PRNGKey(0))
     z = torch.from_numpy(0.1 * _rand(13, 2, 5, 4)).requires_grad_()
     q, *_ = bn.vq_apply(p, z)
     q.sum().backward()
@@ -172,7 +174,7 @@ def test_encoder_matches_jax(downsample):
 
     jenc = JEncoder(c_in=7, hid=12, c_out=5, downsample=downsample)
     jp = jenc.init(jax.random.PRNGKey(6))
-    enc = _port(Encoder(c_in=7, hid=12, c_out=5, downsample=downsample), jp)
+    enc = _port(Encoder(c_in=7, hid=12, c_out=5, downsample=downsample, key=jr.PRNGKey(6)), jp)
     x = _rand(14, 2, 24, 7)
     got = enc.apply(torch.from_numpy(x))
     assert got.shape == (2, 24 // downsample, 5)

@@ -24,6 +24,7 @@ from wavenet_autoencoders_tpu.models import bottlenecks as jbn  # noqa: E402
 from wavenet_autoencoders_tpu.ops import modules as jmod  # noqa: E402
 from wavenet_autoencoders_tpu_torch.models import bottlenecks as bn  # noqa: E402
 from wavenet_autoencoders_tpu_torch.ops import modules  # noqa: E402
+from wavenet_autoencoders_tpu_torch.utils import jax_random as jr  # noqa: E402
 from wavenet_autoencoders_tpu_torch.utils.params import load_jax_params  # noqa: E402
 
 ATOL = 1e-5
@@ -43,7 +44,7 @@ def test_vq_ema_apply_matches_jax(slices, K1):
     then one in eval mode: outputs and the updated state."""
     K, D = 8, 6
     jstate = jbn.vq_ema_init(jax.random.PRNGKey(0), K, D, num_slices=slices, K1=K1)
-    port = bn.VQEMA(K, D, slices, K1)
+    port = bn.VQEMA(K, D, slices, K1, key=jr.PRNGKey(0))
     load_jax_params(port, {}, to_np(jstate))
     for i, train in enumerate((True, True, False)):
         z = _rand(10 + i, 3, 7, D)
@@ -61,7 +62,7 @@ def test_vq_ema_apply_matches_jax(slices, K1):
 
 def test_vq_ema_gradient_reaches_only_the_encoder_side():
     """EMA codebooks get no gradient; the commit loss pulls z toward q."""
-    port = bn.VQEMA(8, 4)
+    port = bn.VQEMA(8, 4, key=jr.PRNGKey(0))
     z = _t(_rand(1, 2, 5, 4)).requires_grad_()
     q, loss, _, _ = bn.vq_ema_apply(port, z, train=True)
     (loss + q.sum()).backward()
@@ -116,7 +117,7 @@ def test_vq_dropout_matches_jax(drop_dim):
 def test_residual_glu_dropout_matches_jax(dropout):
     jp = jmod.residual_glu_init(jax.random.PRNGKey(1), 8, 12, 3, skip_out_channels=7, cin_channels=5,
                                 gin_channels=6)
-    p = modules.ResidualGLU(8, 12, 3, skip_out_channels=7, cin_channels=5, gin_channels=6)
+    p = modules.ResidualGLU(8, 12, 3, skip_out_channels=7, cin_channels=5, gin_channels=6, key=jr.PRNGKey(1))
     load_jax_params(p, to_np(jp))
     x, c, g = _rand(1, 2, 13, 8), _rand(2, 2, 13, 5), _rand(3, 2, 6)
     key = jax.random.PRNGKey(17)
@@ -155,7 +156,7 @@ def test_wavenet_draws_one_dropout_mask_per_layer_like_jax():
 
 
 def test_dropout_without_noise_source_raises():
-    p = modules.ResidualGLU(8, 12, 3)
+    p = modules.ResidualGLU(8, 12, 3, key=jr.PRNGKey(0))
     with pytest.raises(ValueError, match="Generator"):
         modules.residual_glu_apply(p, torch.zeros(1, 4, 8), dropout=0.1)
 
@@ -167,7 +168,7 @@ def test_port_dropout_draws_keep_rate_and_scale(p_drop, monkeypatch):
     taps reads its dropped input back)."""
     n = 200_000
     x = torch.ones(1, n, 1)
-    p = modules.ResidualGLU(1, 2, 1, skip_out_channels=1)
+    p = modules.ResidualGLU(1, 2, 1, skip_out_channels=1, key=jr.PRNGKey(0))
     seen = {}
 
     def conv(params, h, dilation=1, dtype=None):

@@ -211,9 +211,9 @@ def test_per_half_shards_give_each_rank_its_gate_columns(n):
     and its partial out/skip products sum to the layer's."""
     from wavenet_autoencoders_tpu_torch.ops.conv import wn_fold
     from wavenet_autoencoders_tpu_torch.ops.modules import ResidualGLU, _gate
+    from wavenet_autoencoders_tpu_torch.utils.jax_random import PRNGKey
 
-    gen = torch.Generator().manual_seed(0)
-    lp = ResidualGLU(8, 16, 3, 8, cin_channels=5, gin_channels=3, generator=gen)
+    lp = ResidualGLU(8, 16, 3, 8, cin_channels=5, gin_channels=3, key=PRNGKey(0))
     x, c, g = torch.randn(2, 7, 8), torch.randn(2, 7, 5), torch.randn(2, 1, 3)
     full = {k: p.detach() for k, p in flatten_params(lp).items()}
     shapes = {f"layers/0/{k}": tuple(v.shape) for k, v in full.items()}

@@ -12,7 +12,8 @@
 
 z is (B, T', D) throughout. ``.detach()`` stands for ``stop_gradient``.
 Each stochastic function takes its noise as an argument (``u``, ``start``,
-``cand_idx``) or draws it from ``generator``. Inside
+``cand_idx``: the train step draws the reseed candidates from the JAX
+step's keys) or draws it from a torch ``generator``. Inside
 ``parallel.distributed.synced()`` the code counts (perplexity, usage) and
 the EMA statistics are those of the global batch.
 """
@@ -24,6 +25,7 @@ from torch import nn
 
 from wavenet_autoencoders_tpu_torch.ops.conv import Linear, linear_apply
 from wavenet_autoencoders_tpu_torch.parallel import distributed as dist
+from wavenet_autoencoders_tpu_torch.utils import jax_random as jr
 
 
 def _nearest_code(flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
@@ -50,27 +52,29 @@ def _perplexity(one_hot: torch.Tensor) -> torch.Tensor:
     return torch.exp(-(avg * torch.log(avg + 1e-10)).sum())
 
 
-def _uniform_codebook(K, D, generator=None):
-    return (torch.rand(K, D, generator=generator) * 2.0 - 1.0) / K
+def _uniform_codebook(key, K, D):
+    return jr.uniform(key, (K, D), -1.0 / K, 1.0 / K)
 
 
 class VQ(nn.Module):
-    """Plain VQ: ``codebook`` (K, D)."""
+    """Plain VQ: ``codebook`` (K, D), U(±1/K) from ``key``."""
 
-    def __init__(self, K: int, D: int, generator=None):
+    def __init__(self, K: int, D: int, *, key: torch.Tensor):
         super().__init__()
-        self.codebook = nn.Parameter(_uniform_codebook(K, D, generator))
+        self.codebook = nn.Parameter(_uniform_codebook(key, K, D))
 
 
 class SlicedVQ(nn.Module):
-    """Sliced VQ: ``codebooks.{i}`` (K_i, D/num_slices)."""
+    """Sliced VQ: ``codebooks.{i}`` (K_i, D/num_slices), one key split
+    from ``key`` a slice."""
 
-    def __init__(self, K: int, D: int, num_slices: int = 2, K1: int | None = None, generator=None):
+    def __init__(self, K: int, D: int, num_slices: int = 2, K1: int | None = None, *, key: torch.Tensor):
         super().__init__()
         assert D % num_slices == 0
         sub = D // num_slices
+        keys = jr.split(key, num_slices)
         self.codebooks = nn.ParameterList(
-            _uniform_codebook(s, sub, generator) for s in _slice_sizes(K, K1, num_slices)
+            _uniform_codebook(k, s, sub) for k, s in zip(keys, _slice_sizes(K, K1, num_slices))
         )
 
 
@@ -143,16 +147,17 @@ class VQEMA(nn.Module):
     ``codebooks.{i}`` (K_i, sub), ``cluster_size.{i}`` (K_i,) and
     ``ema_w.{i}`` (K_i, sub); one slice of D when ``num_slices`` is 1."""
 
-    def __init__(self, K: int, D: int, num_slices: int = 1, K1: int | None = None, generator=None):
+    def __init__(self, K: int, D: int, num_slices: int = 1, K1: int | None = None, *, key: torch.Tensor):
         super().__init__()
         if num_slices == 1:
             sizes, sub = [K], D
         else:
             assert D % num_slices == 0
             sizes, sub = _slice_sizes(K, K1, num_slices), D // num_slices
-        self.codebooks = BufferList(_uniform_codebook(s, sub, generator) for s in sizes)
-        self.cluster_size = BufferList(torch.zeros(s) for s in sizes)
-        self.ema_w = BufferList(torch.zeros(s, sub) for s in sizes)
+        keys, dev = jr.split(key, len(sizes)), key.device
+        self.codebooks = BufferList(_uniform_codebook(k, s, sub) for k, s in zip(keys, sizes))
+        self.cluster_size = BufferList(torch.zeros(s, device=dev) for s in sizes)
+        self.ema_w = BufferList(torch.zeros(s, sub, device=dev) for s in sizes)
 
 
 def vq_ema_apply(state: VQEMA, z: torch.Tensor, beta: float = 0.25, decay: float = 0.99, train: bool = True):
@@ -201,15 +206,13 @@ def update_usage(usage: torch.Tensor, counts: torch.Tensor, decay: float) -> tor
 
 
 def reseed_slice(codebook: torch.Tensor, usage: torch.Tensor, z_slice: torch.Tensor, thresh: float, active: bool,
-                 *, cand_idx: torch.Tensor | None = None, generator: torch.Generator | None = None):
+                 *, cand_idx: torch.Tensor):
     """Revive dead codes: rows whose usage EMA is below ``thresh/K`` (when
-    ``active``) become encoder outputs ``z_slice[cand_idx]`` (K indices,
-    drawn uniformly from ``generator`` unless given), and their usage is
-    reset to 1/K. Returns (new_codebook, new_usage, dead mask)."""
+    ``active``) become encoder outputs ``z_slice[cand_idx]`` (K indices: the
+    JAX step draws ``randint(key, (K,), 0, N)``), and their usage is reset
+    to 1/K. Returns (new_codebook, new_usage, dead mask)."""
     K = codebook.shape[0]
     dead = (usage < thresh / K) & active
-    if cand_idx is None:
-        cand_idx = torch.randint(0, z_slice.shape[0], (K,), generator=generator, device=z_slice.device)
     cand = z_slice[cand_idx.to(z_slice.device).long()].to(codebook.dtype)
     new_cb = torch.where(dead[:, None], cand, codebook)
     new_usage = torch.where(dead, torch.full_like(usage, 1.0 / K), usage)
@@ -218,14 +221,16 @@ def reseed_slice(codebook: torch.Tensor, usage: torch.Tensor, z_slice: torch.Ten
 
 class Gumbel(nn.Module):
     """Per slice a logits head ``heads.{i}`` (D/slices -> k) and a code table
-    ``codes.{i}`` (k, D/slices), N(0, 0.01²)."""
+    ``codes.{i}`` (k, D/slices), N(0, 0.01²); slice i draws from keys 2i
+    and 2i + 1 of the 2·slices split from ``key`` (JAX ``gumbel_init``)."""
 
-    def __init__(self, D: int, k: int, slices: int = 4, generator=None):
+    def __init__(self, D: int, k: int, slices: int = 4, *, key: torch.Tensor):
         super().__init__()
         assert D % slices == 0
         sub = D // slices
-        self.heads = nn.ModuleList(Linear(sub, k, generator=generator) for _ in range(slices))
-        self.codes = nn.ParameterList(0.01 * torch.randn(k, sub, generator=generator) for _ in range(slices))
+        keys = jr.split(key, 2 * slices)
+        self.heads = nn.ModuleList(Linear(sub, k, key=keys[2 * i]) for i in range(slices))
+        self.codes = nn.ParameterList(0.01 * jr.normal(keys[2 * i + 1], (k, sub)) for i in range(slices))
 
 
 def gumbel_apply(p: Gumbel, z: torch.Tensor, *, tau: float = 0.1, hard: bool = False, train: bool = True,

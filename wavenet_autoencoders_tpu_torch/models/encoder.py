@@ -23,6 +23,7 @@ from torch import nn
 
 from wavenet_autoencoders_tpu_torch.ops.conv import Conv1d, Linear, conv1d_apply, linear_apply
 from wavenet_autoencoders_tpu_torch.parallel.distributed import copy_to_model, gather_from_model, model_index
+from wavenet_autoencoders_tpu_torch.utils import jax_random as jr
 
 
 def _block_apply(p, x, k, stride, residual, dtype=None, gather=True):
@@ -46,18 +47,21 @@ def _block_apply(p, x, k, stride, residual, dtype=None, gather=True):
 
 
 class Encoder(nn.Module):
-    """Parameters ``blocks.{i}.w|b`` and ``lin.w|b``."""
+    """Parameters ``blocks.{i}.w|b`` and ``lin.w|b``, drawn from the keys
+    split from ``key``: one a block, then ``lin`` (JAX ``Encoder.init``)."""
 
     def __init__(self, c_in: int = 39, hid: int = 768, c_out: int = 64,
-                 downsample: int = 4, generator=None):
+                 downsample: int = 4, *, key: torch.Tensor):
         super().__init__()
         self.c_in, self.hid, self.c_out, self.downsample = c_in, hid, c_out, downsample
+        specs = self._blocks()
+        keys = jr.split(key, len(specs) + 1)
         blocks, cin = [], c_in
-        for k, _s in self._blocks():
-            blocks.append(Conv1d(cin, hid, k, bias=True, generator=generator))
+        for i, (k, _s) in enumerate(specs):
+            blocks.append(Conv1d(cin, hid, k, bias=True, key=keys[i]))
             cin = hid
         self.blocks = nn.ModuleList(blocks)
-        self.lin = Linear(hid, c_out, generator=generator)
+        self.lin = Linear(hid, c_out, key=keys[-1])
 
     def _blocks(self):
         """(kernel, stride) per block."""
@@ -84,14 +88,15 @@ class Encoder(nn.Module):
 
 class SpeakerEncoder(nn.Module):
     """Utterance-level speaker code: parameters ``blocks.{0,1,2}.w|b`` (k=3)
-    and ``lin.w|b``."""
+    and ``lin.w|b``, from four keys split from ``key``."""
 
-    def __init__(self, c_in: int = 39, hid: int = 128, c_out: int = 64, generator=None):
+    def __init__(self, c_in: int = 39, hid: int = 128, c_out: int = 64, *, key: torch.Tensor):
         super().__init__()
+        keys = jr.split(key, 4)
         self.blocks = nn.ModuleList(
-            Conv1d(cin, hid, 3, bias=True, generator=generator) for cin in (c_in, hid, hid)
+            Conv1d(cin, hid, 3, bias=True, key=keys[i]) for i, cin in enumerate((c_in, hid, hid))
         )
-        self.lin = Linear(hid, c_out, generator=generator)
+        self.lin = Linear(hid, c_out, key=keys[3])
 
     def apply(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
         """x: (B, T, c_in) -> (B, c_out)."""

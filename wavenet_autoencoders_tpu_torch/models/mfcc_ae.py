@@ -18,22 +18,28 @@ from torch import nn
 from wavenet_autoencoders_tpu_torch.models import bottlenecks as bn
 from wavenet_autoencoders_tpu_torch.models.encoder import Encoder, _block_apply
 from wavenet_autoencoders_tpu_torch.ops.conv import Conv1d, Linear, linear_apply
+from wavenet_autoencoders_tpu_torch.utils import jax_random as jr
 
 
 class _FeatDecoder(nn.Module):
-    def __init__(self, hid: int, enc_hid: int, c_in: int, generator=None):
+    def __init__(self, hid: int, enc_hid: int, c_in: int, keys):
         super().__init__()
-        self.lin = Linear(hid, enc_hid, generator=generator)
-        self.blocks = nn.ModuleList(Conv1d(enc_hid, enc_hid, 3, bias=True, generator=generator) for _ in range(2))
-        self.out = Linear(enc_hid, c_in, generator=generator)
+        self.lin = Linear(hid, enc_hid, key=keys[0])
+        self.blocks = nn.ModuleList(Conv1d(enc_hid, enc_hid, 3, bias=True, key=keys[i]) for i in (1, 2))
+        self.out = Linear(enc_hid, c_in, key=keys[3])
 
 
 class MfccAE(nn.Module):
-    def __init__(self, c_in: int = 39, hid: int = 64, enc_hid: int = 256, downsample: int = 1, generator=None):
+    """Five keys split from ``key``: the encoder's, then the decoder's
+    ``lin``, ``blocks.0``, ``blocks.1`` and ``out`` (JAX ``MfccAE.init``)."""
+
+    def __init__(self, c_in: int = 39, hid: int = 64, enc_hid: int = 256, downsample: int = 1, *,
+                 key: torch.Tensor):
         super().__init__()
         self.c_in, self.hid, self.enc_hid, self.downsample = c_in, hid, enc_hid, downsample
-        self.encoder = Encoder(c_in=c_in, hid=enc_hid, c_out=hid, downsample=downsample, generator=generator)
-        self.decoder = _FeatDecoder(hid, enc_hid, c_in, generator=generator)
+        keys = jr.split(key, 5)
+        self.encoder = Encoder(c_in=c_in, hid=enc_hid, c_out=hid, downsample=downsample, key=keys[0])
+        self.decoder = _FeatDecoder(hid, enc_hid, c_in, keys[1:])
 
     def encode(self, c, tar_c=None, dtype=None):
         return self.encoder.apply(c, dtype=dtype)
@@ -55,11 +61,13 @@ class MfccAE(nn.Module):
 
 
 class CatMfccAE(MfccAE):
+    """MfccAE's draws from ``key``, the bottleneck's from ``fold_in(key, 99)``."""
+
     def __init__(self, c_in: int = 39, hid: int = 64, enc_hid: int = 256, downsample: int = 1, *,
-                 k: int = 128, tau: float = 0.1, hard: bool = False, slices: int = 4, generator=None):
-        super().__init__(c_in, hid, enc_hid, downsample, generator=generator)
+                 k: int = 128, tau: float = 0.1, hard: bool = False, slices: int = 4, key: torch.Tensor):
+        super().__init__(c_in, hid, enc_hid, downsample, key=key)
         self.k, self.tau, self.hard, self.slices = k, tau, hard, slices
-        self.gumbel = bn.Gumbel(hid, k, slices, generator=generator)
+        self.gumbel = bn.Gumbel(hid, k, slices, key=jr.fold_in(key, 99))
 
     def encode(self, c, tar_c=None, dtype=None):
         z = self.encoder.apply(c, dtype=dtype)

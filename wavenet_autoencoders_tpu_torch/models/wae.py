@@ -17,13 +17,18 @@ The port's models hold their weights, so ``encode(c, tar_c=None)``,
 (-> ``(y_hat, aux_loss, perplexity)``) take no params/state arguments; the
 non-gradient state of the JAX package's ``model_state`` (EMA codebooks,
 code usage) is held in buffers named by its tree paths and updated in
-place. Training noise comes from generators passed to ``forward``:
+place. Every family draws its weights as its JAX ``init(key)`` does: the
+constructor takes ``key`` and ``wavenet``, a function that builds the
+decoder from the key the JAX ``init`` gives ``WaveNet.init``. Training
+noise comes from generators passed to ``forward``:
 ``generator`` for the bottleneck's draws (Gumbel, VQ-dropout, time jitter),
 ``dropout_generator`` for the decoder's dropout masks; the tests inject the
 JAX package's draws instead (``uniforms``, ``noise``, ``dropout_masks``).
 All activations are (B, T, C).
 """
 from __future__ import annotations
+
+from collections.abc import Callable
 
 import numpy as np
 import torch
@@ -35,15 +40,25 @@ from wavenet_autoencoders_tpu_torch.models.encoder import Encoder, SpeakerEncode
 from wavenet_autoencoders_tpu_torch.models.wavenet import WaveNet
 from wavenet_autoencoders_tpu_torch.ops.conv import Conv1d, conv1d_apply
 from wavenet_autoencoders_tpu_torch.parallel import distributed as dist
+from wavenet_autoencoders_tpu_torch.utils import jax_random as jr
+
+
+MakeWaveNet = Callable[[torch.Tensor], WaveNet]
 
 
 class WAEBase(nn.Module):
-    def __init__(self, wavenet: WaveNet, c_in: int = 39, hid: int = 64,
-                 frame_rate: int = 25, encoder_hid: int = 768, generator=None):
-        super().__init__()
+    def __init__(self, wavenet: MakeWaveNet, c_in: int = 39, hid: int = 64,
+                 frame_rate: int = 25, encoder_hid: int = 768, *, key: torch.Tensor):
+        """Two keys split from ``key``: the encoder's, then the decoder's."""
+        k1, k2 = jr.split(key)
+        self._init(wavenet(k2), c_in, hid, frame_rate, encoder_hid, k1)
+
+    def _init(self, wavenet: WaveNet, c_in: int, hid: int, frame_rate: int, encoder_hid: int,
+              encoder_key: torch.Tensor):
+        nn.Module.__init__(self)
         self.c_in, self.hid, self.frame_rate, self.encoder_hid = c_in, hid, frame_rate, encoder_hid
         self.encoder = Encoder(c_in=c_in, hid=encoder_hid, c_out=hid,
-                               downsample=self.downsample, generator=generator)
+                               downsample=self.downsample, key=encoder_key)
         self.wavenet = wavenet
 
     @property
@@ -93,9 +108,9 @@ class INWAE(WAEBase):
     every encoder block. With ``adain`` and a target utterance, ``encode``
     re-styles the code with the target's channel statistics."""
 
-    def __init__(self, wavenet: WaveNet, c_in=39, hid=64, frame_rate=25, encoder_hid=768, *,
-                 adain=True, per_block_in=False, generator=None):
-        super().__init__(wavenet, c_in, hid, frame_rate, encoder_hid, generator=generator)
+    def __init__(self, wavenet: MakeWaveNet, c_in=39, hid=64, frame_rate=25, encoder_hid=768, *,
+                 adain=True, per_block_in=False, key: torch.Tensor):
+        super().__init__(wavenet, c_in, hid, frame_rate, encoder_hid, key=key)
         self.adain, self.per_block_in = adain, per_block_in
 
     def _encode_raw(self, c, dtype=None):
@@ -116,12 +131,14 @@ class INWAE(WAEBase):
 class NewINWAE(WAEBase):
     """IN latent; the decoder's global conditioning (gin = 64, no id
     embedding) is ``speaker_code(c)``, so ``forward`` ignores ``g``.
-    Parameters ``encoder``, ``spk``, ``wavenet``."""
+    Parameters ``encoder``, ``spk``, ``wavenet``, from three keys split
+    from ``key`` in that order."""
 
-    def __init__(self, wavenet: WaveNet, c_in=39, hid=64, frame_rate=25, encoder_hid=768, *,
-                 speaker_hid=128, generator=None):
-        super().__init__(wavenet, c_in, hid, frame_rate, encoder_hid, generator=generator)
-        self.spk = SpeakerEncoder(c_in=c_in, hid=speaker_hid, c_out=wavenet.gin_channels, generator=generator)
+    def __init__(self, wavenet: MakeWaveNet, c_in=39, hid=64, frame_rate=25, encoder_hid=768, *,
+                 speaker_hid=128, key: torch.Tensor):
+        k1, k2, k3 = jr.split(key, 3)
+        self._init(wavenet(k3), c_in, hid, frame_rate, encoder_hid, k1)
+        self.spk = SpeakerEncoder(c_in=c_in, hid=speaker_hid, c_out=self.wavenet.gin_channels, key=k2)
 
     def speaker_code(self, c, dtype=None):
         return self.spk.apply(c, dtype=dtype)
@@ -141,13 +158,15 @@ class NewINWAE(WAEBase):
 
 class CatWAE(WAEBase):
     """Gumbel-softmax categorical bottleneck over ``slices`` slices of k codes
-    (``gumbel.heads.{i}``, ``gumbel.codes.{i}``)."""
+    (``gumbel.heads.{i}``, ``gumbel.codes.{i}``). Keys: the encoder's, the
+    bottleneck's, the decoder's, split from ``key``."""
 
-    def __init__(self, wavenet: WaveNet, c_in=39, hid=64, frame_rate=25, encoder_hid=768, *,
-                 k=128, tau=0.1, hard=False, slices=4, generator=None):
-        super().__init__(wavenet, c_in, hid, frame_rate, encoder_hid, generator=generator)
+    def __init__(self, wavenet: MakeWaveNet, c_in=39, hid=64, frame_rate=25, encoder_hid=768, *,
+                 k=128, tau=0.1, hard=False, slices=4, key: torch.Tensor):
+        k1, k2, k3 = jr.split(key, 3)
+        self._init(wavenet(k3), c_in, hid, frame_rate, encoder_hid, k1)
         self.k, self.tau, self.hard, self.slices = k, tau, hard, slices
-        self.gumbel = bn.Gumbel(hid, k, slices, generator=generator)
+        self.gumbel = bn.Gumbel(hid, k, slices, key=k2)
 
     def encode(self, c, tar_c=None, dtype=None):
         z = self.encoder.apply(c, dtype=dtype)
@@ -165,11 +184,11 @@ class CatWAE(WAEBase):
 
 class Vocoder(nn.Module):
     """The plain WaveNet vocoder: no encoder, the features are the
-    conditioning."""
+    conditioning. The decoder draws from ``key`` itself."""
 
-    def __init__(self, wavenet: WaveNet):
+    def __init__(self, wavenet: MakeWaveNet, *, key: torch.Tensor):
         super().__init__()
-        self.wavenet = wavenet
+        self.wavenet = wavenet(key)
 
     def encode(self, c, tar_c=None, dtype=None):
         return c
@@ -193,15 +212,17 @@ class VQWAE(WAEBase):
     ``codebooks.{i}``; none with ``ema``) and optional ``post``. Buffers
     (the JAX ``model_state``): with ``ema``, ``vq.codebooks.{i}``,
     ``vq.cluster_size.{i}`` and ``vq.ema_w.{i}``; with ``reseed``,
-    ``usage.{i}``."""
+    ``usage.{i}``. Keys: the encoder's, the decoder's, the codebooks', the
+    post-conv's, split from ``key``."""
 
-    def __init__(self, wavenet: WaveNet, c_in=39, hid=64, frame_rate=25, encoder_hid=768, *,
+    def __init__(self, wavenet: MakeWaveNet, c_in=39, hid=64, frame_rate=25, encoder_hid=768, *,
                  K=256, K1=None, num_slices=2, beta=0.25, commit_scale=1.0, ema=False, ema_decay=0.99,
                  sliced=False, ins_norm=False, post_conv=False, adain=False,
                  use_time_jitter=False, time_jitter_prob=0.12, time_jitter_per_side=True,
                  vq_drop=False, drop_dim=0,
-                 reseed=False, reseed_thresh=0.1, reseed_decay=0.99, reseed_start=500, generator=None):
-        super().__init__(wavenet, c_in, hid, frame_rate, encoder_hid, generator=generator)
+                 reseed=False, reseed_thresh=0.1, reseed_decay=0.99, reseed_start=500, key: torch.Tensor):
+        k1, k2, k3, k4 = jr.split(key, 4)
+        self._init(wavenet(k2), c_in, hid, frame_rate, encoder_hid, k1)
         self.K, self.K1, self.num_slices = K, K1, num_slices
         self.beta, self.commit_scale, self.ema, self.ema_decay = beta, commit_scale, ema, ema_decay
         self.sliced, self.ins_norm, self.post_conv, self.adain = sliced, ins_norm, post_conv, adain
@@ -210,16 +231,16 @@ class VQWAE(WAEBase):
         self.reseed, self.reseed_thresh = reseed, reseed_thresh
         self.reseed_decay, self.reseed_start = reseed_decay, reseed_start
         if ema:
-            self.vq = bn.VQEMA(K, hid, num_slices if sliced else 1, K1, generator=generator)
+            self.vq = bn.VQEMA(K, hid, num_slices if sliced else 1, K1, key=k3)
         elif sliced:
-            self.vq = bn.SlicedVQ(K, hid, num_slices, K1, generator=generator)
+            self.vq = bn.SlicedVQ(K, hid, num_slices, K1, key=k3)
         else:
-            self.vq = bn.VQ(K, hid, generator=generator)
+            self.vq = bn.VQ(K, hid, key=k3)
         if reseed:
-            self.usage = bn.BufferList(torch.full((s,), 1.0 / s) for s in self._codebook_sizes())
+            self.usage = bn.BufferList(torch.full((s,), 1.0 / s, device=key.device) for s in self._codebook_sizes())
         # the training forward projects the quantized code up to the
         # decoder's cin_channels with it; encode() returns the code unprojected
-        self.post = Conv1d(hid, wavenet.cin_channels, 3, generator=generator) if post_conv else None
+        self.post = Conv1d(hid, self.wavenet.cin_channels, 3, key=k4) if post_conv else None
         self._vq_diag = None
 
     def _codebook_sizes(self) -> list[int]:
@@ -278,15 +299,15 @@ class VQWAE(WAEBase):
         return y_hat, vq_loss, perp
 
     @torch.no_grad()
-    def revive(self, step: int, *, generator=None, cand_idx=None) -> torch.Tensor:
+    def revive(self, step: int, candidates) -> torch.Tensor:
         """Dead-code revival, run by the train step after the optimizer
         update, from the stash of the step's forward: refresh each slice's
         usage EMA from the batch's code fractions, then re-seed the rows
         whose usage fell below ``reseed_thresh/K`` (from step
-        ``reseed_start`` on) with pre-VQ codes of the batch, picked by
-        ``cand_idx[i]`` (K indices per slice) or drawn from ``generator``.
-        With EMA codebooks the revived rows' statistics are patched too
-        (cluster size <- the mean, ema_w <- code * mean) so the next EMA
+        ``reseed_start`` on) with pre-VQ codes of the batch, the rows
+        ``candidates(i, n)`` (K indices of slice i into the batch's n latent
+        frames). With EMA codebooks the revived rows' statistics are patched
+        too (cluster size <- the mean, ema_w <- code * mean) so the next EMA
         update keeps them. Returns the number of revived codes."""
         diag, self._vq_diag = self._vq_diag, None
         z, sub = diag["z"], self.hid // len(self._codebook_sizes())
@@ -295,9 +316,7 @@ class VQWAE(WAEBase):
         for i, cb in enumerate(self._books()):
             u = bn.update_usage(self.usage[i], diag["counts"][i], self.reseed_decay)
             new_cb, u, dead = bn.reseed_slice(
-                cb, u, z[:, i * sub : (i + 1) * sub], self.reseed_thresh, active,
-                cand_idx=None if cand_idx is None else cand_idx[i],
-                generator=_need(generator, cand_idx, "dead-code reseed"))
+                cb, u, z[:, i * sub : (i + 1) * sub], self.reseed_thresh, active, cand_idx=candidates(i, z.shape[0]))
             if self.ema:
                 cs, ew = self.vq.cluster_size[i], self.vq.ema_w[i]
                 mean_cs = cs.mean()

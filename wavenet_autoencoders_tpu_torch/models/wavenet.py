@@ -61,11 +61,14 @@ from wavenet_autoencoders_tpu_torch.ops.upsample import (
     upsample_network_apply,
 )
 from wavenet_autoencoders_tpu_torch.parallel.distributed import copy_to_model, gather_shards
+from wavenet_autoencoders_tpu_torch.utils import jax_random as jr
 
 
 class WaveNet(nn.Module):
     """Architecture arguments as in the JAX ``WaveNet`` dataclass; weights
-    are drawn from ``generator`` with the JAX package's init rules."""
+    are drawn from ``key`` as ``WaveNet.init(key)`` draws them: ``layers + 5``
+    keys split from it for ``first``, each layer, ``post1``, ``post2``,
+    ``embed`` and ``upsample``, in that order."""
 
     def __init__(
         self,
@@ -89,7 +92,8 @@ class WaveNet(nn.Module):
         use_speaker_embedding: bool = False,
         output_distribution: str = "Logistic",
         fused_stack: bool = False,
-        generator: torch.Generator | None = None,
+        *,
+        key: torch.Tensor,
     ):
         super().__init__()
         self.out_channels = out_channels
@@ -113,8 +117,8 @@ class WaveNet(nn.Module):
         self.output_distribution = output_distribution
         self.fused_stack = fused_stack
 
-        gen = generator
-        self.first = WNConv1d(self.in_channels, residual_channels, 1, generator=gen)
+        ks = jr.split(key, layers + 5)
+        self.first = WNConv1d(self.in_channels, residual_channels, 1, key=ks[0])
         self.layers = nn.ModuleList(
             ResidualGLU(
                 residual_channels,
@@ -123,24 +127,24 @@ class WaveNet(nn.Module):
                 skip_out_channels=skip_out_channels,
                 cin_channels=cin_channels,
                 gin_channels=gin_channels,
-                generator=gen,
+                key=ks[1 + i],
             )
-            for _ in range(layers)
+            for i in range(layers)
         )
-        self.post1 = WNConv1d(skip_out_channels, skip_out_channels, 1, generator=gen)
-        self.post2 = WNConv1d(skip_out_channels, out_channels, 1, generator=gen)
+        self.post1 = WNConv1d(skip_out_channels, skip_out_channels, 1, key=ks[layers + 1])
+        self.post2 = WNConv1d(skip_out_channels, out_channels, 1, key=ks[layers + 2])
         self.embed = None
         if self.has_speaker_embedding():
             assert n_speakers is not None
-            self.embed = Embedding(n_speakers, gin_channels, std=0.1, generator=gen)
+            self.embed = Embedding(n_speakers, gin_channels, std=0.1, key=ks[layers + 3])
         self.upsample = None
         if upsample_conditional_features:
             if upsample_net == "ConvInUpsampleNetwork":
                 self.upsample = ConvInUpsample(
-                    cin_channels, cin_pad, upsample_scales, freq_axis_kernel_size, generator=gen
+                    cin_channels, cin_pad, upsample_scales, freq_axis_kernel_size, key=ks[layers + 4]
                 )
             else:
-                self.upsample = UpsampleNetwork(upsample_scales, freq_axis_kernel_size)
+                self.upsample = UpsampleNetwork(upsample_scales, freq_axis_kernel_size, key=ks[layers + 4])
 
     # ---- derived ----
     @property
@@ -451,13 +455,8 @@ def fold_weight_norm(model: nn.Module) -> nn.Module:
     module computes is unchanged."""
     for name, child in list(model.named_children()):
         if isinstance(child, WNConv1d):
-            k, cin, cout = child.v.shape
-            plain = Conv1d(cin, cout, k, bias=child.b is not None)
             with torch.no_grad():
-                plain.w = nn.Parameter(conv1d_weight(child).detach().clone())
-                if child.b is not None:
-                    plain.b = nn.Parameter(child.b.detach().clone())
-            setattr(model, name, plain.to(child.v.device))
+                setattr(model, name, Conv1d.of(conv1d_weight(child), child.b))
         else:
             fold_weight_norm(child)
     return model

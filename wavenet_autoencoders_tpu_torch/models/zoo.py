@@ -3,8 +3,12 @@
 ``cfg.name`` with the JAX package's constructor arguments: wvae/ae | vqvae |
 inae | inae1 | new_inae | catae | wavenet_vocoder, and the MFCC-only
 feature AEs (model/ae_feat, model2/ae2, model4/ae4, catae_feat/cat_ae).
+A model's weights are the JAX package's for the same seed: each module
+draws from the JAX key its JAX ``init`` gets (``utils.jax_random``).
 """
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 
@@ -12,12 +16,12 @@ from wavenet_autoencoders_tpu_torch.config import Config
 from wavenet_autoencoders_tpu_torch.models.mfcc_ae import CatMfccAE, MfccAE
 from wavenet_autoencoders_tpu_torch.models.wae import WVAE, CatWAE, INWAE, NewINWAE, Vocoder, VQWAE
 from wavenet_autoencoders_tpu_torch.models.wavenet import WaveNet
+from wavenet_autoencoders_tpu_torch.utils import jax_random as jr
 from wavenet_autoencoders_tpu_torch.utils.device import resolve_device
 
 
-def build_wavenet(cfg: Config, gin_channels=None, use_speaker_embedding=True,
-                  generator: torch.Generator | None = None) -> WaveNet:
-    """The shared decoder ctor every builder uses."""
+def build_wavenet(cfg: Config, key: torch.Tensor, gin_channels=None, use_speaker_embedding=True) -> WaveNet:
+    """The decoder every family of the zoo shares, drawing from ``key``."""
     if cfg.is_mulaw_quantize and cfg.out_channels != cfg.quantize_channels:
         raise ValueError(
             "out_channels must equal quantize_channels for mulaw-quantize input"
@@ -43,7 +47,7 @@ def build_wavenet(cfg: Config, gin_channels=None, use_speaker_embedding=True,
         use_speaker_embedding=use_speaker_embedding,
         output_distribution=cfg.output_distribution,
         fused_stack=cfg.fused_stack,
-        generator=generator,
+        key=key,
     )
 
 
@@ -51,26 +55,28 @@ _FEATURE_AE_DOWNSAMPLE = {"model": 1, "ae_feat": 1, "model2": 2, "ae2": 2, "mode
 
 
 def build_model(cfg: Config, device: str | torch.device = "cuda", seed: int | None = None):
-    """Build ``cfg.name``'s model with weights drawn from ``seed`` (default
-    ``cfg.seed``) and move it to ``device``. Raises ValueError for an
+    """Build ``cfg.name``'s model on ``device`` with the weights and model
+    state of the JAX package's ``build_model(cfg).init(PRNGKey(seed))``
+    (default ``cfg.seed``), drawn on the device. Raises ValueError for an
     unknown name, and when ``device`` is CUDA and no CUDA device exists."""
     dev = resolve_device(device)
-    return _build(cfg, torch.Generator().manual_seed(cfg.seed if seed is None else seed)).to(dev).eval()
+    return _build(cfg, jr.PRNGKey(cfg.seed if seed is None else seed, dev)).to(dev).eval()
 
 
-def _build(cfg: Config, gen: torch.Generator):
+def _build(cfg: Config, key: torch.Tensor):
     name = cfg.name.lower()
     ae = dict(c_in=cfg.dim_in, hid=cfg.cin_channels, frame_rate=cfg.frame_rate, encoder_hid=cfg.encoder_hid,
-              generator=gen)
+              key=key)
+    wavenet = partial(build_wavenet, cfg)
     if name == "wavenet_vocoder":
-        return Vocoder(build_wavenet(cfg, generator=gen))
+        return Vocoder(wavenet, key=key)
     if name in ("wvae", "ae"):
-        return WVAE(build_wavenet(cfg, generator=gen), **ae)
+        return WVAE(wavenet, **ae)
     if name == "vqvae":
         # post_conv selects hid=64
         K1 = cfg.K1 if (cfg.use_K1 and cfg.K1 not in (None, cfg.K)) else None
         return VQWAE(
-            build_wavenet(cfg, generator=gen),
+            wavenet,
             **{**ae, "hid": 64 if cfg.post_conv else cfg.cin_channels},
             K=cfg.K,
             K1=K1,
@@ -93,17 +99,16 @@ def _build(cfg: Config, gen: torch.Generator):
             reseed_start=cfg.vq_reseed_start,
         )
     if name in ("inae", "inae1"):
-        return INWAE(build_wavenet(cfg, generator=gen), **ae, adain=cfg.adain, per_block_in=(name == "inae1"))
+        return INWAE(wavenet, **ae, adain=cfg.adain, per_block_in=(name == "inae1"))
     if name == "new_inae":
         # gin=64 continuous speaker code, no id embedding
-        return NewINWAE(build_wavenet(cfg, gin_channels=64, use_speaker_embedding=False, generator=gen), **ae)
+        return NewINWAE(partial(build_wavenet, cfg, gin_channels=64, use_speaker_embedding=False), **ae)
     if name == "catae":
-        return CatWAE(build_wavenet(cfg, generator=gen), **ae, k=cfg.K, tau=cfg.tau, hard=cfg.hard,
-                      slices=cfg.num_slices)
+        return CatWAE(wavenet, **ae, k=cfg.K, tau=cfg.tau, hard=cfg.hard, slices=cfg.num_slices)
     # the MFCC-only feature-space AEs, ctor (c_in=cfg.cin_channels, hid=64)
     if name in _FEATURE_AE_DOWNSAMPLE:
-        return MfccAE(c_in=cfg.cin_channels, hid=64, downsample=_FEATURE_AE_DOWNSAMPLE[name], generator=gen)
+        return MfccAE(c_in=cfg.cin_channels, hid=64, downsample=_FEATURE_AE_DOWNSAMPLE[name], key=key)
     if name in ("catae_feat", "cat_ae"):
         return CatMfccAE(c_in=cfg.cin_channels, hid=64, downsample=100 // cfg.frame_rate, k=cfg.K, tau=cfg.tau,
-                         hard=cfg.hard, slices=cfg.num_slices, generator=gen)
+                         hard=cfg.hard, slices=cfg.num_slices, key=key)
     raise ValueError(f"unknown model name: {cfg.name}")

@@ -9,6 +9,9 @@ JAX package's names and layouts so weights carry across unchanged:
 - ``Conv1d``: plain ``w`` (K, Cin, Cout) and optional ``b``;
 - ``Linear``: ``w`` (Cin, Cout) and optional ``b``.
 
+Each layer draws its weights from a JAX key (``utils.jax_random``) on the
+key's device, as the JAX package's ``*_init`` draws them from that key.
+
 Inputs and outputs are (B, T, C); the transpose to (B, C, T) happens only
 around ``F.conv1d``.
 
@@ -34,49 +37,60 @@ import torch.nn.functional as F
 from torch import nn
 
 from wavenet_autoencoders_tpu_torch.parallel.distributed import copy_to_model, reduce_from_model
+from wavenet_autoencoders_tpu_torch.utils import jax_random as jr
 
 
-def _kaiming_normal(k, cin, cout, generator=None):
+def _kaiming_normal(key, k, cin, cout):
     # torch kaiming_normal_(nonlinearity='relu'), fan_in = cin * k
     std = math.sqrt(2.0) / math.sqrt(cin * k)
-    return std * torch.randn(k, cin, cout, generator=generator)
-
-
-def _uniform(shape, bound, generator=None):
-    return (torch.rand(*shape, generator=generator) * 2.0 - 1.0) * bound
+    return std * jr.normal(key, (k, cin, cout))
 
 
 class WNConv1d(nn.Module):
-    """Weight-normed conv. Init: Kaiming-normal(relu) weight, zero bias,
-    then g = ‖w‖, v = w."""
+    """Weight-normed conv (JAX ``conv1d_init``). Init: Kaiming-normal(relu)
+    weight drawn from ``key``, zero bias, then g = ‖w‖, v = w."""
 
-    def __init__(self, cin: int, cout: int, k: int, bias: bool = True, generator=None):
+    def __init__(self, cin: int, cout: int, k: int, bias: bool = True, *, key: torch.Tensor):
         super().__init__()
-        w = _kaiming_normal(k, cin, cout, generator)
+        w = _kaiming_normal(key, k, cin, cout)
         self.g = nn.Parameter(w.square().sum((0, 1)).sqrt())
         self.v = nn.Parameter(w)
-        self.b = nn.Parameter(torch.zeros(cout)) if bias else None
+        self.b = nn.Parameter(torch.zeros(cout, device=key.device)) if bias else None
 
 
 class Conv1d(nn.Module):
     """Un-normalized conv with torch nn.Conv1d default init
-    (U(±1/sqrt(fan_in)))."""
+    (U(±1/sqrt(fan_in))), drawn as JAX ``plain_conv1d_init`` draws it: the
+    weight from the first of two keys split from ``key``, the bias from the
+    second."""
 
-    def __init__(self, cin: int, cout: int, k: int, bias: bool = True, generator=None):
+    def __init__(self, cin: int, cout: int, k: int, bias: bool = True, *, key: torch.Tensor):
         super().__init__()
         bound = 1.0 / math.sqrt(cin * k)
-        self.w = nn.Parameter(_uniform((k, cin, cout), bound, generator))
-        self.b = nn.Parameter(_uniform((cout,), bound, generator)) if bias else None
+        kw, kb = jr.split(key)
+        self.w = nn.Parameter(jr.uniform(kw, (k, cin, cout), -bound, bound))
+        self.b = nn.Parameter(jr.uniform(kb, (cout,), -bound, bound)) if bias else None
+
+    @classmethod
+    def of(cls, w: torch.Tensor, b: torch.Tensor | None) -> "Conv1d":
+        """A plain conv holding copies of ``w`` (K, Cin, Cout) and ``b``."""
+        self = cls.__new__(cls)
+        nn.Module.__init__(self)
+        self.w = nn.Parameter(w.detach().clone())
+        self.b = None if b is None else nn.Parameter(b.detach().clone())
+        return self
 
 
 class Linear(nn.Module):
-    """torch nn.Linear default init, weight stored (Cin, Cout)."""
+    """torch nn.Linear default init, weight stored (Cin, Cout), drawn as
+    JAX ``linear_init`` draws it."""
 
-    def __init__(self, cin: int, cout: int, bias: bool = True, generator=None):
+    def __init__(self, cin: int, cout: int, bias: bool = True, *, key: torch.Tensor):
         super().__init__()
         bound = 1.0 / math.sqrt(cin)
-        self.w = nn.Parameter(_uniform((cin, cout), bound, generator))
-        self.b = nn.Parameter(_uniform((cout,), bound, generator)) if bias else None
+        kw, kb = jr.split(key)
+        self.w = nn.Parameter(jr.uniform(kw, (cin, cout), -bound, bound))
+        self.b = nn.Parameter(jr.uniform(kb, (cout,), -bound, bound)) if bias else None
 
 
 def _is_row(p: nn.Module) -> bool:

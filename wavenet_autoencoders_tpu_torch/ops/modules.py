@@ -20,19 +20,21 @@ from wavenet_autoencoders_tpu_torch.ops.conv import (
     conv1d_weight,
 )
 from wavenet_autoencoders_tpu_torch.parallel.distributed import copy_to_model
+from wavenet_autoencoders_tpu_torch.utils import jax_random as jr
 
 
 class Embedding(nn.Module):
-    """N(0, std) embedding table ``table`` (num, dim)."""
+    """N(0, std) embedding table ``table`` (num, dim) drawn from ``key``."""
 
-    def __init__(self, num: int, dim: int, std: float = 0.01, generator=None):
+    def __init__(self, num: int, dim: int, std: float = 0.01, *, key: torch.Tensor):
         super().__init__()
-        self.table = nn.Parameter(std * torch.randn(num, dim, generator=generator))
+        self.table = nn.Parameter(std * jr.normal(key, (num, dim)))
 
 
 class ResidualGLU(nn.Module):
     """Parameters of one ResidualConv1dGLU: ``conv``, ``out``, ``skip`` and
-    the optional ``cproj`` / ``gproj`` conditioning projections."""
+    the optional ``cproj`` / ``gproj`` conditioning projections, each drawn
+    from one of five keys split from ``key`` (JAX ``residual_glu_init``)."""
 
     def __init__(
         self,
@@ -43,18 +45,19 @@ class ResidualGLU(nn.Module):
         cin_channels: int = -1,
         gin_channels: int = -1,
         bias: bool = True,
-        generator=None,
+        *,
+        key: torch.Tensor,
     ):
         super().__init__()
         if skip_out_channels is None:
             skip_out_channels = residual_channels
         gate_out = gate_channels // 2
-        gen = generator
-        self.conv = WNConv1d(residual_channels, gate_channels, kernel_size, bias, gen)
-        self.out = WNConv1d(gate_out, residual_channels, 1, bias, gen)
-        self.skip = WNConv1d(gate_out, skip_out_channels, 1, bias, gen)
-        self.cproj = WNConv1d(cin_channels, gate_channels, 1, False, gen) if cin_channels > 0 else None
-        self.gproj = WNConv1d(gin_channels, gate_channels, 1, False, gen) if gin_channels > 0 else None
+        ks = jr.split(key, 5)
+        self.conv = WNConv1d(residual_channels, gate_channels, kernel_size, bias, key=ks[0])
+        self.out = WNConv1d(gate_out, residual_channels, 1, bias, key=ks[1])
+        self.skip = WNConv1d(gate_out, skip_out_channels, 1, bias, key=ks[2])
+        self.cproj = WNConv1d(cin_channels, gate_channels, 1, False, key=ks[3]) if cin_channels > 0 else None
+        self.gproj = WNConv1d(gin_channels, gate_channels, 1, False, key=ks[4]) if gin_channels > 0 else None
 
 
 def _gate(x, c_add, g_add):

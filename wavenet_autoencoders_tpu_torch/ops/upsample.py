@@ -16,33 +16,40 @@ import torch.nn.functional as F
 from torch import nn
 
 from wavenet_autoencoders_tpu_torch.ops.conv import Conv1d, conv1d_apply
+from wavenet_autoencoders_tpu_torch.utils import jax_random as jr
 
 
 class SmoothingConv(nn.Module):
     """Weight-normed 2-D conv ``g`` () and ``v`` (1, 1, freq_ks, 2s+1),
     weights filled with 1/prod(kernel)."""
 
-    def __init__(self, scale: int, freq_ks: int):
+    def __init__(self, scale: int, freq_ks: int, device=None):
         super().__init__()
         k = (freq_ks, 2 * scale + 1)
-        v = torch.full((1, 1) + k, 1.0 / float(np.prod(k)))
+        v = torch.full((1, 1) + k, 1.0 / float(np.prod(k)), device=device)
         self.g = nn.Parameter(v.square().sum().sqrt())
         self.v = nn.Parameter(v)
 
 
 class UpsampleNetwork(nn.Module):
-    def __init__(self, upsample_scales, freq_axis_kernel_size: int = 1):
+    """The smoothing convs draw nothing: ``key`` only sets their device."""
+
+    def __init__(self, upsample_scales, freq_axis_kernel_size: int = 1, *, key: torch.Tensor):
         super().__init__()
         self.convs = nn.ModuleList(
-            SmoothingConv(s, freq_axis_kernel_size) for s in upsample_scales
+            SmoothingConv(s, freq_axis_kernel_size, key.device) for s in upsample_scales
         )
 
 
 class ConvInUpsample(nn.Module):
-    def __init__(self, cin_channels, cin_pad, upsample_scales, freq_axis_kernel_size=1, generator=None):
+    """The context conv from the first of two keys split from ``key`` (JAX
+    ``conv_in_upsample_init``)."""
+
+    def __init__(self, cin_channels, cin_pad, upsample_scales, freq_axis_kernel_size=1, *, key: torch.Tensor):
         super().__init__()
-        self.conv_in = Conv1d(cin_channels, cin_channels, 2 * cin_pad + 1, bias=False, generator=generator)
-        self.upsample = UpsampleNetwork(upsample_scales, freq_axis_kernel_size)
+        k1, k2 = jr.split(key)
+        self.conv_in = Conv1d(cin_channels, cin_channels, 2 * cin_pad + 1, bias=False, key=k1)
+        self.upsample = UpsampleNetwork(upsample_scales, freq_axis_kernel_size, key=k2)
 
 
 def upsample_network_apply(

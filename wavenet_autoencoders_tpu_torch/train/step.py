@@ -13,9 +13,12 @@ optimizer moments and the EMA shadow are dicts keyed by the parameters' JAX
 tree paths, which is also how checkpoints store them
 (``train/checkpoint.py``).
 
-Training noise comes from device generators seeded from ``cfg.seed`` and
-the step: one stream for the bottleneck (Gumbel, VQ-dropout, time jitter;
-the same on every rank), one for the reseed candidates, and one per data
+The reseed candidates are the JAX step's: ``randint`` under the key
+``fold_in(fold_in(fold_in(PRNGKey(cfg.seed + 1), step), 0x5EED), slice)``
+(``utils.jax_random``), over the global batch's latent frames
+(``reseed_draws``). The other training noise comes from device generators
+seeded from ``cfg.seed`` and the step: one stream for the bottleneck
+(Gumbel, VQ-dropout, time jitter; the same on every rank) and one per data
 rank for the decoder's dropout masks.
 
 Data parallel (``parallel.distributed``): each data rank passes its slice
@@ -53,6 +56,7 @@ from wavenet_autoencoders_tpu_torch.ops.losses import (
 from wavenet_autoencoders_tpu_torch.parallel import distributed as dist
 from wavenet_autoencoders_tpu_torch.parallel.mesh import check_mesh, leaf_shard, model_axis, shard_module
 from wavenet_autoencoders_tpu_torch.train.schedule import get_schedule
+from wavenet_autoencoders_tpu_torch.utils import jax_random as jr
 from wavenet_autoencoders_tpu_torch.utils.params import flatten_params, shard_params
 
 ADAM_B1, ADAM_B2 = 0.9, 0.999
@@ -145,10 +149,37 @@ def objective(cfg: Config, model: nn.Module, y_hat, batch: dict, T: int):
 
 def _seeded(gen: torch.Generator, cfg: Config, step: int, stream: int = 0) -> torch.Generator:
     """``gen`` seeded for (seed, step, stream); stream 0 is the bottleneck's
-    noise, 1 the reseed candidates, 2 + data index a data rank's dropout
-    masks (the same on every rank of its model group). A resumed run
-    repeats the streams."""
+    noise, 2 + data index a data rank's dropout masks (the same on every
+    rank of its model group). A resumed run repeats the streams."""
     return gen.manual_seed(cfg.seed * 1_000_003 + step + (stream << 40))
+
+
+RESEED_SPAN = 256
+
+
+def reseed_draws(cfg: Config, sizes: list[int], device, span: int = RESEED_SPAN):
+    """``candidates(step)``: the function ``(i, n) -> (K_i,)`` indices of the
+    JAX step's reseed candidates of slice i into the global batch's n latent
+    frames, ``randint(fold_in(fold_in(fold_in(PRNGKey(cfg.seed + 1), step),
+    0x5EED), i), (K_i,), 0, n)``. They are drawn on ``device`` for ``span``
+    steps at a time, since each draw is a few hundred small launches."""
+    base = jr.PRNGKey(cfg.seed + 1, device)
+    drawn = {}
+
+    def candidates(step: int):
+        first = step - step % span
+
+        def pick(i: int, n: int) -> torch.Tensor:
+            if drawn.get("at") != (first, n):
+                steps = torch.arange(first, first + span, device=device)
+                keys = jr.fold_in(jr.fold_in(base, steps), 0x5EED)
+                drawn["at"] = (first, n)
+                drawn["idx"] = [jr.randint(jr.fold_in(keys, j), (K,), 0, n) for j, K in enumerate(sizes)]
+            return drawn["idx"][i][step - first]
+
+        return pick
+
+    return candidates
 
 
 def make_train_step(cfg: Config, model: nn.Module):
@@ -187,6 +218,7 @@ def make_train_step(cfg: Config, model: nn.Module):
     dropout = cfg.dropout > 0.0 and not isinstance(model, MfccAE)
     device = next(model.parameters()).device
     gen = torch.Generator(device=device)
+    draws = reseed_draws(cfg, vq._codebook_sizes(), device) if reseed else None
     # which gradients are shards (their squares are summed over the model group)
     sharded = torch.tensor([leaf_shard(k, p.shape) is not None for k, p in leaves.items()], device=device)
 
@@ -251,9 +283,11 @@ def make_train_step(cfg: Config, model: nn.Module):
             state.lr = lr
 
             # dead-code revival after the update, from the forward's stash
-            # (the same on every rank: global codes, one candidate stream)
-            reseeded = (vq.revive(state.step, generator=_seeded(gen, cfg, state.step, 1), cand_idx=cand_idx)
-                        if reseed else torch.zeros((), device=device))
+            # (the same on every rank: global codes, the JAX step's key)
+            if reseed:
+                reseeded = vq.revive(state.step, draws(state.step) if cand_idx is None else lambda i, n: cand_idx[i])
+            else:
+                reseeded = torch.zeros((), device=device)
 
             if state.ema is not None:
                 # shadow -= (1 - decay) * (shadow - param)
