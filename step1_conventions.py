@@ -1,6 +1,6 @@
-"""Step 1 of run K and run F on the card, from the JAX package's initial
-weights in each of JAX's two threefry key conventions, beside the JAX
-runs' logged step 1.
+"""Step 1 of run K, run F and run E on the card, from the JAX package's
+initial weights in each of JAX's two threefry key conventions, beside the
+JAX runs' logged step 1.
 
 The port draws with the partitionable threefry (``jax_threefry_partitionable``
 True, JAX's default since 0.5.0; ``utils/jax_random.py``). With False, JAX
@@ -10,7 +10,7 @@ weights; this script builds the kernels, makes QUALITY.md's sharp corpus
 (``chip_smoke.quality_corpus``), and trains one step of each run, fused and
 unfused, in each convention, printing each beside the record.
 
-    python3 step1_conventions.py      # on a card: ~125 s
+    python3 step1_conventions.py      # on a card: ~150 s
 """
 import math
 import shutil
@@ -21,12 +21,14 @@ from pathlib import Path
 
 
 def use_original_convention():
-    """Replace ``jax_random``'s split and bits by JAX's
-    ``jax_threefry_partitionable=False`` forms (of each key of a batch):
-    one threefry over the counter run 0..2n-1 (split) or 0..size-1, padded
-    to even (bits)."""
+    """Replace ``jax_random``'s split and bits, and the uniform and Bernoulli
+    draws made from them, by JAX's ``jax_threefry_partitionable=False``
+    forms (of each key of a batch): one threefry over the counter run
+    0..2n-1 (split) or 0..size-1, padded to even (bits)."""
+    import numpy as np
     import torch
 
+    from wavenet_autoencoders_tpu_torch.kernels import threefry as TF
     from wavenet_autoencoders_tpu_torch.utils import jax_random as jr
 
     def split(key, num=2):
@@ -34,15 +36,28 @@ def use_original_convention():
         y0, y1 = jr.threefry2x32(key[..., None, :], c[:num], c[num:])
         return torch.cat([y0, y1], dim=-1).reshape(*key.shape[:-1], num, 2)
 
-    def random_bits(key, shape):
+    def whole(shape, rows):
+        if rows is not None and tuple(rows) != (0, shape[0]):
+            raise ValueError("the original convention draws no row range of a shape")
+
+    def random_bits(key, shape, rows=None):
         shape = tuple(int(s) for s in shape)
+        whole(shape, rows)
         size = math.prod(shape)
         c = torch.arange(size + size % 2, dtype=torch.int64, device=key.device)
         c[size:] = 0
         y0, y1 = jr.threefry2x32(key[..., None, :], c[: c.numel() // 2], c[c.numel() // 2:])
         return torch.cat([y0, y1], dim=-1)[..., :size].reshape(*key.shape[:-1], *shape)
 
-    jr.split, jr.random_bits = split, random_bits
+    def uniform(key, shape, minval=0.0, maxval=1.0, rows=None):
+        whole(tuple(shape), rows)
+        lo, hi = float(np.float32(minval)), float(np.float32(maxval))
+        return TF.uniform_of_bits(random_bits(key, shape), lo, float(np.float32(hi) - np.float32(lo)))
+
+    def bernoulli(key, p, shape, rows=None):
+        return uniform(key, shape, rows=rows) < float(np.float32(p))
+
+    jr.split, jr.random_bits, jr.uniform, jr.bernoulli = split, random_bits, uniform, bernoulli
 
 
 def main():
@@ -65,7 +80,7 @@ def main():
         for convention in ("partitionable", "original"):
             if convention == "original":
                 use_original_convention()
-            for spec in (cs.QUALITY_RUNS[13], cs.QUALITY_RUNS[15]):
+            for spec in (cs.QUALITY_RUNS[13], cs.QUALITY_RUNS[15], cs.QUALITY_RUNS[17]):
                 ref_dir = cs.QUALITY / "exp" / spec.run
                 ref = recon.read_metrics(ref_dir)[0][0]
                 for hp in ("fused_stack=true", "fused_stack=false"):

@@ -111,12 +111,13 @@ def _one_device():
     return make_mesh(None, devices=jax.devices()[:1], data=1)
 
 
-def _run_both(tmp_path, run, **over):
-    jcfg, cfg = quality_cfgs(run, **{**SCHEDULE, **over})
-    train_dump, dev_dump = _dump(tmp_path / "train", 8, DUMP_SEED), _dump(tmp_path / "dev", 2, DUMP_SEED + 1)
-    jtrain(jcfg, str(train_dump), str(tmp_path / "jax"), max_steps=STEPS, log_every=1, dev_dump_root=str(dev_dump),
+def _run_both(tmp_path, run, steps=STEPS, cfgs=None, frames=14, **over):
+    jcfg, cfg = cfgs or quality_cfgs(run, **{**SCHEDULE, **over})
+    train_dump = _dump(tmp_path / "train", 8, DUMP_SEED, frames)
+    dev_dump = _dump(tmp_path / "dev", 2, DUMP_SEED + 1, frames)
+    jtrain(jcfg, str(train_dump), str(tmp_path / "jax"), max_steps=steps, log_every=1, dev_dump_root=str(dev_dump),
            mesh=_one_device())
-    train(cfg, str(train_dump), str(tmp_path / "port"), max_steps=STEPS, log_every=1,
+    train(cfg, str(train_dump), str(tmp_path / "port"), max_steps=steps, log_every=1,
           dev_dump_root=str(dev_dump), device="cpu")
     return tmp_path / "jax", tmp_path / "port"
 
@@ -132,10 +133,10 @@ def test_the_jax_loop_holds_itself_to_these_bounds(tmp_path):
     assert_logs_match(tmp_path / "two", tmp_path / "one")
 
 
-def assert_logs_match(jdir, pdir):
+def assert_logs_match(jdir, pdir, rtol=None):
     """Every log line: the same phases and steps in the same order, the
-    metrics within 1e-5 relative, ``reseeded`` exactly. Returns the train
-    lines."""
+    metrics within 1e-5 relative (or ``rtol[metric]``), ``reseeded``
+    exactly. Returns the train lines."""
     want, got = _records(jdir), _records(pdir)
     assert [(r["phase"], r["step"]) for r in got] == [(r["phase"], r["step"]) for r in want]
     for g, w in zip(got, want):
@@ -143,15 +144,18 @@ def assert_logs_match(jdir, pdir):
         assert sorted(set(g) - {"time", "samples_per_sec"}) == keys, (g, w)
         for k in keys:
             if k in METRICS:
-                np.testing.assert_allclose(g[k], w[k], rtol=1e-5, atol=0, err_msg=f"{w['phase']} {w['step']} {k}")
+                np.testing.assert_allclose(g[k], w[k], rtol=(rtol or {}).get(k, 1e-5), atol=0,
+                                           err_msg=f"{w['phase']} {w['step']} {k}")
             elif k == "reseeded":
                 assert g[k] == w[k], (w["step"], g[k], w[k])
     return [r for r in got if r["phase"] == "train_no_dev"]
 
 
-def assert_checkpoints_match(jdir, pdir):
+def assert_checkpoints_match(jdir, pdir, min_live=0.85, param_atol=2e-5):
     """Every checkpoint of the JAX run has its port twin, held as
-    ``assert_states_close`` holds a state, plus the model state."""
+    ``assert_states_close`` holds a state (live parameters within
+    ``param_atol``), plus the model state; at least ``min_live`` of the
+    parameters are live (their first Adam moment is not f32 noise)."""
     names = sorted(p.name for p in jdir.glob("checkpoint_step*.npz"))
     assert names == sorted(p.name for p in pdir.glob("checkpoint_step*.npz")) and names
     for name in names:
@@ -172,7 +176,7 @@ def assert_checkpoints_match(jdir, pdir):
                 if path.startswith("vq/"):  # a reseeded row is replaced whole
                     live = np.ones_like(live)
                 n_live, n_all = n_live + live.sum(), n_all + live.size
-                np.testing.assert_allclose(p[k][live], v[live], atol=2e-5, rtol=0, err_msg=f"{name} {k}")
+                np.testing.assert_allclose(p[k][live], v[live], atol=param_atol, rtol=0, err_msg=f"{name} {k}")
             elif "/mu/" in k:
                 np.testing.assert_allclose(p[k], v, atol=1e-4 * mu_max, rtol=0, err_msg=f"{name} {k}")
             elif "/nu/" in k:
@@ -181,7 +185,7 @@ def assert_checkpoints_match(jdir, pdir):
                 np.testing.assert_allclose(p[k], v, atol=2e-4, rtol=0, err_msg=f"{name} {k}")
             else:
                 np.testing.assert_array_equal(p[k], v, err_msg=f"{name} {k}")
-        assert n_live > 0.85 * n_all, name
+        assert n_live > min_live * n_all, name
 
 
 def assert_sample_dumps_match(jdir, pdir):
@@ -251,6 +255,117 @@ def test_a_port_step_from_each_jax_state_is_the_jax_line(tmp_path):
         for k in METRICS:
             if k in want:
                 np.testing.assert_allclose(float(m[k]), want[k], rtol=1e-5, atol=0, err_msg=f"step {i + 1} {k}")
+
+
+NOISE_STEPS = 8
+# Every draw of the JAX step's key chain, each case narrowed as run K and
+# run through 8 steps of SCHEDULE (the VQ warm-up's end, a checkpoint with
+# its sample dump at step 6, the dev pass at step 8): run E (time jitter from
+# step 0, per_side false; crops of 3 latent frames), run K with decoder
+# dropout and VQ-dropout, and the Gumbel-softmax families. The MFCC AE runs
+# without the dev pass: the JAX eval step scores every model's output as a
+# waveform and fails on feature outputs (ROADMAP.md section 3). Each case:
+# (config, overrides, share of live parameters in its checkpoints: behind
+# the Gumbel-softmax at tau 0.1 the encoders get moments 100x under the
+# decoders', and 75 % (CatWAE) and 46 % (CatMfccAE) of the elements are
+# live, measured)
+NOISE_CASES = {
+    "run_E": ("run_E", dict(max_time_steps=1920), 0.85),
+    "dropout_vq_drop": ("run_K", dict(dropout=0.1, vq_drop=True, drop_dim=2), 0.85),
+    "catae": ("catae", dict(K=8, num_slices=2), 0.7),
+    "cat_mfcc_ae": ("ae", dict(name="cat_ae", cin_channels=39, frame_rate=25, K=8, num_slices=2,
+                               dev_epoch_interval=10**6), 0.4),
+}
+# Run E is held to twice the JAX loop's own spread where that exceeds
+# 1e-5: its narrowed config (commitment scale 1 behind the instance norm,
+# over 3 latent frames) gives encoder gradients that are near-cancelling
+# sums, and the JAX loop on one device and on two parts by up to 4.2e-5 in
+# the grad norm and 6.1e-6 in the aux loss over these 8 steps (dump seeds
+# 30, 31, 35; measured), with every loss within 3.1e-7; its parameters at
+# the step-6 checkpoint likewise
+SPREAD_RATIO = 2.0
+
+
+def _noise_cfgs(case):
+    from test_torch_port_quality_runs import NARROW
+
+    from wavenet_autoencoders_tpu.config import load_preset as jload
+    from wavenet_autoencoders_tpu_torch.config import load_preset
+
+    base, over, _ = NOISE_CASES[case]
+    if base.startswith("run_"):
+        return quality_cfgs(base, **{**SCHEDULE, **over})
+    over = {**NARROW, **SCHEDULE, **over}
+    return jload(base).replace(**over), load_preset(base).replace(**over)
+
+
+def _jitter_moves(cfg, steps):
+    """Latent frames the step key chain's jitter moves in ``steps`` steps
+    (the jitter key is ``split(fold_in(PRNGKey(seed + 1), step))[1]``,
+    frames clamped at the crop's edges do not move)."""
+    from wavenet_autoencoders_tpu_torch.models import bottlenecks as bn
+    from wavenet_autoencoders_tpu_torch.utils import jax_random as jr
+
+    frames = cfg.max_time_steps // (cfg.hop_size * (100 // cfg.frame_rate))
+    lo, hi = bn._jitter_bounds(cfg.time_jitter_prob, cfg.time_jitter_per_side)
+    moved = 0
+    for step in range(steps):
+        u = jr.uniform(jr.split(jr.fold_in(jr.PRNGKey(cfg.seed + 1), step))[1], (cfg.batch_size, frames))
+        moved += int((u[:, 1:] < lo).sum() + (u[:, :-1] > hi).sum())
+    return moved
+
+
+@pytest.mark.parametrize("case", sorted(NOISE_CASES))
+def test_loops_with_every_draw_match_line_for_line(tmp_path, case):
+    """The port's own draws (time jitter, dropout, VQ-dropout, Gumbel noise)
+    from the JAX step's keys: every log line within 1e-5 (run E's within
+    twice the JAX loop's own one- against two-device spread, measured here,
+    where that is larger), the checkpoints and the sample dump as the
+    16-step cases hold them."""
+    jcfg, cfg = _noise_cfgs(case)
+    rtol, param_atol = None, 2e-5
+    if case == "run_E":
+        assert cfg.time_jitter and not cfg.time_jitter_per_side and not cfg.time_jitter_start
+        assert _jitter_moves(cfg, NOISE_STEPS) > 0
+        spread_dir = tmp_path / "spread"
+        train_dump, dev_dump = _dump(spread_dir / "train", 8, DUMP_SEED), _dump(spread_dir / "dev", 2, DUMP_SEED + 1)
+        jtrain(jcfg, str(train_dump), str(spread_dir / "jax_two"), max_steps=NOISE_STEPS, log_every=1,
+               dev_dump_root=str(dev_dump))
+    jdir, pdir = _run_both(tmp_path, case, steps=NOISE_STEPS, cfgs=(jcfg, cfg))
+    if case == "run_E":
+        pairs = list(zip(_records(tmp_path / "spread" / "jax_two"), _records(jdir)))
+        spread = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in pairs if b.get(k)) for k in METRICS}
+        print("run E: the JAX loop's one- and two-device lines part by", {k: f"{v:.2e}" for k, v in spread.items()})
+        rtol = {k: max(1e-5, SPREAD_RATIO * v) for k, v in spread.items()}
+        name = "checkpoint_step000000006.npz"
+        a, b = dict(np.load(tmp_path / "spread" / "jax_two" / name)), dict(np.load(jdir / name))
+        p_spread = max(np.abs(a[k] - b[k]).max() for k in b if k.startswith("params/"))
+        print(f"run E: the JAX loop's one- and two-device parameters at step 6 part by {p_spread:.2e}")
+        param_atol = max(2e-5, SPREAD_RATIO * p_spread)
+    lines = assert_logs_match(jdir, pdir, rtol)
+    assert [r["step"] for r in lines][:NOISE_STEPS] == list(range(1, NOISE_STEPS + 1))
+    assert_checkpoints_match(jdir, pdir, NOISE_CASES[case][2], param_atol)
+    audio = sorted(p.relative_to(jdir) for p in jdir.rglob("*.wav"))
+    assert audio == sorted(p.relative_to(pdir) for p in pdir.rglob("*.wav"))
+    for rel in audio:
+        got, want = wavfile.read(pdir / rel)[1], wavfile.read(jdir / rel)[1]
+        assert got.shape == want.shape and (got != want).mean() <= 1 / 500, rel
+
+
+def test_two_rank_dp_steps_with_every_draw_equal_one_process(tmp_path):
+    """Two gloo ranks of a tiny svqwae with time jitter (from step 0,
+    per_side false), VQ-dropout and decoder dropout: each rank draws its
+    rows of the global batch's draw, and the steps equal one process's on
+    the whole batch (``tests/test_torch_port_distributed.py``'s bounds, the
+    Adam moments within 3e-5 of the largest: without any draw this tiny
+    model's two-rank moments already part from one process's by 4.6e-6 of
+    it in ``encoder/lin/w``, behind the instance norm, and with the jitter
+    and VQ-dropout by 1.1e-5, while the losses agree within 1.3e-7;
+    measured on the CPU)."""
+    from test_torch_port_distributed import two_ranks_against_one
+
+    ref = two_ranks_against_one(tmp_path, "noise", mu_atol=3e-5)
+    assert np.isfinite(ref["metrics/1/loss"])
 
 
 def _group(path: str) -> str:

@@ -202,8 +202,7 @@ def test_mixture_samplers_follow_a_pinned_mixture(dist):
     y[..., :M] = torch.tensor([0.0, 9.0, 0.0, 0.0])  # mixture 1 dominates
     y[..., M : 2 * M] = torch.tensor([-0.9, 0.25, 0.9, 0.0])
     y[..., 2 * M :] = -12.0
-    gen = torch.Generator().manual_seed(0)
     f = mixture.sample_from_discretized_mix_logistic if dist == "Logistic" else mixture.sample_from_mix_gaussian
-    x = f(y, gen)
+    x = f(y, jr.PRNGKey(0))
     assert x.shape == (3, 50)
     assert (x - 0.25).abs().max() < 1e-3

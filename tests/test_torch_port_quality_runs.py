@@ -56,11 +56,14 @@ NARROW = dict(layers=2, stacks=1, residual_channels=16, gate_channels=24, skip_o
               cin_channels=8, gin_channels=6, n_speakers=8, batch_size=2, max_time_steps=1280,
               compute_dtype="float32", clip_thresh=1.0)
 QUALITY_CONFIGS = {"run_K": ("svqwae_r5_cs0005", {"K": 8, "vq_warmup_steps": 2}), "run_F": ("inwae_r5", {})}
+# run E (svqwae_r4j: time jitter from step 0, per_side false, frame rate
+# 25), narrowed as run K; tests/test_torch_port_loop_parity.py runs its loops
+LOOP_CONFIGS = {"run_E": ("svqwae_r4j", {"K": 8, "vq_warmup_steps": 2})}
 
 
 def quality_cfgs(run, **over):
     """(JAX Config, port Config) of a narrowed quality config."""
-    name, extra = QUALITY_CONFIGS[run]
+    name, extra = {**QUALITY_CONFIGS, **LOOP_CONFIGS}[run]
     over = {**NARROW, **extra, **over}
     path = QUALITY / name / "config.json"
     return JConfig.load(path).replace(**over), Config.load(path).replace(**over)

@@ -2,7 +2,8 @@
 codebooks, usage and dead-code reseed, time jitter (both readings),
 VQ-dropout and dropout in the residual GLU block, with the JAX package's
 draws injected (``u``, ``start``, ``cand_idx``, the dropout masks: the same
-``jax.random`` calls on the same keys); and the port's own draws held by
+``jax.random`` calls on the same keys); and the port's own draws (from JAX
+keys, ``tests/test_torch_port_draws.py`` holds them bit for bit) held by
 their distributions.
 
 Tolerances: 1e-5 abs on f32 values (the EMA update, quantized codes,
@@ -157,7 +158,7 @@ def test_wavenet_draws_one_dropout_mask_per_layer_like_jax():
 
 def test_dropout_without_noise_source_raises():
     p = modules.ResidualGLU(8, 12, 3, key=jr.PRNGKey(0))
-    with pytest.raises(ValueError, match="Generator"):
+    with pytest.raises(ValueError, match="needs a mask or a key"):
         modules.residual_glu_apply(p, torch.zeros(1, 4, 8), dropout=0.1)
 
 
@@ -176,7 +177,7 @@ def test_port_dropout_draws_keep_rate_and_scale(p_drop, monkeypatch):
         return torch.zeros(*h.shape[:2], 2)
 
     monkeypatch.setattr(modules, "causal_conv1d_apply", conv)
-    modules.residual_glu_apply(p, x, dropout=p_drop, generator=torch.Generator().manual_seed(3))
+    modules.residual_glu_apply(p, x, dropout=p_drop, key=jr.PRNGKey(3))
     h = seen["h"].flatten()
     kept = h != 0
     rate = kept.float().mean().item()
@@ -191,7 +192,7 @@ def test_port_time_jitter_draws_shift_at_the_rate(per_side):
     and right equally often."""
     prob, B, T = 0.12, 64, 400
     z = torch.arange(T, dtype=torch.float32)[None, :, None].expand(B, T, 1).contiguous()
-    out = bn.time_jitter(z, prob, per_side=per_side, generator=torch.Generator().manual_seed(1))
+    out = bn.time_jitter(z, prob, per_side=per_side, key=jr.PRNGKey(1))
     shift = (out - z)[:, 1:-1, 0].flatten()
     n = shift.numel()
     total = 2 * prob if per_side else prob
@@ -203,7 +204,7 @@ def test_port_time_jitter_draws_shift_at_the_rate(per_side):
 def test_port_vq_dropout_draws_every_start_uniformly():
     D, drop, B = 8, 3, 20000
     z = torch.ones(B, 1, D)
-    out = bn.vq_dropout(z, drop, generator=torch.Generator().manual_seed(2))[:, 0]
+    out = bn.vq_dropout(z, drop, key=jr.PRNGKey(2))[:, 0]
     zero = out == 0
     assert (zero.sum(1) == drop).all()
     starts = zero.float().argmax(1)

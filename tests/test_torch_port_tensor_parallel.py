@@ -291,11 +291,12 @@ def test_two_rank_tp_steps_equal_one_process(tmp_path, fused):
 
 
 def test_tp_dropout_draws_the_masks_of_one_process(tmp_path):
-    """Both model ranks draw one process's masks (stream 2 + data index 0):
-    their step equals the one-process step given those masks."""
+    """Both model ranks draw one process's masks (the JAX step's: one split
+    of ``fold_in(PRNGKey(seed + 1), step)`` a layer): their step equals the
+    one-process step given those masks."""
     from _torch_port_tp_worker import make_cfg
 
-    from wavenet_autoencoders_tpu_torch.train.step import _seeded
+    from wavenet_autoencoders_tpu_torch.utils import jax_random as jr
 
     spec = _spec(dropout=0.05)
     batches = _batches(2)
@@ -304,9 +305,13 @@ def test_tp_dropout_draws_the_masks_of_one_process(tmp_path):
     cfg = make_cfg(spec)
 
     def masks(step):
-        gen = _seeded(torch.Generator(), cfg, step, 2)
+        key = jr.fold_in(jr.PRNGKey(cfg.seed + 1), step)
         shape = (len(batches[step]["x"]), batches[step]["x"].shape[1], cfg.residual_channels)
-        return {"dropout_masks": [torch.rand(shape, generator=gen) < 0.95 for _ in range(cfg.layers)]}
+        out = []
+        for _ in range(cfg.layers):
+            key, sub = jr.split(key)
+            out.append(jr.bernoulli(sub, 0.95, shape))
+        return {"dropout_masks": out}
 
     ref = run(inputs, one_process=True, forward_kw=masks)
     _assert_steps_close(r0, ref, 2)

@@ -231,6 +231,32 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
     assert_states_close(js, st)
 
 
+def test_async_checkpoint_writes_the_state_it_was_given(tmp_path, monkeypatch):
+    """The asynchronous writer holds host copies: a train step that updates
+    the CPU state in place before the write lands leaves both files (the
+    main and the ``_ema`` one) with the state of the checkpoint's step."""
+    import threading
+
+    from wavenet_autoencoders_tpu_torch.train import checkpoint as ck
+
+    _, (cfg, model, st, step) = pair()
+    st, _ = step(st, torch_batch(tiny_batch(4)))
+    want = dict(np.load(save_checkpoint(st, tmp_path / "sync")))
+    stepped, write = threading.Event(), ck.write_checkpoint
+    monkeypatch.setattr(ck, "write_checkpoint", lambda *a: stepped.wait(30) and write(*a))
+    saver = ck.AsyncCheckpointer()
+    saver.save(st, tmp_path / "async")
+    st, _ = step(st, torch_batch(tiny_batch(5)))
+    stepped.set()
+    saver.wait()
+    for name in ("checkpoint_step000000001.npz", "checkpoint_step000000001_ema.npz"):
+        got = dict(np.load(tmp_path / "async" / name))
+        ref = want if "_ema" not in name else dict(np.load(tmp_path / "sync" / name))
+        assert set(got) == set(ref)
+        for k in ref:
+            np.testing.assert_array_equal(got[k], ref[k], err_msg=f"{name} {k}")
+
+
 def test_reset_optimizer_and_restore_parts(tmp_path):
     _, (cfg, model, st, step) = pair()
     st, _ = step(st, torch_batch(tiny_batch(5)))

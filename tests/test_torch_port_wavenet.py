@@ -17,6 +17,7 @@ import torch.nn.functional as F  # noqa: E402
 
 from _torch_port_util import nets  # noqa: E402
 from wavenet_autoencoders_tpu_torch.models.wavenet import fold_weight_norm  # noqa: E402
+from wavenet_autoencoders_tpu_torch.utils import jax_random as jr  # noqa: E402
 
 
 def _inputs(net_kw, B=2, T=20, seed=0):
@@ -100,8 +101,7 @@ def test_free_running_decode_shapes_range_and_seed(scalar):
     _, c, g, _ = _inputs(kw, T=12)
 
     def run(seed):
-        gen = torch.Generator().manual_seed(seed)
-        return net.decode(12, c=torch.from_numpy(c), g=torch.from_numpy(g), generator=gen, upsampled=True)
+        return net.decode(12, c=torch.from_numpy(c), g=torch.from_numpy(g), key=jr.PRNGKey(seed), upsampled=True)
 
     y1, y2 = run(5), run(5)
     assert torch.equal(y1, y2)

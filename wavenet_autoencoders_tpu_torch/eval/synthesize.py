@@ -18,6 +18,7 @@ import torch
 
 from wavenet_autoencoders_tpu_torch import dsp
 from wavenet_autoencoders_tpu_torch.config import Config
+from wavenet_autoencoders_tpu_torch.utils import jax_random as jr
 from wavenet_autoencoders_tpu_torch.utils.device import check_on
 
 
@@ -74,7 +75,7 @@ def batch_wavegen(
     c: np.ndarray,
     g: np.ndarray | None = None,
     tar_c: np.ndarray | None = None,
-    generator: torch.Generator | None = None,
+    key: torch.Tensor | None = None,
     device: str | torch.device = "cuda",
 ) -> np.ndarray:
     """c: (B, T', dim_in) feature frames -> (B, T) float waveforms. IN-family
@@ -82,13 +83,15 @@ def batch_wavegen(
     NewINWAE conditions on the speaker code of ``tar_c`` (else of ``c``) in
     place of ``g``.
 
-    The model must live on ``device``. ``generator`` (on that device) drives
-    the sampling; the default is seeded with 0."""
+    The model must live on ``device``. The sampling draws from the JAX key
+    ``key`` (default ``PRNGKey(0)``, as the JAX package's): the plain
+    decode splits it once a step; the decode kernel takes the seed
+    ``randint(key, (), 0, 2³¹ − 1)`` (JAX's ``decode_pallas``) and draws
+    from it with its own generator."""
     dev = check_on(model, device)
     if not hasattr(model, "wavenet"):
         raise ValueError(f"{type(model).__name__} has no waveform decoder; it serves ABX export only")
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
+    key = jr.PRNGKey(0, dev) if key is None else key.to(dev)
     c = torch.as_tensor(_pad_frames_batch(cfg, c), dtype=torch.float32, device=dev)
     tar_t = None if tar_c is None else torch.as_tensor(tar_c, dtype=torch.float32, device=dev)
     lat = model.encode(c, tar_c=tar_t)
@@ -108,24 +111,30 @@ def batch_wavegen(
     else:  # no global conditioning (vocoder_raw): the ids are not used
         g = None
     if _use_kernel_decode(cfg, dev):
-        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator, device=dev))
+        seed = kernel_seed(key)
         codes, _logits = model.wavenet.decode_kernel(T, c=lat, g=g, seed=seed)
         codes = codes.cpu().numpy()
     else:
         y = model.wavenet.decode(
-            T, c=lat, g=g, generator=generator, softmax=True, quantize=True,
+            T, c=lat, g=g, key=key, softmax=True, quantize=True,
             log_scale_min=cfg.log_scale_min,
         ).cpu().numpy()
         codes = y.argmax(axis=-1) if cfg.is_mulaw_quantize else y[..., 0]
     return np.stack([_postprocess(cfg, codes[i]) for i in range(codes.shape[0])])
 
 
+def kernel_seed(key: torch.Tensor) -> int:
+    """The decode kernel's seed from a JAX key: ``randint(key, (), 0,
+    2³¹ − 1)``, read to the host once a call (JAX's ``decode_pallas``)."""
+    return int(jr.randint(key, (), 0, 2**31 - 1))
+
+
 def wavegen(cfg: Config, model, c: np.ndarray, g: int | None = None,
-            tar_c: np.ndarray | None = None, generator=None, device="cuda") -> np.ndarray:
+            tar_c: np.ndarray | None = None, key=None, device="cuda") -> np.ndarray:
     """Single-utterance generation; c: (T', dim_in). Returns (T,) float."""
     g_arr = None if g is None else np.array([g], np.int32)
     tc = None if tar_c is None else _pad_frames_batch(cfg, tar_c)
-    return batch_wavegen(cfg, model, c[None], g_arr, tar_c=tc, generator=generator, device=device)[0]
+    return batch_wavegen(cfg, model, c[None], g_arr, tar_c=tc, key=key, device=device)[0]
 
 
 def build_tar_utt_map(train_dump_root: str, speakers, feat: str = "mfcc.norm") -> dict:
@@ -150,7 +159,7 @@ def run_synthesis_list(
     lan: str = "english",
     start_ind: int = 0,
     tar_utt_map: dict | None = None,
-    generator: torch.Generator | None = None,
+    key: torch.Tensor | None = None,
     batch: int = 4,
     train_dump_root: str | None = None,
     pad_multiple: int = 0,
@@ -162,13 +171,14 @@ def run_synthesis_list(
     AdaIN; without a map it is built from the sibling ``train_no_dev`` dump
     (or ``train_dump_root``). ``pad_multiple`` (frames, 0 = exact lengths)
     buckets conditioning lengths by edge replication; each waveform is
-    cropped back to its true length before it is written.
+    cropped back to its true length before it is written. Each decode
+    draws from the next key of ``key, sub = split(key)``, the key being
+    ``PRNGKey(cfg.seed)`` by default (as the JAX package's).
     """
     dev = check_on(model, device)
     lines = [l.strip() for l in open(syn_list_path) if l.strip()]
     sp2ind = json.load(open(speaker2ind_path))
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(cfg.seed)
+    key = jr.PRNGKey(cfg.seed, dev) if key is None else key.to(dev)
     needs_tar = cfg.name.lower() in ("inae", "inae1", "new_inae")
     if needs_tar and not tar_utt_map:
         root = Path(train_dump_root) if train_dump_root else Path(dump_root).parent / "train_no_dev"
@@ -221,12 +231,13 @@ def run_synthesis_list(
         for j in range(0, len(group), step):
             chunk = group[j : j + step]
             tar_c = chunk[0][5]
+            key, sub = jr.split(key)
             wavs = batch_wavegen(
                 cfg, model,
                 np.stack([it[1] for it in chunk]),
                 np.array([it[2] for it in chunk], np.int32),
                 tar_c=None if tar_c is None else _pad_frames(cfg, tar_c)[None],
-                generator=generator,
+                key=sub,
                 device=dev,
             )
             for (i, _c, _sp, tar, fid, _tc, tf), wav in zip(chunk, wavs):

@@ -347,7 +347,11 @@ def wavenet_decode_reference(
     """The plain PyTorch version of the kernel: the same step loop, ring
     arena, storage roundings and sampling rule, with the noise drawn from a
     ``torch.Generator`` seeded with ``seed`` (so its samples are not the
-    kernel's Philox draws; teacher-mode logits are comparable)."""
+    kernel's Philox draws; teacher-mode logits are comparable). The kernel's
+    in-kernel stream stands in for the TPU's hardware generator
+    (``pltpu.prng_random_bits`` in the JAX kernel), which no JAX key
+    reproduces, so this sampler stays torch's own: only the seed is JAX's
+    (``eval.synthesize.kernel_seed``)."""
     store = _store_dtype(dtype_str)
     dev = packed["wconv"].device
     scalar = net.scalar_input

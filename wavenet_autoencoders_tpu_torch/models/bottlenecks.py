@@ -11,14 +11,17 @@
 - instance norm and AdaIN, time jitter and VQ-dropout.
 
 z is (B, T', D) throughout. ``.detach()`` stands for ``stop_gradient``.
-Each stochastic function takes its noise as an argument (``u``, ``start``,
-``cand_idx``: the train step draws the reseed candidates from the JAX
-step's keys) or draws it from a torch ``generator``. Inside
-``parallel.distributed.synced()`` the code counts (perplexity, usage) and
-the EMA statistics are those of the global batch.
+Each stochastic function draws its noise from a JAX ``key`` with the JAX
+function's call (``utils.jax_random``), or takes it as an argument (``u``,
+``start``, ``uniforms``, ``cand_idx``: the train step draws the reseed
+candidates from the JAX step's keys). Inside
+``parallel.distributed.synced()`` the noise is this rank's rows of the
+global batch's draw, and the code counts (perplexity, usage) and the EMA
+statistics are those of the global batch.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -234,12 +237,13 @@ class Gumbel(nn.Module):
 
 
 def gumbel_apply(p: Gumbel, z: torch.Tensor, *, tau: float = 0.1, hard: bool = False, train: bool = True,
-                 generator: torch.Generator | None = None, uniforms=None):
+                 key: torch.Tensor | None = None, uniforms=None):
     """Gumbel-softmax pick of one code per slice; straight-through when
-    ``hard``; the argmax one-hot outside training. The training noise comes
-    from ``uniforms`` (one (B, T, k) tensor in [1e-10, 1) per slice) when
-    given, else from ``generator``. Returns (quantized, aux_loss=0,
-    perplexity summed over slices, indices (B, T, slices))."""
+    ``hard``; the argmax one-hot outside training. The training noise of
+    slice i is ``uniform(sk, (B, T, k), 1e-10, 1)`` after ``key, sk =
+    split(key)`` (JAX ``gumbel_apply``), or ``uniforms[i]`` when given.
+    Returns (quantized, aux_loss=0, perplexity summed over slices, indices
+    (B, T, slices))."""
     B, T, D = z.shape
     n = len(p.codes)
     sub = D // n
@@ -250,8 +254,11 @@ def gumbel_apply(p: Gumbel, z: torch.Tensor, *, tau: float = 0.1, hard: bool = F
             if uniforms is not None:
                 u = uniforms[i]
             else:
-                u = global_draw(lambda n, _s=logits.shape[1:]: torch.rand(
-                    (n, *_s), generator=generator, device=logits.device), B) * (1.0 - 1e-10) + 1e-10
+                if key is None:
+                    raise ValueError("Gumbel noise in training needs a key or its uniforms")
+                key, sk = jr.split(key)
+                rows_all, rows = dist.global_batch_rows(B)
+                u = jr.uniform(sk, (rows_all, *logits.shape[1:]), 1e-10, 1.0, rows=rows)
             w = torch.softmax((logits - torch.log(-torch.log(u))) / tau, dim=-1)
         else:
             w = F.one_hot(logits.argmax(-1), logits.shape[-1]).to(logits.dtype)
@@ -265,58 +272,76 @@ def gumbel_apply(p: Gumbel, z: torch.Tensor, *, tau: float = 0.1, hard: bool = F
     return torch.cat(outs, -1), z.new_zeros(()), perp, torch.stack(idxs, -1)
 
 
+def _var(z: torch.Tensor) -> torch.Tensor:
+    """The biased variance over time as ``jnp.var`` computes it, the mean of
+    the squared deviations, so that autograd differentiates through the
+    inner mean as JAX does: that term is zero in exact arithmetic and
+    cancels the rounding of the deviations' sum, which torch's own ``var``
+    backward leaves in (measured: 40x the JAX gradient's error on a bias
+    in front of the instance norm, whose gradient is zero)."""
+    return (z - z.mean(1, keepdim=True)).square().mean(1, keepdim=True)
+
+
 def instance_norm(z: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Per-utterance, per-channel normalization over time with the biased
     variance (``jnp.var``; torch InstanceNorm1d, affine=False)."""
     mean = z.mean(1, keepdim=True)
-    var = z.var(1, keepdim=True, correction=0)
-    return (z - mean) / torch.sqrt(var + eps)
+    return (z - mean) / torch.sqrt(_var(z) + eps)
 
 
 def adain(content: torch.Tensor, style: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Re-style IN(content) with the style utterance's channel statistics."""
     s_mean = style.mean(1, keepdim=True)
-    s_std = torch.sqrt(style.var(1, keepdim=True, correction=0) + eps)
+    s_std = torch.sqrt(_var(style) + eps)
     return instance_norm(content, eps) * s_std + s_mean
 
 
-def global_draw(fn, B: int):
-    """Noise for a rank's B rows: ``fn(rows)`` draws it for the global
-    batch's rows (B times the ranks inside ``synced()``, else B) and this
-    rank's slice is returned, so every rank's rows get the draw one process
-    would give them."""
-    ranks, r = dist.global_rows()
-    return fn(B * ranks)[r * B : (r + 1) * B]
+def _jitter_bounds(prob, per_side: bool) -> tuple[float, float]:
+    """The f32 thresholds (p, 1 − p) of ``u < p`` and ``u > 1 − p``, as JAX
+    computes them: for a Python float ``prob`` in float64, each rounded to
+    f32 where it meets the f32 uniforms; for an ``np.float32`` (JAX's traced
+    f32 ``prob·gate`` under ``time_jitter_start``) in f32."""
+    if isinstance(prob, np.float32):
+        p = prob if per_side else prob / np.float32(2.0)
+        return float(p), float(np.float32(1.0) - p)
+    p = prob if per_side else prob / 2.0
+    return float(np.float32(p)), float(np.float32(1.0 - p))
 
 
-def time_jitter(z: torch.Tensor, prob: float = 0.12, per_side: bool = True, *,
-                u: torch.Tensor | None = None, generator: torch.Generator | None = None) -> torch.Tensor:
-    """Chorowski time jitter, from uniforms ``u`` (B, T') (drawn from
-    ``generator`` unless given). per_side=True: each frame is replaced by
-    its left / right neighbour with probability ``prob`` each; False: with
-    total probability ``prob``, direction uniform."""
+def time_jitter(z: torch.Tensor, prob=0.12, per_side: bool = True, *, u: torch.Tensor | None = None,
+                key: torch.Tensor | None = None) -> torch.Tensor:
+    """Chorowski time jitter, from the uniforms ``u`` (B, T'), drawn as
+    ``uniform(key, (B, T'))`` unless given. per_side=True: each frame is
+    replaced by its left / right neighbour with probability ``prob`` each;
+    False: with total probability ``prob``, direction uniform. ``prob`` is a
+    Python float or an ``np.float32`` (see :func:`_jitter_bounds`)."""
     B, T, D = z.shape
     if u is None:
-        u = global_draw(lambda n: torch.rand(n, T, generator=generator, device=z.device), B)
+        if key is None:
+            raise ValueError("time jitter needs a key or its uniforms")
+        rows_all, rows = dist.global_batch_rows(B)
+        u = jr.uniform(key, (rows_all, T), rows=rows)
     u = u.to(z.device)
-    p = prob if per_side else prob / 2.0
+    lo, hi = _jitter_bounds(prob, per_side)
     zero = torch.zeros_like(u, dtype=torch.long)
-    shift = torch.where(u < p, zero - 1, torch.where(u > 1.0 - p, zero + 1, zero))
+    shift = torch.where(u < lo, zero - 1, torch.where(u > hi, zero + 1, zero))
     idx = (torch.arange(T, device=z.device)[None, :] + shift).clamp(0, T - 1)
     return torch.gather(z, 1, idx[:, :, None].expand(B, T, D))
 
 
 def vq_dropout(z: torch.Tensor, drop_dim: int, *, start: torch.Tensor | None = None,
-               generator: torch.Generator | None = None) -> torch.Tensor:
+               key: torch.Tensor | None = None) -> torch.Tensor:
     """VQ-dropout: zero ``drop_dim`` contiguous latent channels from
-    ``start`` (B, 1) per utterance (uniform in [0, D - drop_dim] from
-    ``generator`` unless given) and rescale the rest by D / (D - drop_dim)."""
+    ``start`` (B, 1) per utterance (``randint(key, (B, 1), 0, D − drop_dim +
+    1)`` unless given) and rescale the rest by D / (D − drop_dim)."""
     B, T, D = z.shape
     if drop_dim <= 0:
         return z
     if start is None:
-        start = global_draw(
-            lambda n: torch.randint(0, D - drop_dim + 1, (n, 1), generator=generator, device=z.device), B)
+        if key is None:
+            raise ValueError("VQ-dropout needs a key or its start channels")
+        rows_all, rows = dist.global_batch_rows(B)
+        start = jr.randint(key, (rows_all, 1), 0, D - drop_dim + 1, rows=rows)
     start = start.to(z.device)
     ch = torch.arange(D, device=z.device)[None, :]
     keep = ~((ch >= start) & (ch < start + drop_dim))

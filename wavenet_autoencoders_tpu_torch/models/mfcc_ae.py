@@ -52,7 +52,7 @@ class MfccAE(nn.Module):
             h = _block_apply(p, h, 3, 1, residual=True, dtype=dtype)
         return linear_apply(self.decoder.out, h, dtype=dtype)
 
-    def forward(self, x, c, g, *, train: bool = True, dtype=None):
+    def forward(self, x, c, g, *, train: bool = True, dtype=None, key=None):
         """The reconstruction target is ``c`` itself; ``x`` and ``g`` are
         ignored. Returns (c_hat, aux_loss=0, perplexity=0)."""
         c_hat = self._decode_feat(self.encode(c, dtype=dtype), dtype=dtype)
@@ -73,8 +73,11 @@ class CatMfccAE(MfccAE):
         z = self.encoder.apply(c, dtype=dtype)
         return bn.gumbel_apply(self.gumbel, z, tau=self.tau, hard=self.hard, train=False)[0]
 
-    def forward(self, x, c, g, *, train: bool = True, dtype=None, generator=None, uniforms=None):
+    def forward(self, x, c, g, *, train: bool = True, dtype=None, key=None, uniforms=None):
+        """The Gumbel noise from ``sk`` of ``key, sk = split(key)`` (JAX
+        ``CatMfccAE.forward``)."""
         z = self.encoder.apply(c, dtype=dtype)
+        sk = None if key is None else jr.split(key)[1]
         q, aux, perp, _ = bn.gumbel_apply(self.gumbel, z, tau=self.tau, hard=self.hard, train=train,
-                                          generator=generator, uniforms=uniforms)
+                                          key=sk, uniforms=uniforms)
         return self._decode_feat(q, dtype=dtype), aux, perp

@@ -19,11 +19,12 @@ non-gradient state of the JAX package's ``model_state`` (EMA codebooks,
 code usage) is held in buffers named by its tree paths and updated in
 place. Every family draws its weights as its JAX ``init(key)`` does: the
 constructor takes ``key`` and ``wavenet``, a function that builds the
-decoder from the key the JAX ``init`` gives ``WaveNet.init``. Training
-noise comes from generators passed to ``forward``:
-``generator`` for the bottleneck's draws (Gumbel, VQ-dropout, time jitter),
-``dropout_generator`` for the decoder's dropout masks; the tests inject the
-JAX package's draws instead (``uniforms``, ``noise``, ``dropout_masks``).
+decoder from the key the JAX ``init`` gives ``WaveNet.init``. The training
+noise comes from the step's ``key`` passed to ``forward``, which each
+family splits as its JAX ``forward`` does (the bottleneck's draws: Gumbel,
+VQ-dropout, time jitter; the rest to the decoder, which splits it once a
+layer for its dropout masks); the tests may inject the noise instead
+(``uniforms``, ``noise``, ``dropout_masks``).
 All activations are (B, T, C).
 """
 from __future__ import annotations
@@ -97,9 +98,9 @@ class WVAE(WAEBase):
     def encode(self, c, tar_c=None, dtype=None):
         return self.encoder.apply(c, dtype=dtype)
 
-    def forward(self, x, c, g, *, train: bool = True, dtype=None, dropout_generator=None, dropout_masks=None):
-        y_hat = self.wavenet.apply(x, self.encode(c, dtype=dtype), g, train=train, dtype=dtype,
-                                   generator=dropout_generator, dropout_masks=dropout_masks)
+    def forward(self, x, c, g, *, train: bool = True, dtype=None, key=None, dropout_masks=None):
+        y_hat = self.wavenet.apply(x, self.encode(c, dtype=dtype), g, train=train, dtype=dtype, key=key,
+                                   dropout_masks=dropout_masks)
         return (y_hat, *_no_aux(y_hat))
 
 
@@ -122,9 +123,9 @@ class INWAE(WAEBase):
             return bn.adain(z, self._encode_raw(tar_c, dtype=dtype))
         return bn.instance_norm(z)
 
-    def forward(self, x, c, g, *, train: bool = True, dtype=None, dropout_generator=None, dropout_masks=None):
-        y_hat = self.wavenet.apply(x, self.encode(c, dtype=dtype), g, train=train, dtype=dtype,
-                                   generator=dropout_generator, dropout_masks=dropout_masks)
+    def forward(self, x, c, g, *, train: bool = True, dtype=None, key=None, dropout_masks=None):
+        y_hat = self.wavenet.apply(x, self.encode(c, dtype=dtype), g, train=train, dtype=dtype, key=key,
+                                   dropout_masks=dropout_masks)
         return (y_hat, *_no_aux(y_hat))
 
 
@@ -149,10 +150,10 @@ class NewINWAE(WAEBase):
             return bn.adain(z, self.encoder.apply(tar_c, dtype=dtype))
         return bn.instance_norm(z)
 
-    def forward(self, x, c, g, *, train: bool = True, dtype=None, dropout_generator=None, dropout_masks=None):
+    def forward(self, x, c, g, *, train: bool = True, dtype=None, key=None, dropout_masks=None):
         lat = self.encode(c, dtype=dtype)
-        y_hat = self.wavenet.apply(x, lat, self.speaker_code(c, dtype=dtype), train=train, dtype=dtype,
-                                   generator=dropout_generator, dropout_masks=dropout_masks)
+        y_hat = self.wavenet.apply(x, lat, self.speaker_code(c, dtype=dtype), train=train, dtype=dtype, key=key,
+                                   dropout_masks=dropout_masks)
         return (y_hat, *_no_aux(y_hat))
 
 
@@ -172,13 +173,16 @@ class CatWAE(WAEBase):
         z = self.encoder.apply(c, dtype=dtype)
         return bn.gumbel_apply(self.gumbel, z, tau=self.tau, hard=self.hard, train=False)[0]
 
-    def forward(self, x, c, g, *, train: bool = True, dtype=None, generator=None, uniforms=None,
-                dropout_generator=None, dropout_masks=None):
+    def forward(self, x, c, g, *, train: bool = True, dtype=None, key=None, uniforms=None, dropout_masks=None):
+        """The Gumbel noise from ``sk`` of ``key, sk = split(key)``, the
+        decoder's from the rest (JAX ``CatWAE.forward``)."""
         z = self.encoder.apply(c, dtype=dtype)
+        sk = None
+        if key is not None:
+            key, sk = jr.split(key)
         q, aux, perp, _ = bn.gumbel_apply(self.gumbel, z, tau=self.tau, hard=self.hard, train=train,
-                                          generator=generator, uniforms=uniforms)
-        y_hat = self.wavenet.apply(x, q, g, train=train, dtype=dtype, generator=dropout_generator,
-                                   dropout_masks=dropout_masks)
+                                          key=sk, uniforms=uniforms)
+        y_hat = self.wavenet.apply(x, q, g, train=train, dtype=dtype, key=key, dropout_masks=dropout_masks)
         return y_hat, aux, perp
 
 
@@ -193,9 +197,8 @@ class Vocoder(nn.Module):
     def encode(self, c, tar_c=None, dtype=None):
         return c
 
-    def forward(self, x, c, g, *, train: bool = True, dtype=None, dropout_generator=None, dropout_masks=None):
-        y_hat = self.wavenet.apply(x, c, g, train=train, dtype=dtype, generator=dropout_generator,
-                                   dropout_masks=dropout_masks)
+    def forward(self, x, c, g, *, train: bool = True, dtype=None, key=None, dropout_masks=None):
+        y_hat = self.wavenet.apply(x, c, g, train=train, dtype=dtype, key=key, dropout_masks=dropout_masks)
         return (y_hat, *_no_aux(y_hat))
 
     @torch.no_grad()
@@ -251,12 +254,18 @@ class VQWAE(WAEBase):
             return list(self.vq.codebooks)
         return [self.vq.codebook]
 
-    def _pre_vq(self, z, train, generator, start):
+    def _pre_vq(self, z, train, key, start):
+        """Instance norm, then VQ-dropout from ``sk`` of ``key, sk =
+        split(key)`` (or the given ``start``); returns (z, the key left for
+        the decoder), JAX ``_pre_vq``."""
         if self.ins_norm:
             z = bn.instance_norm(z)
-        if train and self.vq_drop and self.drop_dim > 0:
-            z = bn.vq_dropout(z, self.drop_dim, start=start, generator=_need(generator, start, "VQ-dropout"))
-        return z
+        if train and self.vq_drop and self.drop_dim > 0 and (key is not None or start is not None):
+            sk = None
+            if key is not None:
+                key, sk = jr.split(key)
+            z = bn.vq_dropout(z, self.drop_dim, start=start, key=sk)
+        return z, key
 
     def _quantize(self, z, train: bool = False):
         if self.ema:
@@ -265,27 +274,37 @@ class VQWAE(WAEBase):
             return bn.sliced_vq_apply(self.vq, z, beta=self.beta, commit_scale=self.commit_scale)
         return bn.vq_apply(self.vq, z, beta=self.beta)
 
-    def _post_vq(self, q, train, dtype, generator, u, jitter_scale):
-        # jitter_scale is the 0/1 gate of cfg.time_jitter_start
-        if train and self.use_time_jitter and jitter_scale:
-            q = bn.time_jitter(q, self.time_jitter_prob * jitter_scale, per_side=self.time_jitter_per_side,
-                               u=u, generator=_need(generator, u, "time jitter"))
+    def _post_vq(self, q, train, dtype, key, u, jitter_scale):
+        """Time jitter from ``sk`` of a split of a local copy of ``key``, so
+        the caller's key is unchanged (JAX ``_post_vq``): the decoder's
+        first dropout split then draws from the jitter's key again, a reuse
+        of the JAX package that is mirrored. ``jitter_scale`` is the 0/1
+        gate of ``cfg.time_jitter_start`` (JAX computes ``prob·gate`` in
+        f32), or None without one."""
+        gate = 1.0 if jitter_scale is None else float(jitter_scale)
+        if train and self.use_time_jitter and gate != 0.0 and (key is not None or u is not None):
+            prob = self.time_jitter_prob
+            if jitter_scale is not None:
+                prob = np.float32(prob) * np.float32(gate)
+            sk = None if key is None else jr.split(key)[1]
+            q = bn.time_jitter(q, prob, per_side=self.time_jitter_per_side, u=u, key=sk)
         if self.post_conv:
             q = conv1d_apply(self.post, q, padding=[(1, 1)], dtype=dtype)
         return q
 
-    def forward(self, x, c, g, *, train: bool = True, dtype=None, generator=None, jitter_scale=1.0, noise=None,
-                dropout_generator=None, dropout_masks=None):
+    def forward(self, x, c, g, *, train: bool = True, dtype=None, key=None, jitter_scale=None, noise=None,
+                dropout_masks=None):
         """Training forward: encoder -> instance norm -> VQ-dropout -> VQ
         (straight-through; EMA statistics updated in place) -> time jitter ->
-        post-conv -> teacher-forced decoder. Returns (y_hat, vq_loss,
+        post-conv -> teacher-forced decoder, the noise drawn from ``key`` as
+        JAX's ``VQWAE.forward`` draws it. Returns (y_hat, vq_loss,
         perplexity). With ``reseed``, a training forward stashes what
         ``revive`` needs: the pre-VQ codes of the (global) batch and each
         slice's code fractions. ``noise`` may hold the injected draws
         ``drop_start`` (B, 1) and ``jitter_u`` (B, T')."""
         noise = noise or {}
         z = self.encoder.apply(c, dtype=dtype)
-        z = self._pre_vq(z, train, generator, noise.get("drop_start"))
+        z, key = self._pre_vq(z, train, key, noise.get("drop_start"))
         q, vq_loss, perp, idx = self._quantize(z, train)
         if train and self.reseed:
             idxs = idx if idx.ndim == 3 else idx[..., None]
@@ -293,9 +312,8 @@ class VQWAE(WAEBase):
                       for i, s in enumerate(self._codebook_sizes())]
             flat = dist.all_gather_rows(z.reshape(-1, z.shape[-1]).detach().float())
             self._vq_diag = {"z": flat, "counts": counts}
-        q = self._post_vq(q, train, dtype, generator, noise.get("jitter_u"), jitter_scale)
-        y_hat = self.wavenet.apply(x, q, g, train=train, dtype=dtype, generator=dropout_generator,
-                                   dropout_masks=dropout_masks)
+        q = self._post_vq(q, train, dtype, key, noise.get("jitter_u"), jitter_scale)
+        y_hat = self.wavenet.apply(x, q, g, train=train, dtype=dtype, key=key, dropout_masks=dropout_masks)
         return y_hat, vq_loss, perp
 
     @torch.no_grad()
@@ -340,9 +358,3 @@ class VQWAE(WAEBase):
             return z
         return self._quantize(z)[0]
 
-
-def _need(generator, given, what: str):
-    """The generator a draw needs when its noise was not given."""
-    if given is None and generator is None:
-        raise ValueError(f"{what} in training needs its noise or a torch.Generator to draw it from")
-    return generator

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -62,6 +63,8 @@ from wavenet_autoencoders_tpu_torch.ops.upsample import (
 )
 from wavenet_autoencoders_tpu_torch.parallel.distributed import copy_to_model, gather_shards
 from wavenet_autoencoders_tpu_torch.utils import jax_random as jr
+
+_TINY = float(np.finfo(np.float32).tiny)  # the low end of jax.random.categorical's uniforms
 
 
 class WaveNet(nn.Module):
@@ -211,8 +214,7 @@ class WaveNet(nn.Module):
         return c
 
     def apply(self, x, c=None, g=None, *, softmax: bool = False, upsampled: bool = False,
-              train: bool = False, dtype=None, generator: torch.Generator | None = None,
-              dropout_masks=None):
+              train: bool = False, dtype=None, key: torch.Tensor | None = None, dropout_masks=None):
         """Teacher-forced forward.
 
         x: (B, T, in_channels) one-hot or (B, T, 1) scalar input, or (B, T)
@@ -221,7 +223,8 @@ class WaveNet(nn.Module):
            ``upsampled``). g: (B,) int speaker ids or (B, gin) features.
         train: training mode: with ``dropout`` > 0, one keep mask per layer
            on the layer's input, ``dropout_masks[i]`` when given, else drawn
-           from ``generator``. A net with dropout never takes the fused
+           from the key of ``key, sub = split(key)``, one split a layer (JAX
+           ``WaveNet.apply``). A net with dropout never takes the fused
            stack (as in the JAX package), in training or not.
         dtype: compute dtype of the convs (None = f32 throughout).
         Returns logits/params (B, T, out_channels).
@@ -241,9 +244,12 @@ class WaveNet(nn.Module):
                 g_feat = None if g_feat is None else copy_to_model(g_feat)
             skips = 0.0
             for i, lp in enumerate(self.layers):
+                sub = None
+                if train and self.dropout > 0.0 and key is not None:
+                    key, sub = jr.split(key)
                 h, s = residual_glu_apply(
                     lp, h, c, g_feat, dilation=self.dilation(i),
-                    dropout=self.dropout if train else 0.0, generator=generator,
+                    dropout=self.dropout if train else 0.0, key=sub,
                     mask=None if dropout_masks is None else dropout_masks[i], dtype=dtype,
                 )
                 skips = skips + s
@@ -338,25 +344,25 @@ class WaveNet(nn.Module):
         out = F.relu(out) @ conv1d_weight(self.post2)[0] + self.post2.b
         return out, buffers
 
-    def sample_output(self, logits, generator=None, *, softmax=True, quantize=True,
-                      log_scale_min=-50.0):
+    def sample_output(self, logits, key, *, softmax=True, quantize=True, log_scale_min=-50.0):
         """Map one step's logits (B, out) to the next input and the recorded
-        output."""
+        output, drawing from ``key`` as JAX's ``sample_output`` does: the
+        mixture samplers, or ``categorical(key, log(max(probs, 1e-12)))``,
+        the argmax of the log-probabilities plus Gumbel noise
+        ``−log(−log(uniform(key, ·, tiny, 1)))``."""
         if self.scalar_input:
             y = logits[:, None, :]
             if self.output_distribution == "Logistic":
-                x = sample_from_discretized_mix_logistic(y, generator, log_scale_min=log_scale_min)
+                x = sample_from_discretized_mix_logistic(y, key, log_scale_min=log_scale_min)
             elif self.output_distribution == "Normal":
-                x = sample_from_mix_gaussian(y, generator, log_scale_min=log_scale_min)
+                x = sample_from_mix_gaussian(y, key, log_scale_min=log_scale_min)
             else:
                 raise ValueError(self.output_distribution)
             return x.reshape(-1, 1)
         probs = torch.softmax(logits, dim=-1) if softmax else logits
         if quantize:
-            # categorical draw by Gumbel-argmax over log-probabilities
-            u = torch.rand(probs.shape, generator=generator, device=probs.device)
-            u = u.clamp(1e-12, 1.0 - 1e-7)
-            idx = (torch.log(probs.clamp_min(1e-12)) - torch.log(-torch.log(u))).argmax(-1)
+            u = jr.uniform(key, probs.shape, _TINY, 1.0)
+            idx = (-torch.log(-torch.log(u)) + torch.log(probs.clamp_min(1e-12))).argmax(-1)
             return F.one_hot(idx, self.out_channels).to(logits.dtype)
         return probs
 
@@ -369,7 +375,7 @@ class WaveNet(nn.Module):
         initial_input=None,
         test_inputs=None,
         *,
-        generator: torch.Generator | None = None,
+        key: torch.Tensor | None = None,
         softmax: bool = True,
         quantize: bool = True,
         log_scale_min: float = -50.0,
@@ -379,10 +385,13 @@ class WaveNet(nn.Module):
 
         c: (B, T', cin) frame conditioning (upsampled here unless
         ``upsampled``); g: (B,) ids or (B, gin); test_inputs (B, T, C) runs
-        the buffered path teacher-forced. Returns (B, T, out_channels)
-        one-hot/probs, or (B, T, 1) scalar samples.
+        the buffered path teacher-forced. The samples draw from ``key``
+        (default ``PRNGKey(0)``), split once a step as JAX's ``decode``
+        splits it. Returns (B, T, out_channels) one-hot/probs, or (B, T, 1)
+        scalar samples.
         """
         dev = self.first.v.device
+        key = jr.PRNGKey(0, dev) if key is None else key
         if c is not None:
             B = c.shape[0]
         elif test_inputs is not None:
@@ -409,8 +418,9 @@ class WaveNet(nn.Module):
                 x = test_inputs[:, t]
             ct = None if c is None else c[:, t]
             logits, buffers = self.step(x, buffers, t, ct, g_feat)
+            key, sub = jr.split(key)
             out = self.sample_output(
-                logits, generator, softmax=softmax, quantize=quantize,
+                logits, sub, softmax=softmax, quantize=quantize,
                 log_scale_min=log_scale_min,
             )
             ys.append(out)

@@ -6,8 +6,11 @@ Parameters are (B, T, C) with C = 3·M packed as [logit_probs | means |
 log_scales]. The losses keep the reference's numerics: log scales clamped
 at ``log_scale_min``, the 1e-12 CDF floor, and the three-way select of the
 edge bins (±0.999) and the mid-bin fallback where the CDF difference
-underflows. Uniforms of the samplers lie in [1e-5, 1-1e-5); random numbers
-come from an explicit ``torch.Generator``.
+underflows. The samplers draw from a JAX key as the JAX package's do
+(``utils.jax_random``): ``k1, k2 = split(key)``, the mixture pick by
+Gumbel-max over ``uniform(k1, ·, 1e-5, 1 − 1e-5)``, then
+``uniform(k2, ·, 1e-5, 1 − 1e-5)`` (logistic) or ``normal(k2, ·)``
+(Gaussian).
 """
 from __future__ import annotations
 
@@ -15,6 +18,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from wavenet_autoencoders_tpu_torch.utils import jax_random as jr
 
 
 def log_sum_exp(x: torch.Tensor) -> torch.Tensor:
@@ -91,14 +96,12 @@ def mix_gaussian_loss(
     return -lse.sum() if reduce else -lse[..., None]
 
 
-def _uniform(shape, like, generator, lo=1e-5):
-    u = torch.rand(shape, generator=generator, device=like.device, dtype=torch.float32)
-    return u * (1.0 - 2.0 * lo) + lo
+_LO, _HI = 1e-5, 1.0 - 1e-5
 
 
-def _pick(y, nr_mix, generator):
+def _pick(y, nr_mix, key):
     logit_probs = y[:, :, :nr_mix]
-    temp = logit_probs - torch.log(-torch.log(_uniform(logit_probs.shape, y, generator)))
+    temp = logit_probs - torch.log(-torch.log(jr.uniform(key, logit_probs.shape, _LO, _HI)))
     one_hot = F.one_hot(temp.argmax(-1), nr_mix).to(y.dtype)
     means = (y[:, :, nr_mix : 2 * nr_mix] * one_hot).sum(-1)
     log_scales = (y[:, :, 2 * nr_mix : 3 * nr_mix] * one_hot).sum(-1)
@@ -107,27 +110,26 @@ def _pick(y, nr_mix, generator):
 
 def sample_from_discretized_mix_logistic(
     y: torch.Tensor,
-    generator: torch.Generator | None = None,
+    key: torch.Tensor,
     log_scale_min: float = -7.0,
     clamp_log_scale: bool = False,
 ) -> torch.Tensor:
     """Draw samples in [-1, 1]; y: (B, T, 3*M) -> (B, T)."""
     assert y.shape[-1] % 3 == 0
-    means, log_scales = _pick(y, y.shape[-1] // 3, generator)
+    k1, k2 = jr.split(key)
+    means, log_scales = _pick(y, y.shape[-1] // 3, k1)
     if clamp_log_scale:
         log_scales = log_scales.clamp_min(log_scale_min)
-    u = _uniform(means.shape, y, generator)
+    u = jr.uniform(k2, means.shape, _LO, _HI)
     x = means + torch.exp(log_scales) * (torch.log(u) - torch.log(1.0 - u))
     return x.clamp(-1.0, 1.0)
 
 
-def sample_from_mix_gaussian(
-    y: torch.Tensor, generator: torch.Generator | None = None, log_scale_min: float = -7.0
-) -> torch.Tensor:
+def sample_from_mix_gaussian(y: torch.Tensor, key: torch.Tensor, log_scale_min: float = -7.0) -> torch.Tensor:
     """Sample in [-1, 1]; y: (B, T, C) -> (B, T). C == 2 is one Gaussian."""
+    k1, k2 = jr.split(key)
     if y.shape[-1] == 2:
         means, log_scales = y[:, :, 0], y[:, :, 1]
     else:
-        means, log_scales = _pick(y, y.shape[-1] // 3, generator)
-    noise = torch.randn(means.shape, generator=generator, device=y.device)
-    return (means + torch.exp(log_scales) * noise).clamp(-1.0, 1.0)
+        means, log_scales = _pick(y, y.shape[-1] // 3, k1)
+    return (means + torch.exp(log_scales) * jr.normal(k2, means.shape)).clamp(-1.0, 1.0)

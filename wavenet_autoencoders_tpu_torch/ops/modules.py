@@ -19,7 +19,7 @@ from wavenet_autoencoders_tpu_torch.ops.conv import (
     conv1d_apply,
     conv1d_weight,
 )
-from wavenet_autoencoders_tpu_torch.parallel.distributed import copy_to_model
+from wavenet_autoencoders_tpu_torch.parallel.distributed import copy_to_model, global_batch_rows
 from wavenet_autoencoders_tpu_torch.utils import jax_random as jr
 
 
@@ -78,7 +78,7 @@ def residual_glu_apply(
     *,
     dilation: int = 1,
     dropout: float = 0.0,
-    generator: torch.Generator | None = None,
+    key: torch.Tensor | None = None,
     mask: torch.Tensor | None = None,
     dtype=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -87,8 +87,9 @@ def residual_glu_apply(
     scaling. ``dtype`` is the compute dtype of the convs; ``dropout`` is the
     training-time rate (the caller passes 0 outside training): the conv's
     input is x times a Bernoulli(1 - dropout) keep mask over 1 - dropout,
-    the residual stays x. The mask is ``mask`` when given, else drawn from
-    ``generator`` (uniform < 1 - dropout, the JAX draw).
+    the residual stays x. The mask is ``mask`` when given, else JAX's
+    ``bernoulli(key, 1 - dropout, x.shape)`` (this rank's rows of the
+    global batch's draw inside ``synced()``).
 
     Tensor parallel (``parallel.mesh``: ``conv``, ``cproj``, ``gproj``
     column-parallel per gate half, ``out``/``skip`` row-parallel): x is
@@ -102,9 +103,10 @@ def residual_glu_apply(
     if dropout > 0.0:
         keep = 1.0 - dropout
         if mask is None:
-            if generator is None:
-                raise ValueError("dropout needs a mask or a torch.Generator to draw it from")
-            mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+            if key is None:
+                raise ValueError("dropout needs a mask or a key to draw it from")
+            rows_all, rows = global_batch_rows(x.shape[0])
+            mask = jr.bernoulli(key, keep, (rows_all, *x.shape[1:]), rows=rows)
         x = x * mask.to(x.dtype) / keep
     if getattr(p.conv, "tp", None):
         x = copy_to_model(x)

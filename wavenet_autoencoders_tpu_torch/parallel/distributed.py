@@ -267,6 +267,14 @@ def global_rows() -> tuple[int, int]:
     return (data_size(), data_index()) if _synced else (1, 0)
 
 
+def global_batch_rows(B: int) -> tuple[int, tuple[int, int]]:
+    """(the global batch's rows, this rank's rows (r0, r1)) for a local batch
+    of B rows: JAX draws its noise over the global batch, and a rank draws
+    the rows of its slice (``utils.jax_random``'s ``rows``)."""
+    ranks, r = global_rows()
+    return B * ranks, (r * B, (r + 1) * B)
+
+
 def broadcast_from_main(tensors: list[torch.Tensor]) -> None:
     """Overwrite every rank's tensors (of one dtype) with rank 0's, in place
     (the initial or resumed training state in the full layout, so that all

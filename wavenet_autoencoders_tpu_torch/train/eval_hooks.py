@@ -9,8 +9,9 @@
   importable, ``step<N>_waveplots.png``.
 
 The batch item is picked as in the JAX package, by numpy seeded with
-``cfg.seed + step``; scalar (MoL/MoG) outputs are sampled with the port's
-samplers from a ``torch.Generator`` seeded with the step.
+``cfg.seed + step``; the draws are the JAX package's: scalar (MoL/MoG)
+outputs are sampled from ``PRNGKey(step)`` and ``eval_model`` decodes from
+``PRNGKey(cfg.seed + step)`` (``utils.jax_random``).
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import torch
 
 from wavenet_autoencoders_tpu_torch import dsp
 from wavenet_autoencoders_tpu_torch.config import Config
+from wavenet_autoencoders_tpu_torch.utils import jax_random as jr
 
 
 def _host(x) -> np.ndarray:
@@ -87,8 +89,7 @@ def save_states(cfg: Config, step: int, y_hat, batch: dict, checkpoint_dir) -> N
             if cfg.output_distribution == "Logistic"
             else sample_from_mix_gaussian
         )
-        gen = torch.Generator(device=y.device).manual_seed(step)
-        pred = _host(smp(y[None], generator=gen, log_scale_min=cfg.log_scale_min))[0]
+        pred = _host(smp(y[None], jr.PRNGKey(step, y.device), log_scale_min=cfg.log_scale_min))[0]
     target = _host(batch["y"][idx, :, 0])
     pred_w = _to_wav(cfg, pred)
     tgt_w = _to_wav(cfg, target)
@@ -98,11 +99,11 @@ def save_states(cfg: Config, step: int, y_hat, batch: dict, checkpoint_dir) -> N
     dsp.save_wav(tgt_w, out_dir / f"step{step:09d}_target.wav", cfg.sample_rate)
 
 
-def eval_model(cfg: Config, model, step: int, batch: dict, eval_dir, generator=None) -> None:
+def eval_model(cfg: Config, model, step: int, batch: dict, eval_dir, key=None) -> None:
     """Full AR decode of one batch item conditioned on its features, on the
     model's device, with the model's current weights; wav + waveplot out.
-    ``generator`` (on that device) drives the sampling; the default is
-    seeded with ``cfg.seed + step``."""
+    The sampling draws from the JAX key ``key``, by default
+    ``PRNGKey(cfg.seed + step)``."""
     from wavenet_autoencoders_tpu_torch.eval.synthesize import batch_wavegen
 
     out_dir = Path(eval_dir)
@@ -111,9 +112,8 @@ def eval_model(cfg: Config, model, step: int, batch: dict, eval_dir, generator=N
     idx = _pick(cfg, step, batch["c"].shape[0])
     c = _host(batch["c"][idx : idx + 1])
     g = _host(batch["g"][idx : idx + 1]) if "g" in batch else None
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(cfg.seed + step)
-    wav = batch_wavegen(cfg, model, c, g, generator=generator, device=dev)[0]
+    key = jr.PRNGKey(cfg.seed + step, dev) if key is None else key
+    wav = batch_wavegen(cfg, model, c, g, key=key, device=dev)[0]
     target = _to_wav(cfg, _host(batch["y"][idx, :, 0]))
     dsp.save_wav(wav, out_dir / f"step{step:09d}_predicted.wav", cfg.sample_rate)
     dsp.save_wav(target, out_dir / f"step{step:09d}_target.wav", cfg.sample_rate)

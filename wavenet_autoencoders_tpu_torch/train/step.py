@@ -13,13 +13,13 @@ optimizer moments and the EMA shadow are dicts keyed by the parameters' JAX
 tree paths, which is also how checkpoints store them
 (``train/checkpoint.py``).
 
-The reseed candidates are the JAX step's: ``randint`` under the key
-``fold_in(fold_in(fold_in(PRNGKey(cfg.seed + 1), step), 0x5EED), slice)``
-(``utils.jax_random``), over the global batch's latent frames
-(``reseed_draws``). The other training noise comes from device generators
-seeded from ``cfg.seed`` and the step: one stream for the bottleneck
-(Gumbel, VQ-dropout, time jitter; the same on every rank) and one per data
-rank for the decoder's dropout masks.
+Every draw is the JAX step's (``utils.jax_random``): the step's key is
+``fold_in(PRNGKey(cfg.seed + 1), step)``, built on the device, and the
+model's forward splits it as its JAX ``forward`` does (the bottleneck's
+Gumbel noise, VQ-dropout and time jitter, then the decoder's dropout
+masks); the reseed candidates are ``randint`` under
+``fold_in(fold_in(step key, 0x5EED), slice)`` over the global batch's
+latent frames (``reseed_draws``).
 
 Data parallel (``parallel.distributed``): each data rank passes its slice
 of the global batch, and the step runs under ``synced()``, so it takes the
@@ -28,7 +28,8 @@ of the global loss (masked sums over the global batch's mask count, means
 over the data ranks), the gradients are summed over the data group before
 the norm and the clip, and the bottleneck reduces its statistics (EMA
 counts and sums, code fractions, reseed candidates) over the data group
-and slices its noise from the global draw.
+and draws its noise as this rank's rows of the global batch's draw; the
+ranks of a model group draw the same noise.
 
 Tensor parallel (``parallel.mesh``, after ``shard_state``): the model's
 sharded leaves, their Adam moments and their EMA shadow are this rank's
@@ -45,8 +46,8 @@ import torch
 from torch import nn
 
 from wavenet_autoencoders_tpu_torch.config import Config
-from wavenet_autoencoders_tpu_torch.models.mfcc_ae import CatMfccAE, MfccAE
-from wavenet_autoencoders_tpu_torch.models.wae import VQWAE, CatWAE
+from wavenet_autoencoders_tpu_torch.models.mfcc_ae import MfccAE
+from wavenet_autoencoders_tpu_torch.models.wae import VQWAE
 from wavenet_autoencoders_tpu_torch.ops.losses import (
     masked_cross_entropy,
     masked_mog_loss,
@@ -147,13 +148,6 @@ def objective(cfg: Config, model: nn.Module, y_hat, batch: dict, T: int):
     return recon_loss(cfg, y_hat.float(), batch["y"], mask, denom)
 
 
-def _seeded(gen: torch.Generator, cfg: Config, step: int, stream: int = 0) -> torch.Generator:
-    """``gen`` seeded for (seed, step, stream); stream 0 is the bottleneck's
-    noise, 2 + data index a data rank's dropout masks (the same on every
-    rank of its model group). A resumed run repeats the streams."""
-    return gen.manual_seed(cfg.seed * 1_000_003 + step + (stream << 40))
-
-
 RESEED_SPAN = 256
 
 
@@ -162,7 +156,7 @@ def reseed_draws(cfg: Config, sizes: list[int], device, span: int = RESEED_SPAN)
     JAX step's reseed candidates of slice i into the global batch's n latent
     frames, ``randint(fold_in(fold_in(fold_in(PRNGKey(cfg.seed + 1), step),
     0x5EED), i), (K_i,), 0, n)``. They are drawn on ``device`` for ``span``
-    steps at a time, since each draw is a few hundred small launches."""
+    steps at a time: one draw for 256 steps costs the launches of one."""
     base = jr.PRNGKey(cfg.seed + 1, device)
     drawn = {}
 
@@ -212,12 +206,8 @@ def make_train_step(cfg: Config, model: nn.Module):
     vq = model if isinstance(model, VQWAE) else None
     reseed = vq is not None and vq.reseed
     jitter_start = int(cfg.time_jitter_start or 0) if vq is not None and vq.use_time_jitter else 0
-    # draws of the bottleneck (Gumbel noise, VQ-dropout, time jitter)
-    noisy = isinstance(model, (CatWAE, CatMfccAE)) or (
-        vq is not None and (vq.use_time_jitter or (vq.vq_drop and vq.drop_dim > 0)))
-    dropout = cfg.dropout > 0.0 and not isinstance(model, MfccAE)
     device = next(model.parameters()).device
-    gen = torch.Generator(device=device)
+    base = jr.PRNGKey(cfg.seed + 1, device)
     draws = reseed_draws(cfg, vq._codebook_sizes(), device) if reseed else None
     # which gradients are shards (their squares are summed over the model group)
     sharded = torch.tensor([leaf_shard(k, p.shape) is not None for k, p in leaves.items()], device=device)
@@ -228,15 +218,10 @@ def make_train_step(cfg: Config, model: nn.Module):
         for p in plist:
             p.grad = None
         x = prep_x(cfg, batch["x"])
-        extra = {}
-        if noisy:
-            extra["generator"] = _seeded(gen, cfg, state.step)
+        extra = {"key": jr.fold_in(base, state.step)}
         if jitter_start > 0:
             # the jitter gate: no jitter before time_jitter_start
             extra["jitter_scale"] = 1.0 if state.step >= jitter_start else 0.0
-        if dropout:
-            extra["dropout_generator"] = _seeded(torch.Generator(device=device), cfg, state.step,
-                                                 2 + dist.data_index())
         extra.update(forward_kw or {})
         # commitment warm-up: the VQ aux loss is ramped in (and reported unscaled)
         ramp = min(max(state.step / warmup, 0.0), 1.0) if warmup > 0 else 1.0

@@ -1,23 +1,27 @@
-"""JAX's default PRNG (threefry2x32) as torch ops on an explicit device.
+"""JAX's default PRNG (threefry2x32) on an explicit device.
 
-The port draws its initial weights and its dead-code reseed candidates
-from the keys the JAX package uses, so that ``build_model(cfg, device,
-seed)`` holds the weights of ``build_model(cfg).init(PRNGKey(seed))`` in
-the JAX package, and a train step draws the reseed candidates of the JAX
-step. This module follows ``jax/_src/prng.py`` and ``jax/_src/random.py``
-of JAX 0.9.0 with ``jax_threefry_partitionable`` True (its default since
-JAX 0.5.0) and 64-bit types off:
+The port draws from the keys the JAX package uses: its initial weights
+(``build_model(cfg, device, seed)`` holds the weights of
+``build_model(cfg).init(PRNGKey(seed))`` in the JAX package) and every draw
+the JAX package makes after initialisation -- the train step's key chain
+(``fold_in(PRNGKey(seed + 1), step)`` split by each model as its JAX
+``forward`` splits it), dropout, time jitter, VQ-dropout, Gumbel noise,
+the reseed candidates, the AR samplers, synthesis and the eval hooks. This
+module follows ``jax/_src/prng.py`` and ``jax/_src/random.py`` of JAX 0.9.0
+with ``jax_threefry_partitionable`` True (its default since JAX 0.5.0) and
+64-bit types off:
 
-- a key is a (2,) tensor of two 32-bit words, held as int64 and masked to
-  32 bits after every add and shift (CUDA's uint32 support is partial); a
+- a key is a (2,) tensor of two 32-bit words, held as int64 in [0, 2³²); a
   tensor (..., 2) is a batch of keys, on which every function acts as
   ``jax.vmap`` of JAX's;
 - ``split`` is the fold-like threefry over the (hi, lo) words of a 64-bit
   iota; ``fold_in`` hashes the pair (0, data); 32-bit random bits are the
-  xor of the two threefry outputs over the same iota;
+  xor of the two threefry outputs over the same iota, element i's counter
+  being its flat index;
 - ``uniform`` fills the mantissa with the top 23 bits, and computes
   ``max(lo, u·(hi − lo) + lo)`` with ``hi − lo`` rounded to f32 and the
-  rest in float64, rounded once to f32 (XLA's CPU fuses the multiply-add);
+  multiply-add rounded once (XLA fuses it);
+- ``bernoulli`` is ``uniform(key, shape) < f32(p)``;
 - ``normal`` is ``√2·erf_inv(uniform(nextafter(−1, 0), 1))``, with XLA's
   f32 ``erf_inv`` (Giles' polynomial) evaluated as XLA evaluates it: the
   square and the results in f32, each multiply-add rounded once, the
@@ -26,8 +30,17 @@ JAX 0.5.0) and 64-bit types off:
 - ``randint`` is JAX's two-draw ``higher·(2^16 mod span)² + lower`` in
   32-bit arithmetic, modulo the span.
 
-Every function draws on the key's device. No function reads a key back to
+The threefry evaluations go through ``kernels/threefry.py``: the CUDA
+kernel for keys on the card, its plain torch-op version for keys on the
+CPU. Every function draws on the key's device; none reads a key back to
 the host.
+
+Rows of a draw: JAX draws its noise over the global batch. With ``rows=(r0,
+r1)`` the bits, uniforms, Bernoulli draws, normals and integers of rows
+[r0, r1) of ``shape``'s first axis are drawn alone, equal to that slice of
+the whole draw bit for bit, since element i's counter is its flat index:
+rows [r0, r1) are counters [r0·rest, r1·rest), rest the product of the
+other axes. A data rank draws the rows of its slice of the global batch.
 """
 from __future__ import annotations
 
@@ -36,8 +49,9 @@ import math
 import numpy as np
 import torch
 
-MASK = 0xFFFFFFFF
-_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+from wavenet_autoencoders_tpu_torch.kernels import threefry as K
+
+MASK = K.MASK
 
 
 def PRNGKey(seed: int, device: str | torch.device = "cpu") -> torch.Tensor:  # noqa: N802 (JAX's name)
@@ -46,27 +60,10 @@ def PRNGKey(seed: int, device: str | torch.device = "cpu") -> torch.Tensor:  # n
 
 
 def threefry2x32(key: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The Threefry-2x32 hash (20 rounds) of the count pairs (x0, x1), of one
-    shape, under ``key`` (..., 2), whose words broadcast against them: JAX's
-    ``threefry2x32_p``, elementwise (in place on new tensors)."""
-    k0, k1 = key[..., 0], key[..., 1]
-    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
-    x0 = (x0 + ks[0]).bitwise_and_(MASK)
-    x1 = (x1 + ks[1]).bitwise_and_(MASK)
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            x0.add_(x1).bitwise_and_(MASK)
-            # x1 = rotl(x1, r) ^ x0
-            high = x1 >> (32 - r)
-            x1.bitwise_left_shift_(r).bitwise_and_(MASK).bitwise_or_(high).bitwise_xor_(x0)
-        x0.add_(ks[(i + 1) % 3]).bitwise_and_(MASK)
-        x1.add_(ks[(i + 2) % 3] + (i + 1)).bitwise_and_(MASK)
-    return x0, x1
-
-
-def _iota_2x32(n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    return idx >> 32, idx & MASK
+    """The Threefry-2x32 hash (20 rounds) of the count pairs (x0, x1) under
+    ``key`` (..., 2), whose words broadcast against them: JAX's
+    ``threefry2x32_p``, elementwise."""
+    return K.threefry2x32(key[..., 0], key[..., 1], x0, x1)
 
 
 def _batched(key: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -78,7 +75,7 @@ def _batched(key: torch.Tensor, ndim: int) -> torch.Tensor:
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split(key, num)``: (..., num, 2) keys (``jax.vmap`` of it
     over a batch of keys (..., 2))."""
-    y0, y1 = threefry2x32(_batched(key, 1), *_iota_2x32(num, key.device))
+    y0, y1 = threefry2x32(_batched(key, 1), *K.iota_words(num, 0, key.device))
     return torch.stack([y0, y1], dim=-1)
 
 
@@ -94,27 +91,46 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
-def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
-    """``jax.random.bits(key, shape, uint32)`` as int64 words in [0, 2³²):
-    (..., *shape) for keys (..., 2)."""
+def _layout(key: torch.Tensor, shape, rows) -> tuple[torch.Tensor, int, int, tuple[int, ...]]:
+    """(keys (nk, 2), counters a key, first counter, output shape) of a draw
+    of ``shape`` (or of its rows [r0, r1)) under ``key`` (..., 2)."""
     shape = tuple(int(s) for s in shape)
-    hi, lo = _iota_2x32(math.prod(shape), key.device)
-    y0, y1 = threefry2x32(_batched(key, len(shape)), hi.reshape(shape), lo.reshape(shape))
-    return y0 ^ y1
+    first, out = 0, shape
+    if rows is not None:
+        r0, r1 = (int(r) for r in rows)
+        if not shape or not 0 <= r0 <= r1 <= shape[0]:
+            raise ValueError(f"rows {rows} are not rows of a draw of shape {shape}")
+        rest = math.prod(shape[1:])
+        first, out = r0 * rest, (r1 - r0, *shape[1:])
+    return key.reshape(-1, 2), math.prod(out), first, (*key.shape[:-1], *out)
+
+
+def random_bits(key: torch.Tensor, shape, rows=None) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` as int64 words in [0, 2³²):
+    (..., *shape) for keys (..., 2); rows [r0, r1) of it with ``rows``."""
+    keys, n, first, out = _layout(key, shape, rows)
+    return K.bits(keys, n, first).reshape(out)
 
 
 def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def uniform(key: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32, minval, maxval)``, bit for bit."""
-    bits = random_bits(key, shape)
-    mant = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+def uniform(key: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0, rows=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``, bit for
+    bit; rows [r0, r1) of it with ``rows``."""
     lo, hi = _f32(minval), _f32(maxval)
     span = _f32(np.float32(hi) - np.float32(lo))
-    out = (mant.double() * span + lo).float()
-    return torch.clamp_min(out, lo)
+    keys, n, first, out = _layout(key, shape, rows)
+    return K.uniform(keys, n, first, lo, span).reshape(out)
+
+
+def bernoulli(key: torch.Tensor, p: float, shape, rows=None) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` for a Python float p (JAX
+    converts it to f32): ``uniform(key, shape) < f32(p)``, a bool tensor;
+    rows [r0, r1) of it with ``rows``."""
+    keys, n, first, out = _layout(key, shape, rows)
+    return K.keep_mask(keys, n, first, _f32(p)).reshape(out)
 
 
 # XLA's f32 erf_inv (M. Giles, "Approximating the erfinv function"): the
@@ -140,20 +156,22 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * math.inf, out)
 
 
-def normal(key: torch.Tensor, shape) -> torch.Tensor:
-    """``jax.random.normal(key, shape, float32)`` within 1e-6 relative."""
+def normal(key: torch.Tensor, shape, rows=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)`` within 1e-6 relative;
+    rows [r0, r1) of it with ``rows``."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    return _f32(math.sqrt(2.0)) * erf_inv(uniform(key, shape, lo, 1.0))
+    return _f32(math.sqrt(2.0)) * erf_inv(uniform(key, shape, lo, 1.0, rows=rows))
 
 
-def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
+def randint(key: torch.Tensor, shape, minval: int, maxval: int, rows=None) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval)`` (int32 range), bit
-    for bit, as int64: (..., *shape) for keys (..., 2)."""
+    for bit, as int64: (..., *shape) for keys (..., 2); rows [r0, r1) of it
+    with ``rows``."""
     minval, maxval = int(minval), int(maxval)
     if not -(2**31) <= minval <= maxval <= 2**31 - 1:
         raise ValueError(f"randint range [{minval}, {maxval}) is not an int32 range")
     keys = split(key)
-    higher, lower = random_bits(keys[..., 0, :], shape), random_bits(keys[..., 1, :], shape)
+    higher, lower = random_bits(keys[..., 0, :], shape, rows), random_bits(keys[..., 1, :], shape, rows)
     span = max(maxval - minval, 1)
     mult = ((2**16 % span) ** 2 & MASK) % span  # in uint32: 0 for spans above 2^16
     offset = ((higher % span) * mult + lower % span) & MASK

@@ -126,7 +126,9 @@ def unflatten_tensors(flat: Mapping, like: Mapping, prefix: str = "") -> dict[st
 
 
 def _host(v) -> np.ndarray:
-    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+    """A host copy: never a view of a CPU tensor, which the next train step
+    updates in place while an asynchronous checkpoint writes the copy."""
+    return v.detach().to("cpu", copy=True).numpy() if isinstance(v, torch.Tensor) else np.array(v)
 
 
 def _tensor(flat: Mapping, key: str, like: torch.Tensor) -> torch.Tensor:
