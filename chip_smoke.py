@@ -54,10 +54,18 @@ Phases (each raises on failure, so the script exits non-zero):
 7. At B=40 x T=5120, bf16: K2 and K3 against their plain versions on the
    same inputs (skips, ab, the final residual and all ten gradients, at
    phase 5's bf16 tolerances); then their times and the plain versions'
-   with CUDA events beside their bounds; whole train steps, fused and
-   unfused, in turns (host clock after a synchronize), in samples/s; one
-   step of each under torch.profiler: device time by kernel, and K2/K3's
-   time and TFLOP/s by pass.
+   with CUDA events beside their bounds; the train step as a CUDA graph
+   against the eager body, fused and unfused, from one initial state over
+   the same 4 batches for 20 steps: two eager runs give the eager spread,
+   and at steps 1 (eager in both), 2 (the first replay) and 20 the graphed
+   run's loss, grad norm and every parameter, Adam moment and EMA-shadow
+   value must equal the eager run's bit for bit where the two eager runs
+   do, and lie within twice their spread elsewhere (printed: which held),
+   with the capture's time and the counted launches a replay makes; then
+   the four steps timed in turns (host clock after a synchronize, 3 steps
+   a turn), in samples/s; one step of each under torch.profiler: device
+   time and operations by kernel, the device-busy share of the timed step,
+   and K2/K3's time and TFLOP/s by pass.
 8. IN-WAE at full ``inae`` width through the CLI on ``cuda``: ``train
    --preset inae --hparams fused_stack=true --max-steps 3`` at B=10 x
    T=5120 bf16 on a synthetic dump (K2/K3 counted, step 1's loss and grad
@@ -168,7 +176,10 @@ Phases (each raises on failure, so the script exits non-zero):
    operations or bytes). Then an unfused svqwae train step with dropout
    0.05 at B=40 x T=5120 bf16, once with the kernel's masks and once with
    the plain version's: the 20 masks bit for bit, step 1's loss within
-   1e-6, both step times; the kernel's launches counted.
+   1e-6, both step times (eager); the kernel's launches counted. Then the
+   same step as a CUDA graph: the masks it drew at steps 1-3 (the eager
+   first step, the captured second, a replay; their keys folded from the
+   device step) bit for bit against the eager step's.
 17. Run E (``quality2/exp/svqwae_r4j``: time jitter from step 0,
    ``per_side`` false; ``--phases 0,17``, not in the default list): 2000
    fused steps of its schedule (``--steps 14000``) on the shared corpus;
@@ -179,6 +190,13 @@ Phases (each raises on failure, so the script exits non-zero):
    mean loss over steps 1550-2000 within 0.10 nats of run E's, perplexity
    >= 64 there, K2/K3 launched as predicted and the reseeds printed beside
    run E's; no evaluation (run E's ABX predates the stale-EMA fix).
+
+The train step runs as the CLI runs it: a CUDA graph on the card for one
+process (phases 6, 8-10, 11's single-process runs, 13-15 and 17; phases 6,
+10 and the quality runs fail unless the loop's ``train step:`` line says
+so), eager under a process group (11's ranks and 1-rank group, 12). The
+launch counters count a replay's launches (``train/graph.py``), so every
+prediction holds as before.
 
 Phases 13-15 and 17 share one corpus when they run together. ``--quality-hparams
 k=v,...`` appends to their hparams (``fused_stack=false``: the fused
@@ -899,14 +917,16 @@ def phase6(k2, k3, tmp: Path):
     dirs = make_dump(dump, np.random.default_rng(6))
     K.LAUNCHES_FWD = K.LAUNCHES_BWD = TF.LAUNCHES = 0
     t0 = time.perf_counter()
-    cli(["train", "--preset", "svqwae", "--hparams", "fused_stack=true", "--device", "cuda",
-         "--max-steps", "3", str(dump), str(ckpt)])
+    with tee_stdout() as out:
+        cli(["train", "--preset", "svqwae", "--hparams", "fused_stack=true", "--device", "cuda",
+             "--max-steps", "3", str(dump), str(ckpt)])
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     launches = (K.LAUNCHES_FWD, K.LAUNCHES_BWD)
     tf_launches("svqwae_cli_train", TF.LAUNCHES)
     log(f"phase 6: train 3 steps at B=40 x T=5120 bf16 through the CLI: {t1 - t0:.2f} s host clock "
-        f"(build and data included); K2/K3 launches {launches}")
+        f"(build and data included); the step: {graph_form(out.getvalue(), 'phase 6')}; K2/K3 launches {launches} "
+        "(a replay's counted)")
     if launches != (3, 3):
         raise AssertionError(f"K2/K3 launched {launches} times in 3 fused train steps, expected (3, 3)")
     # 48 utterances at B=40 make one step per epoch, so the epoch records hold
@@ -993,10 +1013,7 @@ def kernel_breakdown(fn):
 def phase7(k2, k3):
     import torch
 
-    from wavenet_autoencoders_tpu_torch.config import load_preset
     from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
-    from wavenet_autoencoders_tpu_torch.models import build_model
-    from wavenet_autoencoders_tpu_torch.train.step import init_state, make_train_step
 
     B, T = 40, 5120
     rng = np.random.default_rng(7)
@@ -1031,59 +1048,50 @@ def phase7(k2, k3):
     del fwd, ab, hfin, bargs
     f2, by2, f3, by3 = glu_bound(B, T)
 
-    # whole train steps, fused and unfused, at the preset's shape, in turns
-    def stepper(fused):
-        cfg = load_preset("svqwae", f"fused_stack={str(fused).lower()}")
-        model = build_model(cfg, device="cuda").train()
-        st, step = init_state(cfg, model), make_train_step(cfg, model)
-        r = np.random.default_rng(8)
-        codes = torch.from_numpy(r.integers(0, 256, (B, T))).cuda()
-        batch = {"x": codes, "y": codes[..., None], "lengths": torch.full((B,), T, device="cuda"),
-                 "c": torch.from_numpy(r.standard_normal((B, T // 160, 39)).astype(np.float32)).cuda(),
-                 "g": torch.from_numpy(r.integers(0, 153, (B,))).cuda()}
-        torch.cuda.reset_peak_memory_stats()
-        step(st, batch)  # warm-up
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() / 2**30
-
-        def run(n=2):
-            t0 = time.perf_counter()
-            for _ in range(n):
-                step(st, batch)
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t0) / n * 1e3
-
-        return run, peak
-
-    unfused, peak_u = stepper(False)
-    fused, peak_f = stepper(True)
-    order = [("unfused", unfused), ("fused", fused), ("fused", fused), ("unfused", unfused)]
-    times = {"unfused": [], "fused": []}
-    for name, run in order:
-        times[name].append(run())
+    # whole train steps at the preset's shape, fused and unfused, each as a
+    # CUDA graph and eager from the same initial state and batches: held
+    # against each other, then timed in turns and profiled
+    batches = step_batches(B, T)
+    runs, holds = {}, {}
+    for name, fused in (("unfused", False), ("fused", True)):
+        holds[name], runs[name] = graph_hold(name, fused, batches)
+        torch.cuda.empty_cache()
+    order = [f"{n}_{f}" for n in ("unfused", "fused") for f in ("eager", "graphed")]
+    order += order[::-1]
+    times = {k: [] for k in order}
+    for key in order:
+        name, form = key.split("_")
+        times[key].append(runs[name][form](3))
     step_ms = {k: float(np.mean(v)) for k, v in times.items()}
     sps = {k: B * T / (v / 1e3) for k, v in step_ms.items()}
-    rest = step_ms["fused"] - k2_ms - k3_ms
+    rest = step_ms["fused_graphed"] - k2_ms - k3_ms
     log(f"phase 7: B={B} T={T} bf16: K2 {k2_ms:.2f} ms (plain {p2_ms:.2f}), K3 {k3_ms:.2f} ms (plain {p3_ms:.2f}); "
-        f"train step fused {times['fused']} ms, unfused {times['unfused']} ms (host clock, 2 steps each, in turns) "
-        f"= {sps['fused']:,.0f} vs {sps['unfused']:,.0f} samples/s; fused step minus K2+K3 {rest:.1f} ms; "
-        f"peak memory fused {peak_f:.1f} GiB, unfused {peak_u:.1f} GiB")
+        f"train step ms (host clock, 3 steps a turn, in turns {order}): "
+        f"{json.dumps({k: [round(t, 2) for t in v] for k, v in times.items()})} = "
+        f"{json.dumps({k: round(v) for k, v in sps.items()})} samples/s; graphed fused step minus K2+K3 {rest:.1f} ms; "
+        f"{smi()}")
     # where a step's device time goes, by kernel (one more step each)
     breakdown, pass_flop = {}, glu_pass_flop(B, T)
     log(f"phase 7: K2/K3 FLOP per pass {json.dumps({p: f'{v:.4g}' for p, v in pass_flop.items()})}")
-    for name, run in (("fused", fused), ("unfused", unfused)):
+    for key in order[:4]:
+        name, form = key.split("_")
         t0 = time.perf_counter()
-        rows = kernel_breakdown(lambda: run(1))
+        rows = kernel_breakdown(lambda: runs[name][form](1))
         wall = (time.perf_counter() - t0) * 1e3
         busy = sum(r[1] for r in rows)
+        ops = sum(r[2] for r in rows)
         passes = {p: sum(ms for k, ms, _ in rows if p in k) for p in GLU_PASSES}
         tflops = {p: pass_flop[p] / (passes[p] / 1e3) / 1e12 for p in pass_flop if passes[p] > 0}
-        breakdown[name] = {"device_ms": busy, "wall_ms_profiled": wall,
-                           "top": [(k[:100], ms, n) for k, ms, n in rows[:12]],
-                           "glu_passes_ms": {p: v for p, v in passes.items() if v > 0},
-                           "glu_passes_tflop_s": tflops}
-        log(f"phase 7: {name} step under the profiler: device busy {busy:.1f} ms of {wall:.1f} ms wall; "
-            f"K2/K3 passes ms {json.dumps({p: round(v, 2) for p, v in passes.items() if v > 0})}, "
+        breakdown[key] = {"device_ms": busy, "device_ops": ops, "wall_ms_profiled": wall,
+                          "busy_share_of_timed_step": busy / step_ms[key] if busy else None,
+                          "top": [(k[:100], ms, n) for k, ms, n in rows[:12]],
+                          "glu_passes_ms": {p: v for p, v in passes.items() if v > 0},
+                          "glu_passes_tflop_s": tflops}
+        share = (f"{100 * busy / step_ms[key]:.1f}% of the timed {step_ms[key]:.1f} ms step" if busy
+                 else "not measured (the profiler saw no device time)")
+        log(f"phase 7: {key} step under the profiler: device busy {busy:.1f} ms in {ops} device operations, "
+            f"{share} ({wall:.1f} ms wall profiled); K2/K3 passes ms "
+            f"{json.dumps({p: round(v, 2) for p, v in passes.items() if v > 0})}, "
             f"TFLOP/s {json.dumps({p: round(v, 1) for p, v in tflops.items()})}")
         for k, ms, n in rows[:12]:
             log(f"  {ms:9.3f} ms {n:5d}x  {k[:110]}")
@@ -1095,10 +1103,119 @@ def phase7(k2, k3):
                     "shape": f"B={B},T={T},bf16 storage", "flop": flop, "bytes": nbytes})
         log(f"phase 7: {rec['name']}: {flop / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB -> bound {rec['bound_ms']:.3f} ms "
             f"(ops {t_ops:.3f}, bytes {t_bytes:.3f}); {100 * rec['bound_ms'] / ms:.2f}% of bound")
-    k2["train_step"] = {"fused_ms": times["fused"], "unfused_ms": times["unfused"], "samples_per_s": sps,
-                        "fused_minus_k2_k3_ms": rest, "peak_gib": {"fused": peak_f, "unfused": peak_u},
+    k2["train_step"] = {"ms": times, "samples_per_s": sps, "graphed_fused_minus_k2_k3_ms": rest, "holds": holds,
                         "profile": breakdown}
-    k3["unfused_step_ms"] = k2["unfused_step_ms"] = step_ms["unfused"]
+    k3["unfused_step_ms"] = k2["unfused_step_ms"] = step_ms["unfused_graphed"]
+    del runs
+    torch.cuda.empty_cache()
+
+
+GRAPH_STEPS = 20
+HELD_AT = (1, 2, GRAPH_STEPS)  # the eager first step, the first replay, the last
+
+
+def step_batches(B, T, n=4, seed=8) -> list[dict]:
+    """n svqwae batches of random codes, features and speakers on the card."""
+    import torch
+
+    r = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        codes = torch.from_numpy(r.integers(0, 256, (B, T))).cuda()
+        out.append({"x": codes, "y": codes[..., None], "lengths": torch.full((B,), T, device="cuda"),
+                    "c": torch.from_numpy(r.standard_normal((B, T // 160, 39)).astype(np.float32)).cuda(),
+                    "g": torch.from_numpy(r.integers(0, 153, (B,))).cuda()})
+    return out
+
+
+def step_diff(a: dict, b: dict) -> dict:
+    """Max |a - b| of two snapshots (``step_snapshot``), by field: the loss,
+    the grad norm and each tree of the state."""
+    return {k: abs(a[k] - b[k]) if isinstance(a[k], float) else float((a[k] - b[k]).abs().max()) for k in a}
+
+
+def step_snapshot(st, m) -> dict:
+    """A step's loss and grad norm and its state's tensors, flat by tree
+    (params, model_state, mu, nu, ema), copied on the card."""
+    import torch
+
+    from wavenet_autoencoders_tpu_torch.train.graph import state_tensors
+
+    trees = {}
+    for k, t in state_tensors(st).items():
+        trees.setdefault(k.split("/", 1)[0], []).append(t.detach().reshape(-1).float())
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            **{k: torch.cat(v) for k, v in trees.items()}}
+
+
+def graph_hold(name, fused, batches):
+    """The svqwae step (``name``: fused or unfused) as a CUDA graph against
+    the eager body, from the same initial weights over the same batches
+    (cycled) for GRAPH_STEPS steps: two eager runs give the eager spread at
+    steps HELD_AT; the graphed run must equal the first eager run bit for
+    bit where the eager runs do, and elsewhere lie within twice their
+    spread. Returns (the hold's record, {"eager": run, "graphed": run}),
+    each run ``run(n)`` timing n more steps (ms a step, host clock)."""
+    import torch
+
+    from wavenet_autoencoders_tpu_torch.config import load_preset
+    from wavenet_autoencoders_tpu_torch.models import build_model
+    from wavenet_autoencoders_tpu_torch.train.step import init_state, make_train_step
+
+    cfg = load_preset("svqwae", f"fused_stack={str(fused).lower()}")
+    snaps, diffs, steppers, rec = {}, {}, {}, {}
+    for run_name, graph in (("eager", False), ("eager_again", False), ("graphed", True)):
+        model = build_model(cfg, device="cuda").train()
+        st, step = init_state(cfg, model), make_train_step(cfg, model, graph=graph)
+        torch.cuda.synchronize()
+        base, t0 = torch.cuda.memory_allocated(), time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(1, GRAPH_STEPS + 1):
+            st, m = step(st, batches[(i - 1) % len(batches)])
+            if i in HELD_AT:
+                s = step_snapshot(st, m)
+                if run_name == "eager":
+                    snaps[i] = s
+                else:
+                    diffs.setdefault(run_name, {})[i] = step_diff(s, snaps[i])
+                del s
+        torch.cuda.synchronize()
+        rec[run_name] = {"first_steps_s": time.perf_counter() - t0,
+                         "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30}
+        if graph:
+            rec["capture_s"] = step.runner.capture_s
+            rec["replay_counts"] = dict(zip(("K2", "K3", "threefry"), step.runner.launches))
+        if run_name != "eager_again":
+            steppers[run_name] = (st, step)
+        del model, st, step
+    spread, off = diffs["eager_again"], diffs["graphed"]
+    bitwise = all(v == 0 for d in spread.values() for v in d.values())
+    bad = {i: {k: (off[i][k], spread[i][k]) for k in off[i] if not off[i][k] <= 2 * spread[i][k]} for i in HELD_AT}
+    bad = {i: v for i, v in bad.items() if v}
+    held = "bit for bit" if bitwise else "within twice the eager spread"
+    rec.update({"eager_spread": spread, "graphed_off": off, "held": held})
+    log(f"phase 7: {name} svqwae step, CUDA graph against the eager body over {GRAPH_STEPS} steps from one state "
+        f"and {len(batches)} batches: eager against eager max|diff| at steps {HELD_AT} "
+        f"{json.dumps({i: {k: float(f'{v:.3g}') for k, v in d.items()} for i, d in spread.items()})}; graphed "
+        f"against eager {json.dumps({i: {k: float(f'{v:.3g}') for k, v in d.items()} for i, d in off.items()})}; "
+        f"held {held}{': OFF ' + json.dumps(bad) if bad else ''}; capture {rec['capture_s']:.2f} s, a replay "
+        f"launches {json.dumps(rec['replay_counts'])} of the counted kernels; peak GiB above the run's start: eager "
+        f"{rec['eager']['peak_gib']:.2f}, graphed {rec['graphed']['peak_gib']:.2f}")
+    if bad:
+        raise AssertionError(f"the graphed {name} step is off the eager body: {bad}")
+
+    def timer(st, step):
+        def run(n):
+            nonlocal st
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(n):
+                st, _ = step(st, batches[i % len(batches)])
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / n * 1e3
+        return run
+
+    return rec, {k: timer(*v) for k, v in steppers.items()}
 
 
 def count_launches(rec, path, n):
@@ -1428,6 +1545,15 @@ def tee_stdout():
         yield buf
 
 
+def graph_form(text: str, where: str) -> str:
+    """The train loop's ``train step:`` line in ``text``; raises unless the
+    step ran as a CUDA graph."""
+    m = re.search(r"^train step: (.*)$", text, re.M)
+    if m is None or not m.group(1).startswith("CUDA graph"):
+        raise AssertionError(f"{where}: the train step did not run as a CUDA graph ({m.group(1) if m else 'no line'})")
+    return m.group(1)
+
+
 def make_zs2019(root: Path, rng, n_train=1000, n_test=4, sr=16000):
     """A ZeroSpeech-2019 wav tree: ``english/train/unit`` (speakers
     S000..S007) and ``english/train/voice`` (V001, V002) with ``n_train``
@@ -1524,6 +1650,7 @@ def phase10(k1, k2, k3, tmp: Path):
     if loads < 25:
         raise AssertionError(f"the recipe's 24 steps and dev pass took {loads} batches from the native loader")
     text = out.getvalue()
+    log(f"phase 10: the step: {graph_form(text, 'phase 10')}")
     hooks = {f"{m[0]}{' ' + m[1] if m[1] else ''} {m[2]}": float(m[3]) for m in re.findall(
         r"^(save_states|eval_model)(?: \((\w+)\))? at step (\d+): ([\d.]+) s$", text, re.M)}
     hooks.update({f"dev pass {m[0]}": float(m[1]) for m in re.findall(
@@ -2180,8 +2307,44 @@ def threefry_loop_sass() -> dict | None:
 
 
 DROPOUT_B, DROPOUT_T = 40, 5120
+DROPOUT_GRAPH_STEPS = 3
 TOL_DROPOUT_STEP1 = 1e-6
 TOL_NORMAL = 1e-6
+
+
+def dropout_masks(cfg, batch: dict, graph: bool) -> tuple[list, list]:
+    """The decoder's dropout masks (copies of what the threefry kernel's
+    ``keep_mask`` returned inside the step) and the loss of each of an
+    svqwae train step's first DROPOUT_GRAPH_STEPS steps on ``batch``,
+    graphed or eager. A replay writes the masks into the tensors the
+    capture returned, so each step's are read after it."""
+    from wavenet_autoencoders_tpu_torch.kernels import threefry as TF
+    from wavenet_autoencoders_tpu_torch.models import build_model
+    from wavenet_autoencoders_tpu_torch.train.step import init_state, make_train_step
+
+    model = build_model(cfg, device="cuda").train()
+    st, step = init_state(cfg, model), make_train_step(cfg, model, graph=graph)
+    drawn, kernel, L = [], TF.keep_mask, cfg.layers
+
+    def keep_mask(*a):
+        out = kernel(*a)
+        drawn.append(out)
+        return out
+
+    masks, losses = [], []
+    TF.keep_mask = keep_mask
+    try:
+        for _ in range(DROPOUT_GRAPH_STEPS):
+            n = len(drawn)
+            st, m = step(st, batch)
+            if len(drawn) - n not in (0, L) or len(drawn) < L:
+                raise AssertionError(f"a dropout step drew {len(drawn) - n} masks, expected {L} (or 0 in a replay)")
+            masks.append([t.clone() for t in drawn[-L:]])
+            losses.append(float(m["loss"]))
+            del drawn[:-L]
+    finally:
+        TF.keep_mask = kernel
+    return masks, losses
 
 
 def phase16(tf):
@@ -2298,7 +2461,7 @@ def phase16(tf):
     torch.cuda.empty_cache()
     def first_step(plain: bool) -> dict:
         model = build_model(cfg, device="cuda").train()
-        st, step = init_state(cfg, model), make_train_step(cfg, model)
+        st, step = init_state(cfg, model), make_train_step(cfg, model, graph=False)
         torch.cuda.synchronize()
         TF.LAUNCHES = 0
         with threefry_plain() if plain else contextlib.nullcontext():
@@ -2327,6 +2490,21 @@ def phase16(tf):
     if masks_equal != L or not off <= TOL_DROPOUT_STEP1:
         raise AssertionError(f"dropout step: {masks_equal}/{L} masks equal, loss off by {off}")
     tf_launches("dropout_train_step", step1["kernel"]["launches"])
+    # the dropout step as a CUDA graph: its masks at steps 1-3 (the eager
+    # first step, the captured second, a replay), whose keys come from the
+    # device step, against the eager step's
+    torch.cuda.empty_cache()
+    eager, e_loss = dropout_masks(cfg, batch, graph=False)
+    torch.cuda.empty_cache()
+    graphed, g_loss = dropout_masks(cfg, batch, graph=True)
+    held = [sum(torch.equal(a, b) for a, b in zip(e, g)) for e, g in zip(eager, graphed)]
+    log(f"phase 16: the dropout step as a CUDA graph: masks of steps 1-{DROPOUT_GRAPH_STEPS} bit for bit against "
+        f"the eager step's {held} of {L} each; losses graphed {g_loss}, eager {e_loss}")
+    if held != [L] * DROPOUT_GRAPH_STEPS:
+        raise AssertionError(f"the graphed dropout step drew other masks than the eager step: {held} of {L}")
+    step1["graphed_masks_equal"], step1["graphed_losses"], step1["eager_losses"] = held, g_loss, e_loss
+    del eager, graphed
+    torch.cuda.empty_cache()
     main = entries["(d) dropout mask"]
     tf.update({"ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
                "bound_by": main["bound_by"], "library_ms": None,  # torch has no threefry (torch.rand is Philox)
@@ -2569,6 +2747,7 @@ def quality_run(spec: QualityRun, k1, k2, k3, tmp: Path, shared: dict | None) ->
     launches = {"K1": K1.LAUNCHES, "K2": K.LAUNCHES_FWD, "K3": K.LAUNCHES_BWD}
     tf_launches(f"{spec.key}_train", TF.LAUNCHES)
     text = out.getvalue()
+    form = graph_form(text, p)
     cfg = Config.load(exp / "config.json")
     n_train, n_dev = (len(WaveDataset(str(dumps / s), cfg)) for s in ("train_no_dev", "dev"))
     predicted = quality_train_launches(cfg, n_train, n_dev, spec.max_steps)
@@ -2622,8 +2801,8 @@ def quality_run(spec: QualityRun, k1, k2, k3, tmp: Path, shared: dict | None) ->
                 f"reseeded {json.dumps(reseeded)} ({spec.label} {json.dumps(ref_reseeded)}); " if vq else "")
     log(f"{p}: steps {win[0]}-{win[-1]} ({len(win)} lines): mean loss {loss:.4f} nats ({spec.label} {ref_loss:.4f}, "
         f"bound +-{TOL_QR_LOSS}), {perp_txt}grad norm at step {last} {got[last]['grad_norm']:.4f}; "
-        f"{ms_step:.2f} ms a step over steps 100-{last} (host clock, log times); launches {json.dumps(launches)} "
-        f"(predicted {json.dumps(predicted)})")
+        f"{ms_step:.2f} ms a step over steps 100-{last} (host clock, log times; {form}); launches "
+        f"{json.dumps(launches)} (predicted {json.dumps(predicted)}, a replay's counted)")
     if not cfg.fused_stack and spec.phase == 13:
         log(f"{p}: {spec.hparams}: beside the fused run's mean loss {K1500_FUSED['window_mean_loss']}, perplexity "
             f"{K1500_FUSED['perplexity'][0]}-{K1500_FUSED['perplexity'][1]} and ABX across speakers "
@@ -2638,7 +2817,7 @@ def quality_run(spec: QualityRun, k1, k2, k3, tmp: Path, shared: dict | None) ->
         raise AssertionError(f"quality train launched {launches}, the loop predicts {predicted}")
     rec["train"] = {"window_mean_loss": loss, "ref_window_mean_loss": ref_loss, "perplexity": perps,
                     "reseeded": reseeded, "last_grad_norm": got[last]["grad_norm"], "ms_per_step": ms_step,
-                    "launches": launches, "n_train": n_train, "n_dev": n_dev}
+                    "form": form, "launches": launches, "n_train": n_train, "n_dev": n_dev}
     count_launches(k2, f"{spec.key}_train", launches["K2"])
     count_launches(k3, f"{spec.key}_train", launches["K3"])
     if spec.evaluations:

@@ -96,14 +96,14 @@ def _jax_candidates(seed, step, K, n, slices):
 
 
 def test_reseed_draws_are_jax_at_every_step_of_their_spans():
-    """``reseed_draws`` draws a span of steps at once: its candidates are the
+    """``ReseedDraws`` draws a span of steps at once: its candidates are the
     JAX step's at the ends of spans and past them, for slices of two sizes
     and frame counts that change between calls."""
     from wavenet_autoencoders_tpu_torch.config import Config
-    from wavenet_autoencoders_tpu_torch.train.step import RESEED_SPAN, reseed_draws
+    from wavenet_autoencoders_tpu_torch.train.step import RESEED_SPAN, ReseedDraws
 
     cfg = Config(seed=1234)
-    draws = reseed_draws(cfg, [256, 5], "cpu")
+    draws = ReseedDraws(cfg, [256, 5], "cpu")
     for step in (0, 1, RESEED_SPAN - 1, RESEED_SPAN, 3 * RESEED_SPAN + 7, 4000):
         for n in (800, 12345):
             pick = draws(step)

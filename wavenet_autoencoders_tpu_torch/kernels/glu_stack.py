@@ -162,11 +162,13 @@ def glu_stack_backward_reference(dskips, hfin, c, ab, wconv, wc, wout, bout, wsk
 # ---------------------------------------------------------------------------
 
 
-def gate_perm(G: int) -> torch.Tensor:
+def gate_perm(G: int, device=None) -> torch.Tensor:
     """Column order of the packed gate weights: packed column 2i holds gate
     column i (the tanh half) and 2i+1 holds column G/2 + i (the sigmoid
-    half), so that the two land in one thread's adjacent accumulators."""
-    i = torch.arange(G // 2)
+    half), so that the two land in one thread's adjacent accumulators. Made
+    on ``device`` (no copy from the host: the train step's graph captures
+    it)."""
+    i = torch.arange(G // 2, device=device)
     return torch.stack([i, i + G // 2], 1).reshape(-1)
 
 
@@ -190,7 +192,7 @@ def pack_weights(wconv, wc, wout, wskip, store):
         wcx = torch.cat([torch.zeros(L, wc.shape[1], 2 * G, dtype=wc.dtype, device=wc.device), wc], -1)
         wx = torch.cat([wx, wcx.to(wx.dtype)], 1)
     wd = torch.cat([wout, wskip], -1)
-    packed = {"wg": wk[:, :, gate_perm(G).to(wk.device)].transpose(1, 2), "wo": wd.transpose(1, 2), "wd": wd, "wx": wx}
+    packed = {"wg": wk[:, :, gate_perm(G, wk.device)].transpose(1, 2), "wo": wd.transpose(1, 2), "wd": wd, "wx": wx}
     return {k: v.to(store).contiguous() for k, v in packed.items()}
 
 

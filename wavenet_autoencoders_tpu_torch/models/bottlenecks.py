@@ -211,9 +211,10 @@ def update_usage(usage: torch.Tensor, counts: torch.Tensor, decay: float) -> tor
 def reseed_slice(codebook: torch.Tensor, usage: torch.Tensor, z_slice: torch.Tensor, thresh: float, active: bool,
                  *, cand_idx: torch.Tensor):
     """Revive dead codes: rows whose usage EMA is below ``thresh/K`` (when
-    ``active``) become encoder outputs ``z_slice[cand_idx]`` (K indices: the
-    JAX step draws ``randint(key, (K,), 0, N)``), and their usage is reset
-    to 1/K. Returns (new_codebook, new_usage, dead mask)."""
+    ``active``, a bool or a 0-dim bool tensor) become encoder outputs
+    ``z_slice[cand_idx]`` (K indices: the JAX step draws ``randint(key,
+    (K,), 0, N)``), and their usage is reset to 1/K. Returns (new_codebook,
+    new_usage, dead mask)."""
     K = codebook.shape[0]
     dead = (usage < thresh / K) & active
     cand = z_slice[cand_idx.to(z_slice.device).long()].to(codebook.dtype)
@@ -296,11 +297,15 @@ def adain(content: torch.Tensor, style: torch.Tensor, eps: float = 1e-5) -> torc
     return instance_norm(content, eps) * s_std + s_mean
 
 
-def _jitter_bounds(prob, per_side: bool) -> tuple[float, float]:
+def _jitter_bounds(prob, per_side: bool):
     """The f32 thresholds (p, 1 − p) of ``u < p`` and ``u > 1 − p``, as JAX
     computes them: for a Python float ``prob`` in float64, each rounded to
-    f32 where it meets the f32 uniforms; for an ``np.float32`` (JAX's traced
-    f32 ``prob·gate`` under ``time_jitter_start``) in f32."""
+    f32 where it meets the f32 uniforms; for an ``np.float32`` or a 0-dim
+    f32 tensor (JAX's traced f32 ``prob·gate`` under ``time_jitter_start``)
+    in f32, the tensor's on its device."""
+    if torch.is_tensor(prob):
+        p = prob if per_side else prob / 2.0
+        return p, 1.0 - p
     if isinstance(prob, np.float32):
         p = prob if per_side else prob / np.float32(2.0)
         return float(p), float(np.float32(1.0) - p)
@@ -314,7 +319,8 @@ def time_jitter(z: torch.Tensor, prob=0.12, per_side: bool = True, *, u: torch.T
     ``uniform(key, (B, T'))`` unless given. per_side=True: each frame is
     replaced by its left / right neighbour with probability ``prob`` each;
     False: with total probability ``prob``, direction uniform. ``prob`` is a
-    Python float or an ``np.float32`` (see :func:`_jitter_bounds`)."""
+    Python float, an ``np.float32`` or a 0-dim f32 tensor (see
+    :func:`_jitter_bounds`)."""
     B, T, D = z.shape
     if u is None:
         if key is None:

@@ -279,13 +279,14 @@ class VQWAE(WAEBase):
         the caller's key is unchanged (JAX ``_post_vq``): the decoder's
         first dropout split then draws from the jitter's key again, a reuse
         of the JAX package that is mirrored. ``jitter_scale`` is the 0/1
-        gate of ``cfg.time_jitter_start`` (JAX computes ``prob·gate`` in
-        f32), or None without one."""
-        gate = 1.0 if jitter_scale is None else float(jitter_scale)
-        if train and self.use_time_jitter and gate != 0.0 and (key is not None or u is not None):
+        gate of ``cfg.time_jitter_start`` as a 0-dim f32 tensor, or None
+        without one: as JAX computes ``prob·gate`` in f32 and draws either
+        way, the jitter runs with probability 0 while the gate is shut (the
+        identity, bit for bit), and the step reads no gate on the host."""
+        if train and self.use_time_jitter and (key is not None or u is not None):
             prob = self.time_jitter_prob
             if jitter_scale is not None:
-                prob = np.float32(prob) * np.float32(gate)
+                prob = jitter_scale * float(np.float32(prob))
             sk = None if key is None else jr.split(key)[1]
             q = bn.time_jitter(q, prob, per_side=self.time_jitter_per_side, u=u, key=sk)
         if self.post_conv:
@@ -317,19 +318,19 @@ class VQWAE(WAEBase):
         return y_hat, vq_loss, perp
 
     @torch.no_grad()
-    def revive(self, step: int, candidates) -> torch.Tensor:
+    def revive(self, active, candidates) -> torch.Tensor:
         """Dead-code revival, run by the train step after the optimizer
         update, from the stash of the step's forward: refresh each slice's
         usage EMA from the batch's code fractions, then re-seed the rows
-        whose usage fell below ``reseed_thresh/K`` (from step
-        ``reseed_start`` on) with pre-VQ codes of the batch, the rows
+        whose usage fell below ``reseed_thresh/K`` (when ``active``, a bool
+        or a 0-dim bool tensor: the step is past ``reseed_start``) with
+        pre-VQ codes of the batch, the rows
         ``candidates(i, n)`` (K indices of slice i into the batch's n latent
         frames). With EMA codebooks the revived rows' statistics are patched
         too (cluster size <- the mean, ema_w <- code * mean) so the next EMA
         update keeps them. Returns the number of revived codes."""
         diag, self._vq_diag = self._vq_diag, None
         z, sub = diag["z"], self.hid // len(self._codebook_sizes())
-        active = step >= self.reseed_start
         n_dead = z.new_zeros(())
         for i, cb in enumerate(self._books()):
             u = bn.update_usage(self.usage[i], diag["counts"][i], self.reseed_decay)

@@ -1,0 +1,156 @@
+"""The train step as one device program: a CUDA graph of the step's body,
+captured once and replayed once a step. No counterpart in the JAX package,
+whose step is one ``jax.jit``-compiled function with donated state
+(``wavenet_autoencoders_tpu/train/step.py:make_train_step``); this is how
+the port gets the same.
+
+``GraphedStep(device)(body, state, batch)`` runs ``body(state, batch)``
+(``train.step.TrainStep.body``, which reads device tensors alone):
+
+1. the first call runs it eagerly on a side stream: a real step, which
+   builds the kernels, sets their shared-memory attributes and warms cuBLAS
+   and autograd;
+2. the second call captures it with ``torch.cuda.graph`` over static batch
+   buffers (the gradients set to None first, so that autograd allocates
+   them in the graph's pool; Python's collector held off, which could
+   otherwise free an earlier graph during the capture and so invalidate
+   it) and replays it;
+3. every later call copies its batch into the static buffers and replays.
+
+A replay writes into the tensors the capture saw: the state's parameters,
+Adam moments, EMA shadow and model buffers (checked before every replay:
+:class:`StatePointers` raises if one was rebound, as ``load_checkpoint``
+rebinds the moments and the shadow), and its outputs, so the metrics it
+returns are copies. The kernels' launch counters count in Python, so they
+see the capture and not the replays: the capture's change of each counter
+is undone and added once a replay.
+"""
+from __future__ import annotations
+
+import collections
+import gc
+import time
+
+import torch
+
+from wavenet_autoencoders_tpu_torch.kernels import glu_stack, threefry
+from wavenet_autoencoders_tpu_torch.utils.params import flatten_state
+
+#: the launch counters a step's body can move (K2, K3, threefry): (module, attribute)
+COUNTERS = ((glu_stack, "LAUNCHES_FWD"), (glu_stack, "LAUNCHES_BWD"), (threefry, "LAUNCHES"))
+
+
+def _counts() -> list[int]:
+    return [getattr(m, a) for m, a in COUNTERS]
+
+
+def state_tensors(state) -> dict[str, torch.Tensor]:
+    """Every tensor of a TrainState that the step updates in place, by its
+    checkpoint path: parameters, model buffers, Adam moments, EMA shadow."""
+    out = {f"params/{k}": p for k, p in state.params().items()}
+    out.update({f"model_state/{k}": b for k, b in flatten_state(state.model).items()})
+    for name, tree in (("mu", state.mu), ("nu", state.nu), ("ema", state.ema or {})):
+        out.update({f"{name}/{k}": t for k, t in tree.items()})
+    return out
+
+
+class StatePointers:
+    """The device addresses of a TrainState's tensors when a graph was
+    captured over it; ``check`` raises if any tensor has been rebound since,
+    as a replay over stale addresses would train tensors the state no longer
+    holds while it reports losses."""
+
+    def __init__(self, state):
+        self.ptrs = self._read(state)
+
+    @staticmethod
+    def _read(state) -> dict[str, int]:
+        return {k: t.data_ptr() for k, t in state_tensors(state).items()}
+
+    def check(self, state) -> None:
+        now = self._read(state)
+        moved = sorted(k for k in self.ptrs.keys() | now.keys() if self.ptrs.get(k) != now.get(k))
+        if moved:
+            trees = collections.Counter(k.split("/", 1)[0] for k in moved)
+            raise RuntimeError(f"{len(moved)} tensors of the train state were rebound after the step's graph was "
+                               f"captured ({', '.join(f'{t}: {n}' for t, n in sorted(trees.items()))}; first "
+                               f"{moved[0]}): restore a state in place, or before the first step")
+
+
+class GraphedStep:
+    """``metrics = graphed(body, state, batch)``: ``body(state, batch)`` as a
+    CUDA graph on ``device`` (see the module's docstring), captured from the
+    body of the second call. Batches must keep the first one's keys, shapes
+    and dtypes. ``capture_s`` is the capture's host time, ``launches`` each
+    counter's launches a replay makes (as ``COUNTERS``). It keeps no
+    reference to ``body``, whose owner holds it: no cycle keeps a dead
+    graph's memory."""
+
+    def __init__(self, device):
+        self.device = device
+        self.static: dict | None = None
+        self.out: dict | None = None
+        self.graph = None
+        self.pointers: StatePointers | None = None
+        self.launches: list[int] | None = None
+        self.capture_s: float | None = None
+
+    def __call__(self, body, state, batch: dict) -> dict:
+        if self.static is None:
+            self.static = {k: v.clone() for k, v in batch.items()}
+            return self._warm(body, state)
+        self._load(batch)
+        if self.graph is None:
+            self._capture(body, state)
+        else:
+            self.pointers.check(state)
+        self._replay()
+        return {k: v.clone() for k, v in self.out.items()}
+
+    def _load(self, batch: dict) -> None:
+        if batch.keys() != self.static.keys() or any(
+                v.shape != self.static[k].shape or v.dtype != self.static[k].dtype for k, v in batch.items()):
+            raise ValueError("a graphed train step takes batches of its first batch's keys, shapes and dtypes: "
+                             f"{ {k: (tuple(v.shape), v.dtype) for k, v in self.static.items()} }, got "
+                             f"{ {k: (tuple(v.shape), v.dtype) for k, v in batch.items()} }")
+        for k, v in batch.items():
+            self.static[k].copy_(v)
+
+    def _warm(self, body, state) -> dict:
+        side, main = torch.cuda.Stream(self.device), torch.cuda.current_stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out = body(state, self.static)
+        main.wait_stream(side)
+        return out
+
+    def _capture(self, body, state) -> None:
+        for p in state.params().values():
+            p.grad = None  # autograd allocates the gradients in the graph's pool
+        before = _counts()
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        # a collection inside the capture could destroy an earlier graph
+        # held by dead objects, which invalidates the capture
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            # thread_local: the loop's prefetch thread pins and copies the
+            # next batch meanwhile (on another stream), which "global" refuses
+            with torch.cuda.device(self.device), torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self.out = body(state, self.static)
+        finally:
+            if collecting:
+                gc.enable()
+        self.graph, self.capture_s = graph, time.perf_counter() - t0
+        self.launches = [n - b for n, b in zip(_counts(), before)]
+        for (m, a), b in zip(COUNTERS, before):  # the capture launched nothing
+            setattr(m, a, b)
+        self.pointers = StatePointers(state)
+
+    def _replay(self) -> None:
+        with torch.cuda.device(self.device):
+            self.graph.replay()
+        for (m, a), n in zip(COUNTERS, self.launches):
+            setattr(m, a, getattr(m, a) + n)

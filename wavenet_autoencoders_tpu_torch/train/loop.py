@@ -1,6 +1,8 @@
 """The training loop (counterpart of ``wavenet_autoencoders_tpu/train/loop.py``).
 
-Single process on one device. Kept from the JAX loop: the log line with
+Single process on one device; on the card the train step is one CUDA
+graph, replayed once a step (``train/graph.py``), and the hooks run
+between replays on the same stream. Kept from the JAX loop: the log line with
 ``samples_per_sec``, per-epoch averages, stopping at ``max_train_steps``
 (or ``max_steps``) and ``nepochs``, the final checkpoint, SIGTERM ->
 checkpoint and clean exit, and the collapse monitor that saves and exits
@@ -157,6 +159,8 @@ def train(
                   f"{cfg.batch_size} rows", flush=True)
 
     step_fn = make_train_step(cfg, model)
+    if main:
+        print(f"train step: {step_fn.form(state.step)}", flush=True)
     eval_fn = make_eval_step(cfg, model)
     fwd_fn = make_sample_forward(cfg, model)
     full_model = None  # rank 0's full copy of a sharded model, for the hooks
@@ -196,15 +200,14 @@ def train(
     ckpt = AsyncCheckpointer()
 
     # SIGTERM == "checkpoint and exit cleanly" (SIGINT alone is not enough:
-    # shells start background children with SIGINT ignored). Under a process
-    # group the handler only raises a flag; after each step the ranks agree
-    # on it, so every rank stops after the same step and none waits in a
-    # collective alone.
+    # shells start background children with SIGINT ignored). The handler
+    # only raises a flag, read after each step: nothing lands between a step
+    # (a graph's replay) and the state's step count, and under a process
+    # group the ranks agree on it, so every rank stops after the same step
+    # and none waits in a collective alone.
     stop = []
 
     def _on_sigterm(signum, frame):
-        if world == 1:
-            raise KeyboardInterrupt
         stop.append(signum)
 
     old_term = None
@@ -262,9 +265,11 @@ def train(
                         writer.close()
                     raise CollapseAbort(msg)
 
-            # per-epoch running averages, summed on the device
+            # per-epoch running averages, summed on the device (into copies:
+            # the step's metric tensors are not the loop's to keep)
             m_ep = {k: metrics[k] for k in ("loss", "aux_loss", "perplexity")}
-            epoch_acc = m_ep if epoch_acc is None else {k: epoch_acc[k] + m_ep[k] for k in m_ep}
+            epoch_acc = {k: v.clone() for k, v in m_ep.items()} if epoch_acc is None else {
+                k: epoch_acc[k] + m_ep[k] for k in m_ep}
             epoch_n += 1
 
             if (main or tp) and step % cfg.checkpoint_interval == 0:

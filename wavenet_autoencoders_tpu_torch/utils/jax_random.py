@@ -167,11 +167,19 @@ def randint(key: torch.Tensor, shape, minval: int, maxval: int, rows=None) -> to
     """``jax.random.randint(key, shape, minval, maxval)`` (int32 range), bit
     for bit, as int64: (..., *shape) for keys (..., 2); rows [r0, r1) of it
     with ``rows``."""
+    keys = split(key)
+    higher, lower = random_bits(keys[..., 0, :], shape, rows), random_bits(keys[..., 1, :], shape, rows)
+    return randint_of_bits(higher, lower, minval, maxval)
+
+
+def randint_of_bits(higher: torch.Tensor, lower: torch.Tensor, minval: int, maxval: int) -> torch.Tensor:
+    """:func:`randint`'s map of its two draws of words, ``higher`` and
+    ``lower``, into [minval, maxval): the words do not depend on the range,
+    so a table of them drawn ahead serves any range (the train step's
+    reseed candidates)."""
     minval, maxval = int(minval), int(maxval)
     if not -(2**31) <= minval <= maxval <= 2**31 - 1:
         raise ValueError(f"randint range [{minval}, {maxval}) is not an int32 range")
-    keys = split(key)
-    higher, lower = random_bits(keys[..., 0, :], shape, rows), random_bits(keys[..., 1, :], shape, rows)
     span = max(maxval - minval, 1)
     mult = ((2**16 % span) ** 2 & MASK) % span  # in uint32: 0 for spans above 2^16
     offset = ((higher % span) * mult + lower % span) & MASK
