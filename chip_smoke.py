@@ -1710,6 +1710,13 @@ def phase10(k1, k2, k3, tmp: Path):
         f"{len(kernels)} kernel names; K2/K3 passes named {json.dumps(named)}")
     if not all(named.values()):
         raise AssertionError(f"the trace does not name K2's and K3's kernels: {named}")
+    steps = sorted(e["args"]["step"] for e in events if e.get("cat") == "program_span" and e["name"] == "step")
+    launch = [e["dur"] for e in events if e.get("cat") == "program_span" and e["name"] == "step.launch"]
+    counters = json.loads(traces[0].read_text())["programCounters"]
+    log(f"phase 10: the tracer's steps {steps}, step.launch us {launch}, counters {json.dumps(counters)}")
+    if steps != [10, 11, 12, 13, 14] or len(launch) != 5 or not counters.get("graph.nodes"):
+        raise AssertionError(f"the trace lacks the tracer's steps 10-14, their launches or graph.nodes: {steps}, "
+                             f"{launch}, {counters}")
 
     timed("infer", lambda: cli(["infer", "--preset", "svqwae", "--hparams", hp, "--device", "cuda",
                                 str(exp / "checkpoint_step000000024.npz"), str(scp / "test_src_dst.json"), str(sub),

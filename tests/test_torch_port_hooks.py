@@ -322,3 +322,25 @@ def test_profile_dir_writes_a_trace_of_steps_10_to_15(tmp_path, capsys):
     # the 5 traced steps each ran the (plain, on the CPU) fused stack forward and backward
     assert sum(n == "FusedGLUStack" for n in names) == 1
     assert sum(e.get("name") == "FusedGLUStack" for e in events) == 5
+    # the tracer's spans, on the profiler's timeline: the steps 10-14 (the traced 10-15), each with the
+    # batch whose wait it followed, and the batches built meanwhile with their loads and copies
+    spans = [e for e in events if e.get("cat") == "program_span"]
+    steps = sorted((e for e in spans if e["name"] == "step"), key=lambda e: e["ts"])
+    assert [e["args"]["step"] for e in steps] == [10, 11, 12, 13, 14]
+    waits = [e for e in spans if e["name"] == "data.wait"]
+    assert sorted(e["args"]["batch"] for e in waits) == [e["args"]["batch"] for e in steps] == [11, 12, 13, 14, 15]
+    assert {e["name"] for e in spans} == {"step", "data.wait", "data.build", "data.load", "data.to_device"}
+    built = sorted(e["args"]["batch"] for e in spans if e["name"] == "data.build")
+    assert built and built == list(range(built[0], built[0] + len(built)))
+    by_id = {e["args"]["id"]: e for e in spans}
+    for e in spans:
+        if e["name"] in ("data.load", "data.to_device"):
+            assert by_id[e["args"]["parent"]]["name"] == "data.build"
+            assert e["tid"] == by_id[e["args"]["parent"]]["tid"] != steps[0]["tid"]
+    for st in steps:
+        stack = [e for e in events if e.get("name") == "FusedGLUStack" and st["ts"] <= e["ts"]
+                 and e["ts"] + e["dur"] <= st["ts"] + st["dur"]]
+        assert len(stack) == 1, st
+    counters = json.loads(trace.read_text())["programCounters"]
+    assert counters["data.batches"] == len(built) and counters["dropped"] == 0
+    assert "kernels.glu_stack.LAUNCHES_FWD" in counters

@@ -21,6 +21,7 @@ import numpy as np
 from wavenet_autoencoders_tpu_torch.config import Config
 from wavenet_autoencoders_tpu_torch.data.manifest import Manifest
 from wavenet_autoencoders_tpu_torch.dsp.mulaw import mulaw_quantize
+from wavenet_autoencoders_tpu_torch.utils import spans
 
 
 def ensure_divisible(length: int, divisible_by: int, lower: bool = True) -> int:
@@ -249,6 +250,10 @@ def data_iterator(
     transform: optional per-batch function applied INSIDE the prefetch
     thread; the training loop passes the host-to-device copy (pinned memory,
     ``non_blocking=True``) so the copy overlaps device compute.
+
+    Tracer spans (``utils.spans``): ``data.build`` a batch (its load and the
+    transform inside), tagged with the batch's seq (1, 2, ...), and with
+    prefetch ``data.wait``, the consumer's wait for it.
     """
     bs = batch_size or cfg.batch_size
     sampler = LengthBucketSampler(dataset.lengths, bs, seed=seed)
@@ -264,21 +269,25 @@ def data_iterator(
                 buf.append(idx)
                 if len(buf) == bs:
                     step += 1
-                    b = None
-                    if use_native:
-                        seed_s = (seed + step * 7919 + _SEED_STRIDE * s) % _U64
-                        b = _native_batch(dataset, cfg, buf[s : s + n], collate, seed_s)
-                    if b is None:
-                        b = collate([dataset[i] for i in buf])
-                        if host_slice is not None:
-                            b = {k: v[s : s + n] for k, v in b.items()}
+                    with spans.span("data.build", batch=step):
+                        with spans.span("data.load"):
+                            b = None
+                            if use_native:
+                                seed_s = (seed + step * 7919 + _SEED_STRIDE * s) % _U64
+                                b = _native_batch(dataset, cfg, buf[s : s + n], collate, seed_s)
+                            if b is None:
+                                b = collate([dataset[i] for i in buf])
+                                if host_slice is not None:
+                                    b = {k: v[s : s + n] for k, v in b.items()}
+                        if transform is not None:
+                            b = transform(b)
+                        spans.count("data.batches")
                     yield b
                     buf = []
             epoch += 1
 
     if prefetch <= 0:
-        for b in gen():
-            yield transform(b) if transform is not None else b
+        yield from gen()
         return
 
     q: queue.Queue = queue.Queue(maxsize=prefetch)
@@ -288,15 +297,18 @@ def data_iterator(
     def worker():
         try:
             for b in gen():
-                q.put(transform(b) if transform is not None else b)
+                q.put(b)
         except Exception as e:  # handed to the consumer, which re-raises it
             failure.append(e)
         finally:
             q.put(_END)
 
     threading.Thread(target=worker, daemon=True).start()
+    seq = 0
     while True:
-        b = q.get()
+        seq += 1  # the producer's batch number of the next batch (one producer, FIFO)
+        with spans.span("data.wait", batch=seq, ready=q.qsize() if spans.enabled() else None):
+            b = q.get()
         if b is _END:
             if failure:
                 raise failure[0]

@@ -24,16 +24,23 @@ rebinds the moments and the shadow), and its outputs, so the metrics it
 returns are copies. The kernels' launch counters count in Python, so they
 see the capture and not the replays: the capture's change of each counter
 is undone and added once a replay.
+
+The tracer (``utils.spans``) sees the eager first step (``step.warm``),
+the capture (``step.capture``, ``step.captures``), each replay's launch
+(``step.launch``, ``step.replays``), and the captured graph's node count
+(the level ``graph.nodes``, read once a capture).
 """
 from __future__ import annotations
 
 import collections
+import ctypes
 import gc
 import time
 
 import torch
 
 from wavenet_autoencoders_tpu_torch.kernels import glu_stack, threefry
+from wavenet_autoencoders_tpu_torch.utils import spans
 from wavenet_autoencoders_tpu_torch.utils.params import flatten_state
 
 #: the launch counters a step's body can move (K2, K3, threefry): (module, attribute)
@@ -42,6 +49,20 @@ COUNTERS = ((glu_stack, "LAUNCHES_FWD"), (glu_stack, "LAUNCHES_BWD"), (threefry,
 
 def _counts() -> list[int]:
     return [getattr(m, a) for m, a in COUNTERS]
+
+
+def node_count(graph) -> int:
+    """The node count of a graph captured with ``keep_graph=True``: the
+    CUDA driver API's ``cuGraphGetNodes`` on its ``cudaGraph_t`` (a
+    ``CUgraph``)."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    cuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
+    cuda.cuGraphGetNodes.restype = ctypes.c_int
+    n = ctypes.c_size_t(0)
+    rc = cuda.cuGraphGetNodes(graph.raw_cuda_graph(), None, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed with CUresult {rc}")
+    return n.value
 
 
 def state_tensors(state) -> dict[str, torch.Tensor]:
@@ -98,13 +119,17 @@ class GraphedStep:
     def __call__(self, body, state, batch: dict) -> dict:
         if self.static is None:
             self.static = {k: v.clone() for k, v in batch.items()}
-            return self._warm(body, state)
+            with spans.span("step.warm"):
+                return self._warm(body, state)
         self._load(batch)
         if self.graph is None:
-            self._capture(body, state)
+            with spans.span("step.capture"):
+                self._capture(body, state)
+            spans.count("step.captures")
         else:
             self.pointers.check(state)
         self._replay()
+        spans.count("step.replays")
         return {k: v.clone() for k, v in self.out.items()}
 
     def _load(self, batch: dict) -> None:
@@ -129,7 +154,7 @@ class GraphedStep:
             p.grad = None  # autograd allocates the gradients in the graph's pool
         before = _counts()
         t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept for its node count
         # a collection inside the capture could destroy an earlier graph
         # held by dead objects, which invalidates the capture
         gc.collect()
@@ -143,14 +168,16 @@ class GraphedStep:
         finally:
             if collecting:
                 gc.enable()
+        graph.instantiate()  # here, not in the first replay
         self.graph, self.capture_s = graph, time.perf_counter() - t0
+        spans.level("graph.nodes", node_count(graph))
         self.launches = [n - b for n, b in zip(_counts(), before)]
         for (m, a), b in zip(COUNTERS, before):  # the capture launched nothing
             setattr(m, a, b)
         self.pointers = StatePointers(state)
 
     def _replay(self) -> None:
-        with torch.cuda.device(self.device):
+        with torch.cuda.device(self.device), spans.span("step.launch"):
             self.graph.replay()
         for (m, a), n in zip(COUNTERS, self.launches):
             setattr(m, a, getattr(m, a) + n)

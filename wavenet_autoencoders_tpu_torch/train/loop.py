@@ -16,8 +16,9 @@ with code 3; and the hooks:
   it every ``dev_epoch_interval`` epochs at ``dev_batch_size``, written as
   the ``dev`` and ``dev_epoch`` scalars, and every
   ``test_eval_epoch_interval`` epochs an AR decode of the first dev batch;
-- with ``profile_dir`` set, steps 10-15 run under ``torch.profiler`` and a
-  chrome trace is written there.
+- with ``profile_dir`` set, steps 10-15 run under ``torch.profiler`` and
+  the tracer (``utils.spans``), and a chrome trace of both is written
+  there.
 
 The sample dump and the decode hooks use the EMA shadow once it is warm
 (``_hook_params``); an exception in one is printed as ``<hook> skipped:
@@ -45,6 +46,8 @@ from the global metrics, so every rank stops at the same step there too.
 from __future__ import annotations
 
 import contextlib
+import json
+import os
 import signal
 import time
 from pathlib import Path
@@ -74,6 +77,7 @@ from wavenet_autoencoders_tpu_torch.train.step import (
     make_train_step,
     shard_state,
 )
+from wavenet_autoencoders_tpu_torch.utils import spans
 from wavenet_autoencoders_tpu_torch.utils.device import resolve_device
 from wavenet_autoencoders_tpu_torch.utils.params import flatten_params, flatten_state, gather_params
 
@@ -91,11 +95,12 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
     """Host numpy batch -> tensors on ``device`` (pinned memory and an
     asynchronous copy on CUDA)."""
     out = {}
-    for k, v in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        out[k] = t
+    with spans.span("data.to_device"):
+        for k, v in batch.items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if device.type == "cuda":
+                t = t.pin_memory().to(device, non_blocking=True)
+            out[k] = t
     return out
 
 
@@ -215,16 +220,23 @@ def train(
         old_term = signal.signal(signal.SIGTERM, _on_sigterm)
     except ValueError:  # not the main thread
         pass
+
+    def profile_hook():
+        """From 10 steps done to 15 (the state's steps 10-14, from the wait
+        for the first one's batch to the last one's hooks) under the
+        profiler and the tracer."""
+        nonlocal profiler
+        if main and cfg.profile_dir and step == 10 and profiler is None:
+            profiler = _start_profiler(dev)
+        elif profiler is not None and step >= 15:
+            _stop_profiler(profiler, cfg.profile_dir)
+            profiler = None
+
     try:
+        profile_hook()
         for batch in it:
             if step >= limit:
                 break
-            # profiling hook: trace steps 10..15
-            if main and cfg.profile_dir and step == 10 and profiler is None:
-                profiler = _start_profiler(dev)
-            if profiler is not None and step >= 15:
-                _stop_profiler(profiler, cfg.profile_dir)
-                profiler = None
             samples_per_batch = batch["x"].shape[0] * batch["x"].shape[1] * data
             state, metrics = step_fn(state, batch)
             step += 1
@@ -299,6 +311,7 @@ def train(
                     if main:
                         print(f"stopping: reached nepochs={cfg.nepochs}")
                     break
+            profile_hook()
     except KeyboardInterrupt:
         print("interrupted — saving checkpoint before exit", flush=True)
     finally:
@@ -322,16 +335,34 @@ def _start_profiler(dev: torch.device):
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     prof = torch.profiler.profile(activities=acts)
     prof.start()
+    spans.enable()
     return prof
 
 
 def _stop_profiler(prof, profile_dir: str) -> None:
+    """Stops the profiler and the tracer and writes the chrome trace, with
+    the tracer's spans as complete events on the profiler's timeline
+    (category ``program_span``, on their threads' rows) and its counters and
+    levels under the trace's ``programCounters``."""
     t0 = time.perf_counter()
+    spans.disable()
     prof.stop()
+    recs = spans.records()
+    spans.reset()
     out = Path(profile_dir)
     out.mkdir(parents=True, exist_ok=True)
     path = out / "trace_steps_10_15.json"
     prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    base, pid = trace.get("baseTimeNanoseconds", 0), os.getpid()
+    trace["traceEvents"].extend(
+        {"ph": "X", "cat": "program_span", "name": s.name, "pid": pid, "tid": s.thread,
+         "ts": (s.start_ns - base) / 1e3, "dur": (s.end_ns - s.start_ns) / 1e3,
+         "args": {k: v for k, v in (("id", s.id), ("parent", s.parent), ("step", s.step), ("batch", s.batch),
+                                    ("ready", s.ready)) if v is not None}}
+        for s in recs["spans"])
+    trace["programCounters"] = {**recs["counters"], **recs["levels"], "dropped": recs["dropped"]}
+    path.write_text(json.dumps(trace))
     print(f"profile trace written to {path} ({time.perf_counter() - t0:.2f} s)", flush=True)
 
 

@@ -20,6 +20,8 @@ candidates' words) as the JAX step does, and writes it into static device
 tensors (``StepInputs``); the body reads device tensors alone, so on the
 card it runs as a CUDA graph (``train/graph.py``), the counterpart of the
 JAX step's ``jax.jit``, and the eager step on the card runs the same body.
+Each call is a ``step`` span of the tracer (``utils.spans``), its wait for
+the last step-input copy a ``step.inputs_wait``.
 
 Every draw is the JAX step's (``utils.jax_random``): the step's key is
 ``fold_in(PRNGKey(cfg.seed + 1), step)``, folded on the device from the
@@ -68,6 +70,7 @@ from wavenet_autoencoders_tpu_torch.parallel.mesh import check_mesh, leaf_shard,
 from wavenet_autoencoders_tpu_torch.train.graph import GraphedStep
 from wavenet_autoencoders_tpu_torch.train.schedule import get_schedule
 from wavenet_autoencoders_tpu_torch.utils import jax_random as jr
+from wavenet_autoencoders_tpu_torch.utils import spans
 from wavenet_autoencoders_tpu_torch.utils.params import flatten_params, shard_params
 
 ADAM_B1, ADAM_B2 = 0.9, 0.999
@@ -214,7 +217,8 @@ class StepInputs:
     def write(self, step: int, active: bool, lr: float, bc1: float, bc2: float, ramp: float, gate: float,
               words=None) -> None:
         if self.copied is not None:
-            self.copied.synchronize()  # the last copy has read the pinned buffer
+            with spans.span("step.inputs_wait"):
+                self.copied.synchronize()  # the last copy has read the pinned buffer
         host = self.host.numpy()
         host[0], host[1] = step, int(active)
         host[2:].view(np.float32)[:5] = (lr, bc1, bc2, ramp, gate)  # each rounded once to f32
@@ -367,18 +371,20 @@ class TrainStep:
             raise ValueError("forward_kw and cand_idx inject draws into an eager step: "
                              "make_train_step(..., graph=False)")
         step = state.step
-        lr = self.schedule(step)
-        count = state.count + 1
-        self.inputs.write(
-            step=step, active=self.reseed and step >= self.vq.reseed_start, lr=lr,
-            bc1=1.0 - ADAM_B1 ** count, bc2=1.0 - ADAM_B2 ** count,
-            ramp=min(max(step / self.warmup, 0.0), 1.0) if self.warmup > 0 else 1.0,
-            gate=1.0 if step >= self.jitter_start else 0.0,
-            words=self.draws.words(step) if self.draws is not None and cand_idx is None else None)
-        if self.runner is None:
-            metrics = self.body(state, batch, forward_kw, cand_idx)
-        else:
-            metrics = self.runner(self.body, state, batch)
+        with spans.span("step", step=step):
+            lr = self.schedule(step)
+            count = state.count + 1
+            self.inputs.write(
+                step=step, active=self.reseed and step >= self.vq.reseed_start, lr=lr,
+                bc1=1.0 - ADAM_B1 ** count, bc2=1.0 - ADAM_B2 ** count,
+                ramp=min(max(step / self.warmup, 0.0), 1.0) if self.warmup > 0 else 1.0,
+                gate=1.0 if step >= self.jitter_start else 0.0,
+                words=self.draws.words(step) if self.draws is not None and cand_idx is None else None)
+            if self.runner is None:
+                metrics = self.body(state, batch, forward_kw, cand_idx)
+            else:
+                metrics = self.runner(self.body, state, batch)
+            spans.count_pinned_allocs()
         state.count, state.lr = count, lr
         state.step += 1
         metrics["lr"] = torch.tensor(lr)
