@@ -190,6 +190,21 @@ Phases (each raises on failure, so the script exits non-zero):
    mean loss over steps 1550-2000 within 0.10 nats of run E's, perplexity
    >= 64 there, K2/K3 launched as predicted and the reseeds printed beside
    run E's; no evaluation (run E's ABX predates the stale-EMA fix).
+18. The upsampler's kernels (``csrc/upsample.cu``: the conditioning's
+   stretch-and-smooth chain, forward and backward) against their plain
+   version (``repeat_interleave`` and ``F.conv2d`` a scale) at svqwae's B=40
+   x T=5120, inae's B=10 x T=5120 and vocoder_raw's B=8 x T=10240 in bf16
+   (and vocoder_raw through the cin_pad 2 trim), and svqwae in f32: the
+   output and the gradients of the conditioning and every scale's weights
+   at phase 5's tolerances, two runs bitwise equal; then, in bf16, the
+   kernels' device ms beside the bound (bytes), the plain version's and
+   cuDNN's conv calls alone as a yardstick the port never calls.
+   ``--phases 0,18`` runs it alone (run after phase 5 in the default list).
+   Its launches stay out of the kernel table's ``launches``, which sums the
+   train paths of phases 6 and 8-15: there the kernels run once forward and
+   once backward a step (K2's and K3's count where the stack is fused) and
+   once forward for each other pass of the model (a sample dump, a dev
+   batch, a decode), each path's count held to that.
 
 The train step runs as the CLI runs it: a CUDA graph on the card for one
 process (phases 6, 8-10, 11's single-process runs, 13-15 and 17; phases 6,
@@ -206,7 +221,7 @@ draw); the launch predictions follow the config the run saved.
 as a TPU's default-precision dot does in the JAX runs (the port computes it
 in f32).
 
-Prints the kernel table (K1, K2, K3 and the threefry kernel; ``launches``
+Prints the kernel table (K1, K2, K3, the threefry and upsampler kernels; ``launches``
 summed over every path driven, ``launches_by_path`` each path's count) as
 one JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
@@ -827,6 +842,153 @@ def phase5(k2, k3):
     k2["tolerances_rel"] = k3["tolerances_rel"] = TOL_GLU
 
 
+# The upsampler's shapes: each preset's training batch, the frame
+# conditioning (B, T0, cin) that its conv_in hands on, and the trim of the
+# cin_pad path of ``UpsampleNetwork`` (vocoder_raw's cin_pad 2).
+UP_CASES = (("svqwae", 40, 5120, 0, "bfloat16"), ("inae", 10, 5120, 0, "bfloat16"),
+            ("vocoder_raw", 8, 10240, 0, "bfloat16"), ("vocoder_raw", 8, 10240, 2, "bfloat16"),
+            ("svqwae", 40, 5120, 0, "float32"))
+UP_REPS = 20
+
+
+def upsample_inputs(preset, B, T, cin_pad, store, seed):
+    """x (B, T0, cin), the folded smoothing weights (uniform taps in
+    [0.2, 1), a gain in [0.5, 1.5)) and dy (B, T, cin), in ``store``, from a
+    seed; and the scales."""
+    import torch
+
+    from wavenet_autoencoders_tpu_torch.config import load_preset
+
+    cfg = load_preset(preset)
+    scales = cfg.upsample_scales
+    prod = int(np.prod(scales))
+    rng = np.random.default_rng(seed)
+    T0 = T // prod + 2 * cin_pad
+
+    def dev(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).cuda().to(store)
+
+    ws = []
+    for s in scales:
+        v = rng.uniform(0.2, 1.0, 2 * s + 1)
+        ws.append(dev(rng.uniform(0.5, 1.5) * v / np.sqrt((v ** 2).sum())).reshape(1, 1, 1, -1))
+    x = dev(rng.standard_normal((B, T0, cfg.cin_channels)))
+    dy = dev(rng.standard_normal((B, T, cfg.cin_channels)))
+    return x, ws, dy, scales, cin_pad * prod
+
+
+def upsample_grads(fn, x, ws, dy, scales, indent):
+    """(output, dx, dw...) of one forward and backward of ``fn``."""
+    import torch
+
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, *ws)]
+    out = fn(leaves[0], leaves[1:], scales, 1, indent)
+    grads = torch.autograd.grad(out, leaves, dy)
+    return (out.detach(), *grads)
+
+
+def upsample_device_ms(fn) -> tuple[float, dict]:
+    """Device ms of one call of ``fn``: every kernel's time over UP_REPS
+    calls under the profiler, divided by UP_REPS; and the upsampler kernels'
+    ms by name."""
+    rows = kernel_breakdown(lambda: [fn() for _ in range(UP_REPS)])
+    by = {}
+    for name, ms, _ in rows:
+        m = re.search(r"up_(fwd|bwd|wsum)_kernel", name)
+        if m:
+            by[m.group(0)] = by.get(m.group(0), 0.0) + ms / UP_REPS
+    return sum(ms for _, ms, _ in rows) / UP_REPS, by
+
+
+def library_chain(x, ws, dy, scales):
+    """cuDNN's F.conv2d calls of the plain chain alone (a yardstick the
+    port never calls): each scale's conv forward and its input and weight
+    gradients on inputs stretched beforehand."""
+    import torch
+    import torch.nn.functional as F
+
+    with torch.no_grad():
+        ys = [x.transpose(1, 2)[:, None]]
+        for w, s in zip(ws, scales):
+            ys.append(F.conv2d(ys[-1].repeat_interleave(s, dim=3), w, padding=(0, s)))
+        ins = [y.repeat_interleave(s, dim=3) for y, s in zip(ys, scales)]
+        gys = [torch.randn_like(y) for y in ys[1:-1]] + [dy.transpose(1, 2)[:, None].contiguous()]
+    leaves = [(u.requires_grad_(True), w.detach().clone().requires_grad_(True)) for u, w in zip(ins, ws)]
+
+    def run():
+        for (u, w), s, gy in zip(leaves, scales, gys):
+            out = F.conv2d(u, w, padding=(0, s))
+            torch.autograd.grad(out, (u, w), gy)
+
+    return run
+
+
+def phase18(up):
+    """The upsampler's kernels against their plain version at the presets'
+    training shapes: the output and every gradient at phase 5's tolerances,
+    two runs bitwise equal; device ms of the kernels, the plain chain and
+    cuDNN's conv calls beside the bound (bytes)."""
+    import torch
+
+    from wavenet_autoencoders_tpu_torch.kernels import upsample as UP
+
+    out, launches = {}, (UP.LAUNCHES_FWD, UP.LAUNCHES_BWD)
+    for i, (preset, B, T, cin_pad, name) in enumerate(UP_CASES):
+        store = getattr(torch, name)
+        x, ws, dy, scales, indent = upsample_inputs(preset, B, T, cin_pad, store, 18 + i)
+        got = upsample_grads(UP.upsample, x, ws, dy, scales, indent)
+        again = upsample_grads(UP.upsample, x, ws, dy, scales, indent)
+        plain = upsample_grads(UP.upsample_reference, x, ws, dy, scales, indent)
+        torch.cuda.synchronize()
+        names = ["out", "dx"] + [f"dw{k}" for k in range(len(scales))]
+        errs = {n: rel_err(g, p) for n, g, p in zip(names, got, plain)}
+        bitwise = all(torch.equal(g, a) for g, a in zip(got, again))
+        tol_f, tol_b = TOL_GLU[name]
+        case = f"{preset} B={B} T={T} cin_pad={cin_pad} {name}"
+        rec = {"errors": errs, "bitwise_reruns": bitwise}
+        if name == "bfloat16":
+            eb = x.element_size()
+            # forward: x and w read, the output written; backward: dy, x and
+            # w read, dx and dw written
+            nbytes = (3 * x.numel() + 2 * dy.numel() + 3 * sum(w.numel() for w in ws)) * eb
+            bound = nbytes / H100_BYTES_PER_S * 1e3
+
+            def kern():
+                o = UP._forward_cuda(x, ws, scales, indent)
+                UP._backward_cuda(dy, x, ws, scales, indent)
+                return o
+
+            ms, by_kernel = upsample_device_ms(kern)
+            plain_ms = upsample_device_ms(lambda: upsample_grads(UP.upsample_reference, x, ws, dy, scales, indent))[0]
+            library_ms = upsample_device_ms(library_chain(x, ws, dy, scales))[0] if indent == 0 else None
+            rec.update({"ms": ms, "ms_by_kernel": by_kernel, "plain_ms": plain_ms, "library_ms": library_ms,
+                        "bytes": nbytes, "bound_ms": bound, "share": bound / ms if ms else None})
+            lib = "not measured" if library_ms is None else f"{library_ms:.4f} ms"
+            log(f"phase 18: {case}: kernels {ms:.4f} ms (forward + backward, device; "
+                f"{json.dumps({k: round(v, 4) for k, v in by_kernel.items()})}), plain {plain_ms:.4f} ms, "
+                f"cuDNN's conv calls {lib}; bound {bound:.4f} ms by bytes ({nbytes / 1e6:.1f} MB), "
+                f"{100 * bound / ms:.1f}% of bound" if ms else f"phase 18: {case}: the profiler saw no device time")
+        log(f"phase 18: {case}: bitwise-equal reruns {bitwise}; rel errors "
+            f"{json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}")
+        for k, e in errs.items():
+            tol = tol_f if k == "out" else tol_b
+            if not np.isfinite(e) or e > tol:
+                raise AssertionError(f"upsample kernels {case}: {k} rel error {e} exceeds {tol}")
+        if not bitwise:
+            raise AssertionError(f"upsample kernels {case}: two runs on the same inputs differ")
+        out[case] = rec
+        del x, ws, dy, got, again, plain
+        torch.cuda.empty_cache()
+    main = out[f"svqwae B=40 T=5120 cin_pad=0 bfloat16"]
+    up.update({k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
+    up.update({"bound_by": "bytes", "shape": "svqwae B=40,T=5120,cin=64,bf16 (forward + backward)",
+               "cases": out, "tolerances_rel": TOL_GLU,
+               "max_rel_err": {c: max(r["errors"].values()) for c, r in out.items()}})
+    # the isolated check's launches (profiler repetitions and reruns
+    # included), kept out of ``launches``, which sums the train paths'
+    up["isolated_check_launches"] = [UP.LAUNCHES_FWD - launches[0], UP.LAUNCHES_BWD - launches[1]]
+
+
 def make_dump(root: Path, rng, n_utts=48, frames=200, hop=160, split="train", raw=False, feat="mfcc", dim=39):
     """A synthetic training dump: ``train.txt`` and, per utterance,
     ``wave.npy`` (mu-law codes, or samples in [-1, 1] when ``raw``) and
@@ -912,10 +1074,11 @@ def phase6(k2, k3, tmp: Path):
     from wavenet_autoencoders_tpu_torch.config import load_preset
     from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
     from wavenet_autoencoders_tpu_torch.kernels import threefry as TF
+    from wavenet_autoencoders_tpu_torch.kernels import upsample as UP
 
     dump, ckpt, abx = tmp / "dump", tmp / "exp", tmp / "abx"
     dirs = make_dump(dump, np.random.default_rng(6))
-    K.LAUNCHES_FWD = K.LAUNCHES_BWD = TF.LAUNCHES = 0
+    K.LAUNCHES_FWD = K.LAUNCHES_BWD = TF.LAUNCHES = UP.LAUNCHES_FWD = UP.LAUNCHES_BWD = 0
     t0 = time.perf_counter()
     with tee_stdout() as out:
         cli(["train", "--preset", "svqwae", "--hparams", "fused_stack=true", "--device", "cuda",
@@ -924,6 +1087,7 @@ def phase6(k2, k3, tmp: Path):
     t1 = time.perf_counter()
     launches = (K.LAUNCHES_FWD, K.LAUNCHES_BWD)
     tf_launches("svqwae_cli_train", TF.LAUNCHES)
+    up_launches("svqwae_cli_train", (UP.LAUNCHES_FWD, UP.LAUNCHES_BWD), launches)
     log(f"phase 6: train 3 steps at B=40 x T=5120 bf16 through the CLI: {t1 - t0:.2f} s host clock "
         f"(build and data included); the step: {graph_form(out.getvalue(), 'phase 6')}; K2/K3 launches {launches} "
         "(a replay's counted)")
@@ -1240,13 +1404,14 @@ def phase8(k1, k2, k3, tmp: Path):
     from wavenet_autoencoders_tpu_torch.config import load_preset
     from wavenet_autoencoders_tpu_torch.kernels import decode as K1
     from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
+    from wavenet_autoencoders_tpu_torch.kernels import upsample as UP
 
     rng = np.random.default_rng(8)
     dump, ckpt_dir, abx, wav_dir = tmp / "dump", tmp / "exp", tmp / "abx", tmp / "syn"
     make_dump(dump, rng, split="train_no_dev")
     test, utts, feats, syn, sp2ind, scp = make_test_set(dump, rng, 4, 200)
     secs, hp = {}, "fused_stack=true"
-    K.LAUNCHES_FWD = K.LAUNCHES_BWD = 0
+    K.LAUNCHES_FWD = K.LAUNCHES_BWD = UP.LAUNCHES_FWD = UP.LAUNCHES_BWD = 0
     t0 = time.perf_counter()
     cli(["train", "--preset", "inae", "--hparams", hp, "--device", "cuda", "--max-steps", "3",
          str(dump), str(ckpt_dir)])
@@ -1255,6 +1420,7 @@ def phase8(k1, k2, k3, tmp: Path):
     glu = (K.LAUNCHES_FWD, K.LAUNCHES_BWD)
     if glu != (3, 3):
         raise AssertionError(f"K2/K3 launched {glu} times in 3 fused inae train steps, expected (3, 3)")
+    up_launches("inae_cli_train", (UP.LAUNCHES_FWD, UP.LAUNCHES_BWD), glu)
     recs = [r for r in read_metrics(ckpt_dir) if r["phase"] == "train_no_dev"]
     step1 = next(r for r in recs if r["step"] == 1)
     if not all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in recs):
@@ -1475,8 +1641,9 @@ def zoo_cli(k1, k2, k3, tmp: Path):
     from wavenet_autoencoders_tpu_torch.config import load_preset
     from wavenet_autoencoders_tpu_torch.kernels import decode as K1
     from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
+    from wavenet_autoencoders_tpu_torch.kernels import upsample as UP
 
-    out, totals = {}, {"K1": 0, "K2": 0, "K3": 0}
+    out, totals, up, up_want = {}, {"K1": 0, "K2": 0, "K3": 0}, [0, 0], [0, 0]
     for label, preset, hp, serve in ZOO_CLI:
         hp = ",".join(h for h in ("layers=4,stacks=2,batch_size=4,fused_stack=true", hp) if h)
         cfg = load_preset(preset, hp)
@@ -1488,11 +1655,13 @@ def zoo_cli(k1, k2, k3, tmp: Path):
         test, utts, _, syn, sp2ind, scp = make_test_set(root, rng, 2, 40, dim=feat_dim)
         common = ["--preset", preset, "--hparams", hp, "--device", "cuda"]
         ckpt = root / "exp" / "checkpoint_step000000001.npz"
-        K.LAUNCHES_FWD = K.LAUNCHES_BWD = K1.LAUNCHES = 0
+        K.LAUNCHES_FWD = K.LAUNCHES_BWD = K1.LAUNCHES = UP.LAUNCHES_FWD = UP.LAUNCHES_BWD = 0
         t0 = time.perf_counter()
         cli(["train", *common, "--max-steps", "1", "--feat-type", "mel" if feat_dim == 80 else "mfcc",
              str(root), str(root / "exp")])
         t1 = time.perf_counter()
+        # the train step's alone: synthesis runs the upsampler's forward too
+        up_train = [UP.LAUNCHES_FWD, UP.LAUNCHES_BWD]
         loss = next(r["loss"] for r in read_metrics(root / "exp") if r["phase"] == "train_no_dev")
         feature_ae = serve == "infer"
         if feature_ae:
@@ -1519,11 +1688,20 @@ def zoo_cli(k1, k2, k3, tmp: Path):
             raise AssertionError(f"{label}: K2/K3 launched {n['K2']}, {n['K3']} times in one fused step")
         if not feature_ae and n["K1"] < 1:
             raise AssertionError(f"{label}: synthesis did not launch K1")
-        out[label] = {"loss": loss, "train_s": t1 - t0, "serve_s": t2 - t1, "launches": n}
+        # a family whose WaveNet takes its conditioning through the
+        # upsampler runs it once a step, beside K2 and K3
+        want = [n["K2"], n["K3"]] if cfg.upsample_conditional_features else [0, 0]
+        if up_train != want:
+            raise AssertionError(f"{label}: the upsampler kernels launched {up_train} times in one fused step, "
+                                 f"expected {want}")
+        out[label] = {"loss": loss, "train_s": t1 - t0, "serve_s": t2 - t1, "launches": n,
+                      "upsample_launches": up_train}
         for k in totals:
             totals[k] += n[k]
+        up, up_want = [a + b for a, b in zip(up, up_train)], [a + b for a, b in zip(up_want, want)]
     for rec, k in ((k1, "K1"), (k2, "K2"), (k3, "K3")):
         count_launches(rec, "zoo_cli", totals[k])
+    up_launches("zoo_cli", up, up_want)
     k1.setdefault("zoo", {})["cli"] = out
 
 
@@ -1604,6 +1782,7 @@ def phase10(k1, k2, k3, tmp: Path):
     from wavenet_autoencoders_tpu_torch.kernels import decode as K1
     from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
     from wavenet_autoencoders_tpu_torch.kernels import threefry as TF
+    from wavenet_autoencoders_tpu_torch.kernels import upsample as UP
     from wavenet_autoencoders_tpu_torch.models import build_model
     from wavenet_autoencoders_tpu_torch.train.checkpoint import load_checkpoint
     from wavenet_autoencoders_tpu_torch.train.loop import batch_to_device
@@ -1636,7 +1815,7 @@ def phase10(k1, k2, k3, tmp: Path):
                                                  str(tmp / "cmvn.npz")]))
 
     dev_dump = dump / "english" / "dev"
-    K.LAUNCHES_FWD = K.LAUNCHES_BWD = K1.LAUNCHES = TF.LAUNCHES = 0
+    K.LAUNCHES_FWD = K.LAUNCHES_BWD = K1.LAUNCHES = TF.LAUNCHES = UP.LAUNCHES_FWD = UP.LAUNCHES_BWD = 0
     loads = native.LOADS
     with tee_stdout() as out:
         timed("train", lambda: cli(["train", "--preset", "svqwae", "--hparams", hp, "--device", "cuda",
@@ -1644,6 +1823,7 @@ def phase10(k1, k2, k3, tmp: Path):
                                     str(dump / "english" / "train_no_dev"), str(exp)]))
     launches = {"K1": K1.LAUNCHES, "K2": K.LAUNCHES_FWD, "K3": K.LAUNCHES_BWD}
     tf_launches("recipe_cli_train", TF.LAUNCHES)
+    up_recipe = (UP.LAUNCHES_FWD, UP.LAUNCHES_BWD)
     # the train batches (and the prefetch thread's few ahead) and the dev batch
     loads = native.LOADS - loads
     log(f"phase 10: the native loader assembled {loads} batches in train")
@@ -1661,6 +1841,8 @@ def phase10(k1, k2, k3, tmp: Path):
         f"hook host seconds {json.dumps(hooks)}")
     if launches != RECIPE_LAUNCHES:
         raise AssertionError(f"recipe train launched {launches}, the loop predicts {RECIPE_LAUNCHES}")
+    # every pass of the model runs the upsampler: K2's and K1's forwards, K3's backwards
+    up_launches("recipe_cli_train", up_recipe, (launches["K2"] + launches["K1"], launches["K3"]))
     if "skipped:" in text:
         raise AssertionError("a training hook was skipped: " + " | ".join(
             line for line in text.splitlines() if "skipped:" in line))
@@ -1776,6 +1958,7 @@ def dp_steps(dump: Path, hp: str = "fused_stack=true", ckpt: Path | None = None)
     from wavenet_autoencoders_tpu_torch.config import load_preset
     from wavenet_autoencoders_tpu_torch.data.dataset import WaveDataset, data_iterator
     from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
+    from wavenet_autoencoders_tpu_torch.kernels import upsample as UP
     from wavenet_autoencoders_tpu_torch.models import build_model
     from wavenet_autoencoders_tpu_torch.parallel import distributed as D
     from wavenet_autoencoders_tpu_torch.parallel.mesh import model_axis
@@ -1795,7 +1978,7 @@ def dp_steps(dump: Path, hp: str = "fused_stack=true", ckpt: Path | None = None)
     step = make_train_step(cfg, model)
     it = data_iterator(WaveDataset(str(dump), cfg), cfg, prefetch=0, host_slice=host_slice,
                        transform=lambda b: batch_to_device(b, dev))
-    K.LAUNCHES_FWD = K.LAUNCHES_BWD = 0
+    K.LAUNCHES_FWD = K.LAUNCHES_BWD = UP.LAUNCHES_FWD = UP.LAUNCHES_BWD = 0
     counts = (D.COLLECTIVES, D.MODEL_COLLECTIVES, D.MODEL_BYTES)
     torch.cuda.reset_peak_memory_stats(dev)
     rec = {"loss": [], "grad_norm": [], "ms": [], "rows": None}
@@ -1812,6 +1995,8 @@ def dp_steps(dump: Path, hp: str = "fused_stack=true", ckpt: Path | None = None)
         rec["loss"].append(m["loss"].item())
         rec["grad_norm"].append(m["grad_norm"].item())
     rec["launches"] = [K.LAUNCHES_FWD, K.LAUNCHES_BWD]
+    # the upsampler runs fused or not, replicated over the model axis
+    rec["upsample_launches"] = [UP.LAUNCHES_FWD, UP.LAUNCHES_BWD]
     rec["collectives"] = D.COLLECTIVES - counts[0]
     rec["model_collectives_per_step"] = (D.MODEL_COLLECTIVES - counts[1]) / DP_STEPS
     rec["model_bytes_per_step"] = (D.MODEL_BYTES - counts[2]) / DP_STEPS
@@ -1823,6 +2008,8 @@ def dp_steps(dump: Path, hp: str = "fused_stack=true", ckpt: Path | None = None)
         if D.rank() == 0:
             np.save(ckpt / "logits.npy", y.float().cpu().numpy())
         rec["logits_launches"] = [K.LAUNCHES_FWD - rec["launches"][0], K.LAUNCHES_BWD - rec["launches"][1]]
+        rec["upsample_logits_launches"] = [UP.LAUNCHES_FWD - rec["upsample_launches"][0],
+                                           UP.LAUNCHES_BWD - rec["upsample_launches"][1]]
     return rec
 
 
@@ -1889,6 +2076,7 @@ def phase11(k2, k3, tmp: Path, recipe_dump: Path | None):
     from wavenet_autoencoders_tpu_torch.cli.main import main as cli
     from wavenet_autoencoders_tpu_torch.data import native
     from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
+    from wavenet_autoencoders_tpu_torch.kernels import upsample as UP
     from wavenet_autoencoders_tpu_torch.parallel import distributed as D
     from wavenet_autoencoders_tpu_torch.train import supervisor as S
 
@@ -1958,18 +2146,23 @@ def phase11(k2, k3, tmp: Path, recipe_dump: Path | None):
         count_launches(k3, f"dp_step_rank{r['rank']}", sum(r[d]["launches"][1] for d in DP_HP))
     count_launches(k2, "dp_reference", sum(refs[d]["launches"][0] for d in DP_HP))
     count_launches(k3, "dp_reference", sum(refs[d]["launches"][1] for d in DP_HP))
+    steps_up = [len(DP_HP) * DP_STEPS] * 2
+    for r in ranks:
+        up_launches(f"dp_step_rank{r['rank']}", [sum(r[d]["upsample_launches"][i] for d in DP_HP) for i in (0, 1)],
+                    steps_up)
+    up_launches("dp_reference", [sum(refs[d]["upsample_launches"][i] for d in DP_HP) for i in (0, 1)], steps_up)
     rec["dp"] = {"ranks": ranks, "one_process": refs, "one_process_unfused": unfused, "rel_diff": diff,
                  "yardstick_rel_diff": yardstick, "tol_bf16": TOL_STEP1, "tol_f32": TOL_DP_F32, "wall_s": dp_wall}
 
     # 2. a process group over NCCL through the CLI (one rank: the card's only)
-    K.LAUNCHES_FWD = K.LAUNCHES_BWD = 0
+    K.LAUNCHES_FWD = K.LAUNCHES_BWD = UP.LAUNCHES_FWD = UP.LAUNCHES_BWD = 0
     collectives = D.COLLECTIVES
     t0 = time.perf_counter()
     cli(["train", "--preset", "svqwae", "--hparams", "fused_stack=true", "--device", "cuda", "--max-steps", "3",
          str(dump), str(tmp / "exp_nccl"), "--coordinator", f"127.0.0.1:{free_port()}", "--num-processes", "1",
          "--process-id", "0"])
     nccl = {"backend": D.BACKEND, "collectives": D.COLLECTIVES - collectives, "s": time.perf_counter() - t0,
-            "launches": [K.LAUNCHES_FWD, K.LAUNCHES_BWD]}
+            "launches": [K.LAUNCHES_FWD, K.LAUNCHES_BWD], "upsample_launches": [UP.LAUNCHES_FWD, UP.LAUNCHES_BWD]}
     log(f"phase 11: train --coordinator 127.0.0.1:<port> --num-processes 1: {json.dumps(nccl)}")
     if nccl["backend"] != "nccl" or nccl["collectives"] < 3 or nccl["launches"] != [3, 3]:
         raise AssertionError(f"the NCCL run: {nccl}")
@@ -1977,19 +2170,21 @@ def phase11(k2, k3, tmp: Path, recipe_dump: Path | None):
         raise AssertionError("the NCCL run wrote no checkpoint")
     count_launches(k2, "nccl_cli_train", nccl["launches"][0])
     count_launches(k3, "nccl_cli_train", nccl["launches"][1])
+    up_launches("nccl_cli_train", nccl["upsample_launches"], nccl["launches"])
     rec["nccl"] = nccl
 
     # 3. the training options, then dropout (which skips the fused stack)
     runs = {}
     for name, hp in (("options", OPTIONS_HP), ("dropout", DROPOUT_HP)):
         ckpt = tmp / f"exp_{name}"
-        K.LAUNCHES_FWD = K.LAUNCHES_BWD = 0
+        K.LAUNCHES_FWD = K.LAUNCHES_BWD = UP.LAUNCHES_FWD = UP.LAUNCHES_BWD = 0
         t0 = time.perf_counter()
         cli(["train", "--preset", "svqwae", "--hparams", hp, "--device", "cuda", "--max-steps", "3", str(dump),
              str(ckpt)])
         torch.cuda.synchronize()
         recs = [r for r in read_metrics(ckpt) if r["phase"] == "train_no_dev"]
-        runs[name] = {"launches": [K.LAUNCHES_FWD, K.LAUNCHES_BWD], "s": time.perf_counter() - t0,
+        runs[name] = {"launches": [K.LAUNCHES_FWD, K.LAUNCHES_BWD],
+                      "upsample_launches": [UP.LAUNCHES_FWD, UP.LAUNCHES_BWD], "s": time.perf_counter() - t0,
                       "steps": {r["step"]: {k: r[k] for k in ("loss", "grad_norm", "perplexity", "reseeded")}
                                 for r in recs}}
         if sorted(runs[name]["steps"]) != [1, 3] or not all(
@@ -2017,6 +2212,8 @@ def phase11(k2, k3, tmp: Path, recipe_dump: Path | None):
     for name, run in runs.items():
         count_launches(k2, f"{name}_cli_train", run["launches"][0])
         count_launches(k3, f"{name}_cli_train", run["launches"][1])
+        # dropout skips the fused stack, not the upsampler: one of each a step
+        up_launches(f"{name}_cli_train", run["upsample_launches"], (3, 3))
     rec["options"] = {**runs, "model_state_leaves": state_keys}
 
     # 4. the native loader against the Python collate path
@@ -2070,6 +2267,7 @@ def tp_worker(init: str, rank: int, dump: str, tmp: str) -> None:
     from wavenet_autoencoders_tpu_torch.config import load_preset
     from wavenet_autoencoders_tpu_torch.kernels import decode as K1
     from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
+    from wavenet_autoencoders_tpu_torch.kernels import upsample as UP
     from wavenet_autoencoders_tpu_torch.parallel import distributed as D
     from wavenet_autoencoders_tpu_torch.train.loop import train
 
@@ -2079,12 +2277,13 @@ def tp_worker(init: str, rank: int, dump: str, tmp: str) -> None:
     try:
         rec = {name: dp_steps(Path(dump), f"{hp},{TP_MESH}", ckpt=Path(tmp) / "tp_ckpt" if name == "fused" else None)
                for name, hp in TP_HP.items()}
-        K1.LAUNCHES = K.LAUNCHES_FWD = K.LAUNCHES_BWD = 0
+        K1.LAUNCHES = K.LAUNCHES_FWD = K.LAUNCHES_BWD = UP.LAUNCHES_FWD = UP.LAUNCHES_BWD = 0
         t0 = time.perf_counter()
         train(load_preset("svqwae", TP_TRAIN_HP), dump, str(Path(tmp) / "tp_train"), max_steps=2, log_every=1,
               device="cuda")
         torch.cuda.synchronize()
-        rec["train"] = {"s": time.perf_counter() - t0, "launches": [K1.LAUNCHES, K.LAUNCHES_FWD, K.LAUNCHES_BWD]}
+        rec["train"] = {"s": time.perf_counter() - t0, "launches": [K1.LAUNCHES, K.LAUNCHES_FWD, K.LAUNCHES_BWD],
+                        "upsample_launches": [UP.LAUNCHES_FWD, UP.LAUNCHES_BWD]}
         rec.update(rank=rank, device=str(D.local_device("cuda")))
         print("TP_RANK " + json.dumps(rec), flush=True)
     finally:
@@ -2197,6 +2396,16 @@ def phase12(k1, k2, k3, tmp: Path, card: str):
         count_launches(k3, f"tp_train_rank{i}", r["train"]["launches"][2])
     count_launches(k2, "tp_reference", refs["fused"]["launches"][0] + refs["fused"]["logits_launches"][0])
     count_launches(k3, "tp_reference", refs["fused"]["launches"][1])
+    for i, r in enumerate(ranks):
+        # the steps (fused and unfused), the checkpoint's logits (a forward),
+        # and train(): its steps, K2's sample dump and K1's decode on rank 0
+        up_launches(f"tp_step_rank{i}", [sum(r[n]["upsample_launches"][j] for n in TP_HP) for j in (0, 1)],
+                    [len(TP_HP) * DP_STEPS] * 2)
+        up_launches(f"tp_checkpoint_logits_rank{i}", r["fused"]["upsample_logits_launches"], (1, 0))
+        t = r["train"]["launches"]
+        up_launches(f"tp_train_rank{i}", r["train"]["upsample_launches"], (t[0] + t[1], t[2]))
+    up_launches("tp_reference", [sum(refs[n]["upsample_launches"][j] for n in TP_HP) for j in (0, 1)],
+                [len(TP_HP) * DP_STEPS] * 2)
     rec["tp"] = {"ranks": ranks, "one_process": refs, "rel_diff": diff, "tol": TOL_STEP1, "logit_err": logit_err,
                  "wall_s": tp_wall}
 
@@ -2260,6 +2469,25 @@ def tf_launches(path: str, n: int) -> None:
     if n < 1:
         raise AssertionError(f"{path} drew from JAX keys without launching the threefry kernel")
     count_launches(TF_REC, path, n)
+
+
+# the upsampler kernels' record in the kernel table; the train paths add
+# their launches to it (``up_launches``)
+UP_REC: dict = {}
+
+
+def up_launches(path: str, got, want) -> None:
+    """Add a train path's launches of the upsampler kernels, [forward,
+    backward] counted from 0 around it, to their record, after holding them
+    to ``want``: a step's forward and backward (K2's and K3's where the
+    stack is fused, a replay's counted), a forward for each other pass of
+    the model (K2's sample dumps and dev passes, K1's decodes)."""
+    got, want = [int(n) for n in got], [int(n) for n in want]
+    if got != want:
+        raise AssertionError(f"{path} launched the upsampler kernels {got} times (forward, backward), "
+                             f"expected {want}")
+    UP_REC.setdefault("fwd_bwd_by_path", {})[path] = got
+    count_launches(UP_REC, path, sum(got))
 
 
 def threefry_bound(n: int, nbytes: int) -> tuple[float, str]:
@@ -2722,6 +2950,7 @@ def quality_run(spec: QualityRun, k1, k2, k3, tmp: Path, shared: dict | None) ->
     from wavenet_autoencoders_tpu_torch.kernels import decode as K1
     from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
     from wavenet_autoencoders_tpu_torch.kernels import threefry as TF
+    from wavenet_autoencoders_tpu_torch.kernels import upsample as UP
     from wavenet_autoencoders_tpu_torch.quality import recon, run
 
     t_phase = time.perf_counter()
@@ -2748,11 +2977,12 @@ def quality_run(spec: QualityRun, k1, k2, k3, tmp: Path, shared: dict | None) ->
                                "--max-steps", str(max_steps), "--preset", str(ref_dir / "config.json"),
                                "--hparams", hparams])
 
-    K.LAUNCHES_FWD = K.LAUNCHES_BWD = K1.LAUNCHES = TF.LAUNCHES = 0
+    K.LAUNCHES_FWD = K.LAUNCHES_BWD = K1.LAUNCHES = TF.LAUNCHES = UP.LAUNCHES_FWD = UP.LAUNCHES_BWD = 0
     with tee_stdout() as out:
         timed("train", lambda: train(exp, spec.max_steps, spec.hparams))
     launches = {"K1": K1.LAUNCHES, "K2": K.LAUNCHES_FWD, "K3": K.LAUNCHES_BWD}
     tf_launches(f"{spec.key}_train", TF.LAUNCHES)
+    up_train = (UP.LAUNCHES_FWD, UP.LAUNCHES_BWD)
     text = out.getvalue()
     form = graph_form(text, p)
     cfg = Config.load(exp / "config.json")
@@ -2827,6 +3057,10 @@ def quality_run(spec: QualityRun, k1, k2, k3, tmp: Path, shared: dict | None) ->
                     "form": form, "launches": launches, "n_train": n_train, "n_dev": n_dev}
     count_launches(k2, f"{spec.key}_train", launches["K2"])
     count_launches(k3, f"{spec.key}_train", launches["K3"])
+    # the upsampler runs in every pass of the model, fused or not: the
+    # passes the fused run's K1, K2 and K3 would count
+    passes = quality_train_launches(cfg.replace(fused_stack=True), n_train, n_dev, spec.max_steps)
+    up_launches(f"{spec.key}_train", up_train, (passes["K2"] + passes["K1"], passes["K3"]))
     if spec.evaluations:
         quality_evaluations(spec, cfg, exp, shared, timed, secs, rec, k1, k2, k3)
     rec["host_s"] = secs
@@ -3053,12 +3287,15 @@ KERNELS = {
     # first after initialisation in its step key (train/step.py:166)
     "TF": ("threefry", "threefry.cu", "none: XLA's threefry2x32 under jax.random "
            "(wavenet_autoencoders_tpu/train/step.py:166), no pl.pallas_call"),
+    # no TPU kernel: the JAX package leaves the upsampler to XLA
+    "UP": ("upsample", "upsample.cu", "none: XLA's convolutions "
+           "(wavenet_autoencoders_tpu/ops/upsample.py:upsample_network_apply), no pl.pallas_call"),
 }
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,16,13")
+    ap.add_argument("--phases", default="0,1,2,3,4,5,18,6,7,8,9,10,11,12,16,13")
     ap.add_argument("--quality-hparams", default="",
                     help='"k=v,..." appended to the quality phases\' (13-15) hparams, e.g. fused_stack=false, seed=1')
     ap.add_argument("--vq-bf16-product", action="store_true",
@@ -3113,6 +3350,9 @@ def main(argv=None) -> int:
     TF_REC.clear()
     TF_REC.update(res["TF"])
     res["TF"] = TF_REC
+    UP_REC.clear()
+    UP_REC.update(res["UP"])
+    res["UP"] = UP_REC
     if 1 in phases:
         phase1(k1)
     if 2 in phases:
@@ -3124,6 +3364,8 @@ def main(argv=None) -> int:
         phase4(k1)
     if 5 in phases:
         phase5(k2, k3)
+    if 18 in phases:
+        phase18(UP_REC)
     if 6 in phases:
         with tempfile.TemporaryDirectory() as tmp:
             phase6(k2, k3, Path(tmp))

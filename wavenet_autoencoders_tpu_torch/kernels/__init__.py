@@ -10,6 +10,10 @@ version and a launch counter.
 - ``threefry``: JAX's threefry2x32 draws (``csrc/threefry.cu``), which
   ``utils/jax_random`` makes on the card; no TPU kernel's counterpart (the
   JAX package draws through XLA).
+- ``upsample``: the conditioning upsampler's stretch-and-smooth chain
+  (``csrc/upsample.cu``), forward and backward joined by the ``Upsample``
+  autograd function; no TPU kernel's counterpart (the JAX package leaves
+  the upsampler to XLA).
 
 ``build`` compiles ``csrc/*.cu`` with ``nvcc`` at first use; importing this
 package needs no CUDA toolkit.

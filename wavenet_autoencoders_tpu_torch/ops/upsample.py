@@ -12,9 +12,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from wavenet_autoencoders_tpu_torch.kernels.upsample import upsample
 from wavenet_autoencoders_tpu_torch.ops.conv import Conv1d, conv1d_apply
 from wavenet_autoencoders_tpu_torch.utils import jax_random as jr
 
@@ -62,22 +62,16 @@ def upsample_network_apply(
 ) -> torch.Tensor:
     """c: (B, T0, C) -> (B, T0 * prod(scales) - 2*cin_pad*prod, C). Under a
     compute ``dtype`` the input and every smoothing weight are cast to it and
-    each conv's output stays in it."""
-    x = c.transpose(1, 2)[:, None]  # (B, 1, C, T)
-    if dtype is not None:
-        x = x.to(dtype)
-    fpad = (freq_axis_kernel_size - 1) // 2
-    for conv, scale in zip(p.convs, upsample_scales):
-        x = x.repeat_interleave(scale, dim=3)
+    each conv's output stays in it. The chain runs in ``kernels/upsample.py``
+    (the CUDA kernels on the card, the plain version on the CPU) on the
+    folded weights; the weight norm stays here, in autograd."""
+    x = c if dtype is None else c.to(dtype)
+    ws = []
+    for conv in p.convs:
         w = conv.g * conv.v / conv.v.square().sum().sqrt().clamp_min(1e-12)
-        if dtype is not None:
-            w = w.to(dtype)
-        x = F.conv2d(x, w, padding=(fpad, scale))
-    out = x[:, 0].transpose(1, 2)  # (B, T, C)
+        ws.append(w if dtype is None else w.to(dtype))
     indent = cin_pad * int(np.prod(upsample_scales))
-    if indent > 0:
-        out = out[:, indent:-indent, :]
-    return out
+    return upsample(x, ws, upsample_scales, freq_axis_kernel_size, indent)
 
 
 def conv_in_upsample_apply(

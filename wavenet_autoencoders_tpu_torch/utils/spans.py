@@ -237,10 +237,12 @@ def records() -> dict:
             j = bisect.bisect_right(own[sp.thread], (sp.start_ns, float("inf"))) - 1
             if j >= 0:
                 spans[i] = sp._replace(batch=own[sp.thread][j][1])
-    from wavenet_autoencoders_tpu_torch.kernels import decode, glu_stack, threefry
+    from wavenet_autoencoders_tpu_torch.kernels import decode, glu_stack, threefry, upsample
 
     levels = {**_LEVELS, "kernels.decode.LAUNCHES": decode.LAUNCHES,
               "kernels.glu_stack.LAUNCHES_FWD": glu_stack.LAUNCHES_FWD,
-              "kernels.glu_stack.LAUNCHES_BWD": glu_stack.LAUNCHES_BWD, "kernels.threefry.LAUNCHES": threefry.LAUNCHES}
+              "kernels.glu_stack.LAUNCHES_BWD": glu_stack.LAUNCHES_BWD, "kernels.threefry.LAUNCHES": threefry.LAUNCHES,
+              "kernels.upsample.LAUNCHES_FWD": upsample.LAUNCHES_FWD,
+              "kernels.upsample.LAUNCHES_BWD": upsample.LAUNCHES_BWD}
     return {"spans": list(spans.values()), "counters": counters, "counts": counts, "levels": levels,
             "dropped": max(0, issued - len(s.buf))}
