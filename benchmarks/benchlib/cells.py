@@ -5,11 +5,34 @@ a configuration, a traffic mix or a metric by adding files alone:
   and the limit of each number its check compares;
 - ``configs/<config>.json``: the configuration as it is run (the model's
   keys; ``assumed`` lists what was set here rather than taken from the
-  source);
+  source). Two more keys stand outside the model's, as ``assumed`` does:
+  ``reference``, the plain reference's module ``reference/<name>.py``
+  (default ``wae``), and ``features``, the conditioning features the dump
+  holds and the loader reads, ``mfcc`` or ``mel`` (default ``mfcc``);
 - ``traffic/<traffic>.json``: the mix's parameters, with its ``kind``, the
   seeded generator ``traffic/<kind>.py`` that reads them;
 - ``metrics/<metric>.py``: one reader per per-layer metric (``UNIT`` and
   ``read(run)``, which returns None where the run holds nothing to read).
+
+A reference module (``reference/<name>.py``) is plain PyTorch that imports
+nothing of the program, and offers
+
+- ``precision()``: a context in which its float32 products are float32
+  (TF32 off), restored after;
+- ``train_steps(w0, batches, cfg, mode, block=, rows_used=, frozen=)``:
+  Adam steps from weights ``w0`` ({parameter path: tensor}) over
+  ``batches``, one step a batch, the loss a mean over ``rows_used`` (all
+  rows by default), the batch taken ``block`` rows at a time; ``frozen``
+  is a step that leaves its state unchanged. ``mode`` is ``f32``, ``f64``
+  (the yardstick of float32's rounding), ``bf16`` or ``fp8`` (the control,
+  one type below the configurations' bfloat16). Each batch holds ``x``
+  (B, T): integer codes, or float samples for raw input; ``c`` (B,
+  frames, features), the crop's frames with ``cin_pad`` frames each side;
+  ``lengths`` (B,); and ``g`` (B,), the speakers, where the configuration
+  has global conditioning. Returns ``losses`` (one a step),
+  ``first_grad`` (the first step's gradients as Adam's state holds them),
+  ``params`` and ``ema`` (the weights and the EMA shadow after the last
+  step; ``ema`` None without one).
 """
 from __future__ import annotations
 
@@ -22,6 +45,9 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent.parent
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+#: a configuration's keys that are not the model's
+OUTSIDE_MODEL = ("assumed", "reference", "features")
+FEATURES = ("mfcc", "mel")
 
 
 def check_name(name: str) -> str:
@@ -56,10 +82,24 @@ class Cell:
     generator: object
     chips: int
     limits: dict
+    root: Path = HERE
 
     @property
     def kind(self) -> str:
         return self.generator.DRIVER
+
+    @property
+    def features(self) -> str:
+        """The conditioning features the loader reads, ``mfcc`` or ``mel``."""
+        feats = self.config.get("features", "mfcc")
+        if feats not in FEATURES:
+            raise ValueError(f"configuration {self.config_name}: features {feats!r} is not one of {FEATURES}")
+        return feats
+
+    def reference(self):
+        """The configuration's plain reference module, from this cell's folder."""
+        name = check_name(self.config.get("reference", "wae"))
+        return load_module(self.root / "reference" / f"{name}.py", f"bench_reference_{name}")
 
 
 def load_cell(name: str, root: Path = HERE) -> Cell:
@@ -69,12 +109,13 @@ def load_cell(name: str, root: Path = HERE) -> Cell:
     traffic = _json(root / "traffic" / f"{traffic_name}.json")
     kind = check_name(traffic["kind"])
     gen = load_module(root / "traffic" / f"{kind}.py", f"bench_traffic_{kind}")
-    return Cell(name, cfg_name, config, traffic_name, traffic, gen, int(spec.get("chips", 1)), dict(spec["limits"]))
+    return Cell(name, cfg_name, config, traffic_name, traffic, gen, int(spec.get("chips", 1)), dict(spec["limits"]),
+                root)
 
 
 def model_config(config: dict) -> dict:
-    """The configuration's model keys (without ``assumed``)."""
-    return {k: v for k, v in config.items() if k != "assumed"}
+    """The configuration's model keys (without ``OUTSIDE_MODEL``'s)."""
+    return {k: v for k, v in config.items() if k not in OUTSIDE_MODEL}
 
 
 def metric_readers(root: Path = HERE) -> dict:

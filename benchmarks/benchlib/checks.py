@@ -63,8 +63,8 @@ def counted(ref_grad: dict, grad64: dict) -> dict:
 
 def train_numbers(prog: dict, ref: dict, w0: dict, grad64: dict) -> dict:
     """``prog``: losses (3), first_grad, params (after step 3), ema; ``ref``:
-    ``reference.wae.train_steps``' output; ``w0`` the weights both started
-    from; ``grad64`` the reference's first gradient in float64."""
+    the reference module's ``train_steps``' output; ``w0`` the weights both
+    started from; ``grad64`` the reference's first gradient in float64."""
     out = {"loss_gap": max(abs(a - b) / abs(b) for a, b in zip(prog["losses"], ref["losses"]))}
     g_ref = norms(ref["first_grad"])
     keep = counted(ref["first_grad"], grad64)

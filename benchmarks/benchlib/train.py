@@ -3,13 +3,17 @@ it, on the port's own data path, for a window of fixed seconds.
 
 Set-up builds the model at the configuration's widths, loads the seed's
 weights into it by parameter name, writes the seed's dump under TMPDIR and
-starts the port's ``data_iterator`` (native loader, prefetch thread, the
-host-to-device copy in that thread, as ``train/loop.py`` passes it). It
-then builds one step object (``make_train_step``: a CUDA graph on the
-card, step 1 eager, step 2 captured) and drives it through steps 1-3 on
-the iterator's batches, keeping what the check needs (the weights before,
-the first moment after step 1, the weights and the EMA shadow after step
-3, the three batches); the same object then runs the window from step 4.
+starts the port's ``data_iterator`` over the configuration's ``features``
+(native loader for mu-law codes, the Python collator for raw samples,
+prefetch thread, the host-to-device copy in that thread, as
+``train/loop.py`` passes it). It then builds one step object
+(``make_train_step``: a CUDA graph on the card, step 1 eager, step 2
+captured) and drives it through steps 1-3 on the iterator's batches,
+keeping what the check needs (the weights before, the first moment after
+step 1, the weights and the EMA shadow after step 3, the three batches);
+the same object then runs the window from step 4.
+Once the window has closed, the configuration's plain reference
+(``Cell.reference``) takes the same weights and the three batches.
 
 The window: a batch from the iterator (the host span ``loader_wait``),
 the step, a CUDA event recorded after it; every 50th step the metrics are
@@ -38,6 +42,8 @@ from benchlib.weights import draw
 LOG_EVERY = 50
 TRACE_FROM, TRACE_STEPS = 20, 10
 ADAM_B1 = 0.9
+#: what the reference gets of a batch (``g`` only with global conditioning)
+FEED = ("x", "c", "g", "lengths")
 
 
 def p95(values) -> float:
@@ -78,7 +84,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str, t_start
     try:
         dump = cell.generator.generate(cell.traffic, cfg_d, seed, tmp / "dump")
         lap("dump")
-        it = data_iterator(WaveDataset(str(dump), cfg), cfg, seed=seed,
+        it = data_iterator(WaveDataset(str(dump), cfg, feat_type=cell.features), cfg, seed=seed,
                            transform=lambda b: batch_to_device(b, dev))
         state = init_state(cfg, model)
         step_fn = hooks.get("step", lambda f: f)(make_train_step(cfg, model))
@@ -167,18 +173,17 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str, t_start
             torch.cuda.empty_cache()
 
         # the reference, once the window has closed and the program's state is freed
-        from reference.wae import precision, train_steps
-
-        feed = [{k: b[k] for k in ("x", "c", "g", "lengths")} for b in batches]
-        with precision():
-            ref = train_steps(w0, feed, cfg_d, "f32")
-            grad64 = train_steps(w0, feed[:1], cfg_d, "f64")["first_grad"]
+        reference = cell.reference()
+        feed = [{k: b[k] for k in FEED if k in b} for b in batches]
+        with reference.precision():
+            ref = reference.train_steps(w0, feed, cfg_d, "f32")
+            grad64 = reference.train_steps(w0, feed[:1], cfg_d, "f64")["first_grad"]
         numbers = checks.train_numbers(prog, ref, w0, grad64)
         numbers["nonfinite"] = float(nonfinite)
         result["numbers"] = numbers
         if "after_reference" in hooks:  # the calibration's controls and faults
-            result["calibration"] = hooks["after_reference"](w0=w0, batches=batches, ref=ref, grad64=grad64,
-                                                             cfg=cfg_d, prog=prog)
+            result["calibration"] = hooks["after_reference"](w0=w0, feed=feed, ref=ref, grad64=grad64,
+                                                             cfg=cfg_d, prog=prog, reference=reference)
         return result
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -7,9 +7,9 @@ For each seed, in one process: a run of the cell (set-up, a window of
 ``--seconds``, its check), and beside the program's numbers the same
 numbers read off
 
-- the control: the plain reference computed one type below the
-  configuration's bfloat16, in float8 (``reference.wae``'s 'fp8' mode),
-  put in the program's place;
+- the control: the configuration's plain reference (``Cell.reference``)
+  computed one type below the configuration's bfloat16, in float8 (its
+  'fp8' mode), put in the program's place;
 - the faults "half of the batch left out" (the reference over the batch's
   first half, the mean taken over it) and "a step that returns its state
   unchanged" (the reference's steps without their updates), each in the
@@ -48,19 +48,18 @@ def worst(prog, ref, w0, grad64, n=3):
     return out
 
 
-def train_hook(w0, batches, ref, grad64, cfg, prog):
+def train_hook(w0, feed, ref, grad64, cfg, prog, reference):
     from benchlib import checks
-    from reference.wae import precision, train_steps
 
     import torch
 
-    feed = [{k: b[k] for k in ("x", "c", "g", "lengths")} for b in batches]
-    with precision():
-        fp8 = train_steps(w0, feed, cfg, "fp8")
-        bf16 = train_steps(w0, feed, cfg, "bf16")
-        half = train_steps(w0, feed, cfg, "f32", rows_used=torch.arange(feed[0]["x"].shape[0] // 2,
-                                                                         device=feed[0]["x"].device))
-        frozen = train_steps(w0, feed, cfg, "f32", frozen=True)
+    steps = reference.train_steps
+    with reference.precision():
+        fp8 = steps(w0, feed, cfg, "fp8")
+        bf16 = steps(w0, feed, cfg, "bf16")
+        half = steps(w0, feed, cfg, "f32", rows_used=torch.arange(feed[0]["x"].shape[0] // 2,
+                                                                   device=feed[0]["x"].device))
+        frozen = steps(w0, feed, cfg, "f32", frozen=True)
     keep = checks.counted(ref["first_grad"], grad64)
     left_out = {k: [int(g.numel() - (keep[k].sum() if k in keep else 0)), int(g.numel())]
                 for k, g in ref["first_grad"].items()}

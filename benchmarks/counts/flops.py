@@ -88,29 +88,46 @@ def encoder_flop(cfg: dict, B: int, frames: int) -> float:
     return 2.0 * B * macs
 
 
-def upsampler_flop(cfg: dict, B: int, latent_frames: int) -> float:
-    """The context conv and each scale's smoothing conv over every channel."""
-    c, t = cfg["cin_channels"], latent_frames
-    macs = t * c * c * (2 * cfg["cin_pad"] + 1)
+def upsampler_flop(cfg: dict, B: int, frames: int) -> float:
+    """The context conv (kernel 2·cin_pad + 1, no padding: ``frames`` in,
+    ``frames`` − 2·cin_pad out) and each scale's smoothing conv over every
+    channel."""
+    c, pad = cfg["cin_channels"], cfg["cin_pad"]
+    t = frames - 2 * pad
+    macs = t * c * c * (2 * pad + 1)
     for s in cfg["upsample_params"]["upsample_scales"]:
         t *= s
         macs += t * c * (2 * s + 1)
     return 2.0 * B * macs
 
 
+#: the families of ``models/zoo.py:build_model`` by ``name`` that have a
+#: content encoder (``wavenet_vocoder`` is conditioned on the features)
+ENCODER_FAMILIES = ("wvae", "ae", "vqvae", "inae", "inae1", "new_inae", "catae")
+
+
 def forward_flop(cfg: dict, B: int, T: int) -> float:
-    """One teacher-forced forward of the whole model at B × T samples: the
-    encoder, the bottleneck's distances, the upsampler, the WaveNet stack
-    (the frozen K2 count) and the post-net. The first layer is a row gather
-    of its weight and counts nothing; elementwise work counts nothing."""
+    """One teacher-forced forward of the whole model at B × T samples. A
+    family with an encoder: the encoder, the bottleneck's distances (VQ),
+    the upsampler over the latent frames, the WaveNet stack (the frozen K2
+    count) and the post-net. The vocoder: the upsampler over the feature
+    frames of the crop and their 2·cin_pad frames of context, the stack and
+    the post-net. The first layer is a row gather of its weight (mu-law
+    codes) or a scaling of it (a scalar input) and counts nothing;
+    elementwise work, the loss included, counts nothing."""
+    name = cfg["name"].lower()
     w = widths(cfg)
     hop = cfg["hop_size"]
     frames = T // hop
-    latent = frames // (100 // cfg["frame_rate"])
     f2, _, _, _ = glu_bound(B, T, w["C"], w["G"], w["S"], w["cin"], w["L"], w["gin"] > 0)
     post = 2.0 * B * T * (w["S"] * w["S"] + w["S"] * w["O"])
+    if name == "wavenet_vocoder":
+        return upsampler_flop(cfg, B, frames + 2 * cfg["cin_pad"]) + f2 + post
+    if name not in ENCODER_FAMILIES:
+        raise ValueError(f"no count for model {cfg['name']!r}")
+    latent = frames // (100 // cfg["frame_rate"])
     vq = 0.0
-    if cfg["name"] == "vqvae":
+    if name == "vqvae":
         vq = 2.0 * B * latent * cfg["K"] * cfg["cin_channels"]
     return encoder_flop(cfg, B, frames) + vq + upsampler_flop(cfg, B, latent) + f2 + post
 

@@ -1,10 +1,14 @@
 """Nothing the benchmark runs imports JAX or the JAX package, compared by
 whole top-level names (the port's name begins with the package's), and
-the plain reference imports nothing of the program."""
+every plain reference under ``reference/`` imports nothing of the
+program."""
 import ast
+import json
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 HERE = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "wavenet_autoencoders_tpu"}
@@ -30,6 +34,26 @@ def test_no_module_imports_jax_or_the_jax_package():
 def test_the_reference_imports_nothing_of_the_program():
     for path in sorted((HERE / "reference").rglob("*.py")):
         assert not imports(path) & {"wavenet_autoencoders_tpu_torch", "benchlib"}, path
+
+
+REFERENCES = sorted((HERE / "reference").rglob("*.py"))
+
+
+@pytest.mark.parametrize("path", REFERENCES, ids=lambda p: str(p.relative_to(HERE)))
+def test_every_reference_module_loads_only_the_standard_library_torch_and_numpy(path):
+    # by its source, and loaded by path as the driver loads it, in a fresh interpreter
+    siblings = {p.stem for p in REFERENCES}
+    allowed = set(sys.stdlib_module_names) | {"torch", "numpy", "scipy"} | siblings
+    assert imports(path) <= allowed, (path, imports(path) - allowed)
+    code = ("import json, sys; sys.path[:0] = [%r]\n"
+            "from benchlib.cells import load_module\n"
+            "before = set(sys.modules)\n"
+            "load_module(__import__('pathlib').Path(%r), 'bench_reference_probe')\n"
+            "print(json.dumps(sorted({m.split('.')[0] for m in set(sys.modules) - before})))") % (str(HERE), str(path))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = set(json.loads(out.stdout.strip().splitlines()[-1]))
+    assert not loaded & (FORBIDDEN | {"wavenet_autoencoders_tpu_torch", "benchlib", "counts", "run"}), loaded
 
 
 def test_a_run_loads_no_jax():
