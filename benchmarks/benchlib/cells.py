@@ -14,6 +14,29 @@ a configuration, a traffic mix or a metric by adding files alone:
 - ``metrics/<metric>.py``: one reader per per-layer metric (``UNIT`` and
   ``read(run)``, which returns None where the run holds nothing to read).
 
+The ``run`` a reader gets (``benchlib/train.py``, a train cell).
+``run.py`` calls the readers in ``--trace 1`` runs alone; a reader
+returns None on a run that lacks what it reads, as a ``--trace 0`` run
+lacks the keys marked "traced":
+
+- ``kind`` (``"train"``), ``cfg`` (the model's keys), ``B``, ``T``;
+- ``steps``, ``window_s``: the window's steps and host seconds;
+- ``intervals_ms``: each window step's device interval (CUDA events);
+- ``loader_wait_s``: each window step's wait for its batch (host);
+- ``window_from``: the state's step at the window's first step (set-up
+  drives ``SETUP_STEPS`` before it), so window step ``i`` is the port's
+  step ``window_from + i``;
+- ``stretch`` (traced; None otherwise): the profiled stretch, ``first``
+  (its first window step), ``steps``, ``k2`` and ``k3`` (launches in it);
+- ``trace`` (traced; None otherwise): the stretch's device trace
+  (``benchlib/trace.py:Trace``);
+- ``spans`` (traced; absent otherwise): the port's tracer over the whole
+  window, as ``wavenet_autoencoders_tpu_torch.utils.spans.records()``
+  gives it: ``spans`` (``Span``), ``counters``, ``counts``, ``levels``,
+  ``dropped``. Spans are read per window step through
+  ``benchlib/span_rows.py``; host spans only before the stretch
+  (``before_profiler``), since the profiler slows the host from it on.
+
 A reference module (``reference/<name>.py``) is plain PyTorch that imports
 nothing of the program, and offers
 

@@ -23,7 +23,11 @@ The end-to-end metrics: samples trained over the whole window, and the
 95th percentile of every step's interval between its event and the one
 before it, read once at the end. A traced run profiles a stretch of
 ``TRACE_STEPS`` steps from the window's ``TRACE_FROM``-th step, between
-two synchronisations.
+two synchronisations, and records the port's tracer
+(``utils/spans.py``) over the whole window: turned on after set-up's
+drain, just before the window's first step, and off (and emptied) once the
+window has closed, also when the window raises; its records go to the
+run's ``spans``. A run with ``trace`` false never turns it on.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ from benchlib.cells import Cell, model_config
 from benchlib.weights import draw
 
 LOG_EVERY = 50
+SETUP_STEPS = 3  # the steps set-up drives and the check compares
 TRACE_FROM, TRACE_STEPS = 20, 10
 ADAM_B1 = 0.9
 #: what the reference gets of a batch (``g`` only with global conditioning)
@@ -65,6 +70,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str, t_start
     from wavenet_autoencoders_tpu_torch.models.zoo import build_model
     from wavenet_autoencoders_tpu_torch.train.loop import batch_to_device
     from wavenet_autoencoders_tpu_torch.train.step import init_state, make_train_step
+    from wavenet_autoencoders_tpu_torch.utils import spans
     from wavenet_autoencoders_tpu_torch.utils.params import flatten_params
 
     lap("imports")
@@ -92,7 +98,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str, t_start
 
         # steps 1-3: the window's own object and feed, held against the reference
         batches, losses = [], []
-        for i in range(3):
+        for i in range(SETUP_STEPS):
             batch = next(it)
             batches.append(batch)
             state, m = step_fn(state, batch)
@@ -112,47 +118,57 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str, t_start
         # the window
         events, win_losses, waits = [], [], []
         prof, stretch = None, None
-        t0 = time.perf_counter()
-        start = torch.cuda.Event(enable_timing=True) if cuda else None
-        if cuda:
-            start.record()
-        n = 0
-        while True:
-            if trace and n == TRACE_FROM:
-                if cuda:
-                    torch.cuda.synchronize(dev)
-                prof = btrace.Profiler(cuda).__enter__()
-                win = prof.window().__enter__()
-                fwd0 = glu_stack.LAUNCHES_FWD, glu_stack.LAUNCHES_BWD
-            tw = time.perf_counter()
-            with torch.profiler.record_function("bench.loader_wait"):
-                batch = next(it)
-            waits.append(time.perf_counter() - tw)
-            with torch.profiler.record_function("bench.step"):
-                state, m = step_fn(state, batch)
+        window_from, recs = state.step, None
+        if trace:  # the port's tracer, over the window alone
+            spans.reset()
+            spans.enable()
+        try:
+            t0 = time.perf_counter()
+            start = torch.cuda.Event(enable_timing=True) if cuda else None
             if cuda:
-                e = torch.cuda.Event(enable_timing=True)
-                e.record()
-                events.append(e)
-            else:
-                events.append(time.perf_counter())
-            win_losses.append(m["loss"])
-            n += 1
-            if state.step % LOG_EVERY == 0:
-                with torch.profiler.record_function("bench.metric_read"):
-                    {k: float(v) for k, v in m.items()}
-            if prof is not None and stretch is None and n == TRACE_FROM + TRACE_STEPS:
+                start.record()
+            n = 0
+            while True:
+                if trace and n == TRACE_FROM:
+                    if cuda:
+                        torch.cuda.synchronize(dev)
+                    prof = btrace.Profiler(cuda).__enter__()
+                    win = prof.window().__enter__()
+                    fwd0 = glu_stack.LAUNCHES_FWD, glu_stack.LAUNCHES_BWD
+                tw = time.perf_counter()
+                with torch.profiler.record_function("bench.loader_wait"):
+                    batch = next(it)
+                waits.append(time.perf_counter() - tw)
+                with torch.profiler.record_function("bench.step"):
+                    state, m = step_fn(state, batch)
                 if cuda:
-                    torch.cuda.synchronize(dev)
-                win.__exit__(None, None, None)
-                prof.__exit__(None, None, None)
-                stretch = {"steps": TRACE_STEPS, "first": TRACE_FROM,
-                           "k2": glu_stack.LAUNCHES_FWD - fwd0[0], "k3": glu_stack.LAUNCHES_BWD - fwd0[1]}
-            if time.perf_counter() - t0 >= seconds and (not trace or stretch is not None):
-                break
-        if cuda:
-            torch.cuda.synchronize(dev)
-        window_s = time.perf_counter() - t0
+                    e = torch.cuda.Event(enable_timing=True)
+                    e.record()
+                    events.append(e)
+                else:
+                    events.append(time.perf_counter())
+                win_losses.append(m["loss"])
+                n += 1
+                if state.step % LOG_EVERY == 0:
+                    with torch.profiler.record_function("bench.metric_read"):
+                        {k: float(v) for k, v in m.items()}
+                if prof is not None and stretch is None and n == TRACE_FROM + TRACE_STEPS:
+                    if cuda:
+                        torch.cuda.synchronize(dev)
+                    win.__exit__(None, None, None)
+                    prof.__exit__(None, None, None)
+                    stretch = {"steps": TRACE_STEPS, "first": TRACE_FROM,
+                               "k2": glu_stack.LAUNCHES_FWD - fwd0[0], "k3": glu_stack.LAUNCHES_BWD - fwd0[1]}
+                if time.perf_counter() - t0 >= seconds and (not trace or stretch is not None):
+                    break
+            if cuda:
+                torch.cuda.synchronize(dev)
+            window_s = time.perf_counter() - t0
+        finally:
+            if trace:
+                spans.disable()
+                recs = spans.records()
+                spans.reset()
         if cuda:
             marks = [start.elapsed_time(e) for e in events]
         else:
@@ -166,8 +182,10 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str, t_start
                            "train_step_ms_p95": {"value": p95(intervals), "unit": "ms"}},
             "run": {"kind": "train", "cfg": cfg_d, "B": B, "T": T, "steps": n, "window_s": window_s,
                     "intervals_ms": intervals, "loader_wait_s": waits, "stretch": stretch,
-                    "trace": None if prof is None else prof.trace},
+                    "trace": None if prof is None else prof.trace, "window_from": window_from},
         }
+        if trace:
+            result["run"]["spans"] = recs
         del state, step_fn, model, params, it, m
         if cuda:
             torch.cuda.empty_cache()

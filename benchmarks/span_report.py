@@ -6,17 +6,23 @@ reads the spans per step:
 
 from the root of a checkout. Not a run of the benchmark: one run a
 process of a cell's train run (``benchlib/train.py:run``, as ``run.py``
-calls it), its step object wrapped so that the tracer turns on after
-set-up's three steps (the same wrapper whether on or off). It prints the end-to-end
+calls it). With ``--trace 0`` its step object is wrapped so that the
+tracer turns on after set-up's steps (the same wrapper whether on or
+off); with ``--trace 1`` the driver records the tracer over the window
+itself (``run["spans"]``), so ``--tracer off`` is refused there. It prints the end-to-end
 numbers and ``correct``; with the tracer on, per window step the host
-times of its spans (``launch`` = ``step.launch``, ``inputs_wait`` =
-``step.inputs_wait``, ``host`` = ``step`` less both, ``wait`` = the
-``data.wait`` of its batch, ``build`` = that batch's ``data.build``) and
+times of its spans (``benchlib/span_rows.py:per_step``: ``launch`` =
+``step.launch``, ``inputs_wait`` = ``step.inputs_wait``, ``host`` =
+``step`` less both, ``wait`` = the ``data.wait`` of its batch, ``build`` =
+that batch's ``data.build``) and
 its ``host.pinned_allocs``, summarised for the slow and the fast steps
 (a step is slow whose device interval exceeds the median of the window's
 second half by more than ``SLOW_MS``), and the per-layer numbers these
 give over the window's steps outside the profiled stretch and the step
-after it (``launch_idle_ms`` from the stretch, with ``--trace 1``).
+after it (``launch_idle_ms`` from the stretch, with ``--trace 1``). The
+profiler lengthens ``cudaGraphLaunch`` from its stretch on, so with
+``--trace 1`` these means read it; the benchmark's readers
+(``metrics/graph_launch_ms.train.py`` ...) take the steps before it.
 With ``--out`` it appends the run's JSON line, per-step rows included, to
 that file.
 Needs a CUDA card.
@@ -26,6 +32,7 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
+import itertools  # noqa: E402
 import json  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
@@ -36,56 +43,28 @@ HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 sys.path[:0] = [str(ROOT), str(HERE)]
 
-WINDOW_FROM = 3  # the window's first step: set-up runs steps 0-2
 SLOW_MS = 0.5  # inae's slow steps take ~1.3 ms more than its fast ones
 
 
 def tracer_after_setup(on: bool):
     """A step wrapper (the harness's ``step`` hook) that turns the tracer on
-    once set-up's steps are done, when ``on``."""
+    once set-up's steps (the first ``SETUP_STEPS`` calls) are done, when
+    ``on``."""
+    from benchlib.train import SETUP_STEPS
     from wavenet_autoencoders_tpu_torch.utils import spans
+
+    calls = itertools.count(1)
 
     def hook(fn):
         def step(state, batch):
             state, m = fn(state, batch)
-            if on and state.step == WINDOW_FROM:
+            if next(calls) == SETUP_STEPS and on:
                 spans.enable()
             return state, m
 
         return step
 
     return hook
-
-
-def per_step(recs: dict, intervals: list) -> list[dict]:
-    """One row a window step: its device interval and its spans' host ms."""
-    by_name: dict = {}
-    for s in recs["spans"]:
-        by_name.setdefault(s.name, []).append(s)
-    steps = {s.step: s for s in by_name.get("step", [])}
-    kids: dict = {}
-    for s in recs["spans"]:
-        if s.parent is not None:
-            kids.setdefault((s.parent, s.name), []).append(s)
-    waits = {s.batch: s for s in by_name.get("data.wait", [])}
-    builds = {s.batch: s for s in by_name.get("data.build", [])}
-    pinned: dict = {}
-    for name, n, parent in recs["counts"]:
-        if name == "host.pinned_allocs":
-            pinned[parent] = pinned.get(parent, 0) + n
-    rows = []
-    for i, iv in enumerate(intervals):
-        st = steps.get(WINDOW_FROM + i)
-        if st is None:
-            continue
-        ms = lambda name: sum(k.ms for k in kids.get((st.id, name), []))  # noqa: E731
-        w, b = waits.get(st.batch), builds.get(st.batch)
-        rows.append({"i": i, "step": st.step, "batch": st.batch, "interval_ms": iv, "step_ms": st.ms,
-                     "launch_ms": ms("step.launch"), "inputs_wait_ms": ms("step.inputs_wait"),
-                     "host_ms": st.ms - ms("step.launch") - ms("step.inputs_wait"),
-                     "wait_ms": w.ms if w else None, "ready": w.ready if w else None,
-                     "build_ms": b.ms if b else None, "pinned_allocs": pinned.get(st.id, 0)})
-    return rows
 
 
 def summary(rows: list[dict]) -> dict:
@@ -123,6 +102,8 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     ap.add_argument("--out")
     args = ap.parse_args(argv)
+    if args.trace and args.tracer == "off":
+        ap.error("--trace 1 records the tracer over the window itself; --tracer off needs --trace 0")
 
     import run
 
@@ -136,24 +117,29 @@ def main(argv=None) -> int:
     from benchlib import checks
     from benchlib import train as btrain
     from benchlib.cells import load_cell
+    from benchlib.span_rows import per_step
     from wavenet_autoencoders_tpu_torch.kernels import build
     from wavenet_autoencoders_tpu_torch.utils import spans
 
     build.build()
     cell = load_cell(args.workload)
     r = btrain.run(cell, args.seed, args.seconds, bool(args.trace), "cuda", T_START,
-                   {"step": tracer_after_setup(args.tracer == "on")})
-    spans.disable()
+                   {"step": tracer_after_setup(args.tracer == "on" and not args.trace)})
+    run_ = r["run"]
+    if args.trace:
+        recs = run_["spans"]
+    else:
+        spans.disable()
+        recs = spans.records()
+        spans.reset()
     correct = checks.judge(r["numbers"], cell.limits)[0] and r["failed"] == 0
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     e2e = {k: v["value"] for k, v in r["end_to_end"].items()}
     line = {"workload": args.workload, "seed": args.seed, "tracer": args.tracer, "trace": args.trace, "gpu": gpu,
             "correct": correct, "setup_s": r["setup_s"], **e2e, "steps": r["attempted"]}
-    recs = spans.records()
     if recs:
-        run_ = r["run"]
-        rows = per_step(recs, run_["intervals_ms"])
+        rows = per_step(recs, run_["intervals_ms"], run_["window_from"])
         s = run_["stretch"]
         skip = set(range(s["first"], s["first"] + s["steps"] + 1)) if s else set()
         kept = [x for x in rows if x["i"] not in skip]
