@@ -40,14 +40,20 @@ Phases (each raises on failure, so the script exits non-zero):
    versions at svqwae width (20 layers, residual 256, gate 368, skip 256,
    cin 64), B=2 x T=2048 and B=3 x T=2000 (a row tile straddles two batch
    rows), f32 with TF32 off and bf16 storage, and B=2 x T=2048 bf16 without
-   conditioning (c and g_add None): skips, ab, the final residual and all
-   gradients; K3 in f32 against autograd of the plain forward; two K3 calls
-   bitwise equal. (Phase 7 repeats the bf16 check at the main path's B=40 x
+   conditioning (c and g_add None); in bf16 also ``vocoder_raw``'s widths
+   (residual 128, gate 256, skip 128, cin 80, 24 layers in 4 stacks) at B=2
+   x T=1500 and cin 40 at B=2 x T=700: skips, ab, the final residual and all
+   gradients; K3 in f32 against autograd of the plain forward; two K2 calls
+   and two K3 calls bitwise equal; K2's gate pass took the TMA + wgmma
+   kernel (``LAUNCHES_GATE_WG``, one a layer) in every bf16 case and in no
+   f32 one, and that kernel's sigmoid equals ``sigmoidf`` on every bf16
+   input. (Phase 7 repeats the bf16 check at the main path's B=40 x
    T=5120.)
 6. Training through the port's CLI on ``cuda``: ``train --preset svqwae
    --hparams fused_stack=true --max-steps 3`` at B=40 x T=5120 in bf16 on a
    synthetic dump (48 utterances of 200 frames, 2 speakers). The K2/K3
-   counters are zeroed before and read after (one launch each per step);
+   counters are zeroed before and read after (one launch each per step, and
+   20 gate layers on the TMA + wgmma kernel);
    every loss and grad norm is finite; the checkpoint and its ``_ema``
    sibling exist; ``infer`` runs on it; the first step's loss and grad norm
    agree with the unfused train step's from the same init and batch.
@@ -799,21 +805,33 @@ def phase5(k2, k3):
 
     from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
 
-    out, abs_err = {}, {"K2": 0.0, "K3": 0.0}
-    # the last case has no conditioning: K = 3C in the gate product, N = C in dx
-    cases = [(B, T, n, s, True) for B, T in ((2, 2048), (3, 2000))
+    sig_bad = K.gate_sigmoid_mismatches()
+    log(f"phase 5: the TMA gate kernel's sigmoid against sigmoidf on all 65536 bf16 inputs: {sig_bad} differ")
+    if sig_bad != 0:
+        raise AssertionError(f"the TMA gate kernel's sigmoid differs from sigmoidf on {sig_bad} bf16 inputs")
+    out, abs_err, gate_wg = {}, {"K2": 0.0, "K3": 0.0}, {}
+    # the no-conditioning case: K = 3C in the gate product, N = C in dx;
+    # vocoder_raw's widths (the G = 256 tile) and cin 40 (a part-filled box)
+    sv = dict(C=256, G=368, S=256, cin=64, L=20, stacks=2)
+    cases = [(B, T, n, s, True, "", sv) for B, T in ((2, 2048), (3, 2000))
              for n, s in (("float32", torch.float32), ("bfloat16", torch.bfloat16))]
-    cases.append((2, 2048, "bfloat16", torch.bfloat16, False))
-    for B, T, name, store, cond in cases:
+    cases.append((2, 2048, "bfloat16", torch.bfloat16, False, "", sv))
+    cases.append((2, 1500, "bfloat16", torch.bfloat16, True, " vocoder_raw width",
+                  dict(C=128, G=256, S=128, cin=80, L=24, stacks=4)))
+    cases.append((2, 700, "bfloat16", torch.bfloat16, True, " cin=40", dict(sv, cin=40)))
+    for B, T, name, store, cond, tag, wd in cases:
         rng = np.random.default_rng(5 + B)
-        x, c, g_add, w, dils = glu_inputs(B, T, store, rng)
+        x, c, g_add, w, dils = glu_inputs(B, T, store, rng, **wd)
         if not cond:
             c = g_add = w["wc"] = None
         args = (x, c, g_add, w["wconv"], w["bconv"], w["wc"], w["wout"], w["bout"], w["wskip"],
                 w["bskip"], dils)
-        dskips = torch.from_numpy(rng.standard_normal((B, T, 256)).astype(np.float32)).cuda().to(store)
+        dskips = torch.from_numpy(rng.standard_normal((B, T, wd["S"])).astype(np.float32)).cuda().to(store)
         with torch.no_grad():
+            n0 = K.LAUNCHES_GATE_WG
             skips, hfin, ab = K.glu_stack_forward(*args)
+            gate = K.LAUNCHES_GATE_WG - n0
+            fwd_again = K.glu_stack_forward(*args)
             p_skips, p_hfin, p_ab = K.glu_stack_forward_reference(*args)
             bargs = (c, ab, w["wconv"], w["wc"], w["wout"], w["bout"], w["wskip"], dils, cond)
             grads = K.glu_stack_backward(dskips, hfin, *bargs)
@@ -823,23 +841,29 @@ def phase5(k2, k3):
         errs, a2, a3 = glu_errors((skips, hfin, ab), (p_skips, p_hfin, p_ab), grads, plain)
         abs_err["K2"], abs_err["K3"] = max(abs_err["K2"], a2), max(abs_err["K3"], a3)
         bitwise = all(g is None or torch.equal(g, h) for g, h in zip(grads, again))
+        bitwise2 = all(torch.equal(a, b) for a, b in zip((skips, hfin, ab), fwd_again))
         if store == torch.float32:
             # K3 against autograd of the plain forward (leaves in GLU_GRADS order)
             leaves = [t.detach().clone().requires_grad_(True) for t in args[:-1]]
             s, _, _ = K.glu_stack_forward_reference(*leaves, dils)
             (s * dskips).sum().backward()
             errs.update({f"{n}_vs_autograd": rel_err(g, t.grad) for n, g, t in zip(GLU_GRADS, grads, leaves)})
-        case = f"B={B} T={T} {name}" + ("" if cond else " c=None g_add=None")
-        log(f"phase 5: {case}: bitwise-equal K3 reruns {bitwise}; "
-            f"rel errors {json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}")
+        case = f"B={B} T={T} {name}" + ("" if cond else " c=None g_add=None") + tag
+        log(f"phase 5: {case}: gate layers on the TMA kernel {gate}; bitwise-equal K2 reruns {bitwise2}, "
+            f"K3 reruns {bitwise}; rel errors {json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}")
         check_glu(errs, name, case)
-        if not bitwise:
-            raise AssertionError("two K3 calls on the same inputs differ")
-        out[f"B{B}_T{T}_{name}" + ("" if cond else "_nocond")] = errs
+        if not (bitwise and bitwise2):
+            raise AssertionError(f"two {'K3' if not bitwise else 'K2'} calls on the same inputs differ ({case})")
+        want = wd["L"] if store == torch.bfloat16 else 0
+        if gate != want:
+            raise AssertionError(f"{case}: {gate} gate layers took the TMA kernel, expected {want}")
+        key = f"B{B}_T{T}_{name}" + ("" if cond else "_nocond") + tag.replace(" ", "_").replace("=", "")
+        out[key], gate_wg[key] = errs, gate
     k2["max_rel_err"] = {case: max(e[k] for k in FWD_OUTPUTS) for case, e in out.items()}
     k3["max_rel_err"] = {case: max(v for k, v in e.items() if k not in FWD_OUTPUTS) for case, e in out.items()}
     k2["max_abs_err"], k3["max_abs_err"] = abs_err["K2"], abs_err["K3"]
     k2["tolerances_rel"] = k3["tolerances_rel"] = TOL_GLU
+    k2["gate_wg_launches"] = gate_wg
 
 
 # The upsampler's shapes: each preset's training batch, the frame
@@ -1078,7 +1102,7 @@ def phase6(k2, k3, tmp: Path):
 
     dump, ckpt, abx = tmp / "dump", tmp / "exp", tmp / "abx"
     dirs = make_dump(dump, np.random.default_rng(6))
-    K.LAUNCHES_FWD = K.LAUNCHES_BWD = TF.LAUNCHES = UP.LAUNCHES_FWD = UP.LAUNCHES_BWD = 0
+    K.LAUNCHES_FWD = K.LAUNCHES_BWD = K.LAUNCHES_GATE_WG = TF.LAUNCHES = UP.LAUNCHES_FWD = UP.LAUNCHES_BWD = 0
     t0 = time.perf_counter()
     with tee_stdout() as out:
         cli(["train", "--preset", "svqwae", "--hparams", "fused_stack=true", "--device", "cuda",
@@ -1090,9 +1114,11 @@ def phase6(k2, k3, tmp: Path):
     up_launches("svqwae_cli_train", (UP.LAUNCHES_FWD, UP.LAUNCHES_BWD), launches)
     log(f"phase 6: train 3 steps at B=40 x T=5120 bf16 through the CLI: {t1 - t0:.2f} s host clock "
         f"(build and data included); the step: {graph_form(out.getvalue(), 'phase 6')}; K2/K3 launches {launches} "
-        "(a replay's counted)")
+        f"(a replay's counted), gate layers on the TMA kernel {K.LAUNCHES_GATE_WG}")
     if launches != (3, 3):
         raise AssertionError(f"K2/K3 launched {launches} times in 3 fused train steps, expected (3, 3)")
+    if K.LAUNCHES_GATE_WG != 3 * 20:
+        raise AssertionError(f"{K.LAUNCHES_GATE_WG} gate layers took the TMA kernel in 3 steps, expected 60")
     # 48 utterances at B=40 make one step per epoch, so the epoch records hold
     # every step's loss; the step records (step 1, and the last) the grad norms
     recs = [json.loads(line) for line in (ckpt / "logs" / "metrics.jsonl").read_text().splitlines()]

@@ -12,6 +12,11 @@ sqrt 2 per layer, 2^10 over 20 layers) and 1e-2 in bf16 storage (the
 port keeps the final residual in f32; the JAX kernel, which stores it in
 bf16, is off by ~3x the gradient itself in dwconv[0] there).
 """
+import ctypes
+import json
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -23,10 +28,13 @@ import jax.numpy as jnp  # noqa: E402
 
 from _torch_port_util import nets  # noqa: E402
 from wavenet_autoencoders_tpu.kernels.glu_stack import fused_glu_stack  # noqa: E402
+from wavenet_autoencoders_tpu_torch.kernels import glu_stack as glu_stack_mod  # noqa: E402
 from wavenet_autoencoders_tpu_torch.kernels.glu_stack import (  # noqa: E402
+    GATE_WG_WIDTHS,
     FusedGLUStack,
     check_widths,
     gate_perm,
+    gate_route,
     glu_stack_backward_reference,
     glu_stack_forward,
     glu_stack_forward_reference,
@@ -347,3 +355,146 @@ def test_cin_padding_matches_the_unpadded_plain_version(cin):
     for name, a, b in zip(("dx", "dc", "dgadd", "dwconv", "dbconv", "dwc"), got, want):
         assert a.shape == b.shape, name
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6, rtol=1e-6, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# K2's gate pass on the TMA + wgmma kernel: the route, the counter, and the
+# kernel's decomposition of the product, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+PRESETS = sorted(p.stem for p in (Path(glu_stack_mod.__file__).resolve().parent.parent / "presets").glob("*.json"))
+
+
+def preset_widths(name):
+    """(C, G, S, cin) that a preset's fused stack hands the kernels, cin
+    padded to a multiple of 8 as the wrappers pad it (0 without c)."""
+    hp = json.loads((Path(glu_stack_mod.__file__).resolve().parent.parent / "presets" / f"{name}.json").read_text())
+    cin = max(hp.get("cin_channels", 0), 0)
+    return hp["residual_channels"], hp["gate_channels"], hp["skip_out_channels"], -(-cin // 8) * 8
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+def test_gate_route_by_preset_and_storage(preset):
+    """bf16 storage takes the TMA + wgmma gate kernel at every preset's
+    widths; f32 storage keeps gemm_pipe (wgmma has no full-precision f32
+    product)."""
+    C, G, S, cin = preset_widths(preset)
+    check_widths(C, G, S, cin)
+    assert G in GATE_WG_WIDTHS
+    assert gate_route(C, G, S, cin, torch.bfloat16) == "tma_wgmma"
+    assert gate_route(C, G, S, cin, torch.float32) == "gemm_pipe"
+    assert gate_route(C, G, S, 0, torch.bfloat16) == "tma_wgmma"  # no conditioning
+
+
+@pytest.mark.parametrize("G", [240, 272, 376, 512])
+def test_gate_route_keeps_gemm_pipe_for_widths_the_kernel_is_not_built_for(G):
+    assert gate_route(256, G, 256, 64, torch.bfloat16) == "gemm_pipe"
+    assert gate_route(256, 368, 256, 60, torch.bfloat16) == "gemm_pipe"  # cin not a multiple of 8
+
+
+def test_gate_launch_counter_is_a_graph_counter_and_a_tracer_level():
+    """A graph replay counts the gate kernel's layer launches (graph.COUNTERS)
+    and the tracer's records carry the counter as a level."""
+    from wavenet_autoencoders_tpu_torch.train import graph
+    from wavenet_autoencoders_tpu_torch.utils import spans
+
+    assert (glu_stack_mod, "LAUNCHES_GATE_WG") in graph.COUNTERS
+    before = glu_stack_mod.LAUNCHES_GATE_WG
+    try:
+        glu_stack_mod.LAUNCHES_GATE_WG = 20
+        spans.enable()
+        spans.disable()
+        assert spans.records()["levels"]["kernels.glu_stack.LAUNCHES_GATE_WG"] == 20
+    finally:
+        glu_stack_mod.LAUNCHES_GATE_WG = before
+        spans.reset()
+
+
+def test_gate_kernel_counts_no_launch_on_the_plain_version():
+    vals, _ = make_inputs(7)
+    args = [None if v is None else torch.tensor(v).to(torch.bfloat16 if i in (0, 1) else torch.float32)
+            for i, v in enumerate(vals)]
+    before = glu_stack_mod.LAUNCHES_GATE_WG
+    glu_stack_forward(*args, DILS4)
+    assert glu_stack_mod.LAUNCHES_GATE_WG == before
+
+
+def test_args_struct_mirrors_the_cuda_source():
+    """The ctypes struct lists GluArgs's fields in order, all 8 bytes wide."""
+    src = (Path(glu_stack_mod.__file__).resolve().parent.parent / "csrc" / "glu_stack.cu").read_text()
+    body = re.search(r"struct GluArgs \{(.*?)\};", src, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    names = []
+    for decl in body.split(";"):
+        decl = re.sub(r"\b(const|int64_t|void|float|unsigned|int)\b|\*", " ", decl)
+        names += [re.sub(r"\[.*\]", "", n).strip() for n in decl.split(",") if n.strip()]
+    assert names == [f[0] for f in glu_stack_mod._GluArgs._fields_]
+    assert ctypes.sizeof(glu_stack_mod._GluArgs) == 8 * (len(names) - 1 + glu_stack_mod._MAXL)
+
+
+def tma_box(x, col, t, b, rows=128, width=64):
+    """A TMA box of a (B, T, W) array at (col, t, b): ``rows`` x ``width``,
+    zeros wherever it leaves the array (the kernel's tensor maps)."""
+    B, T, W = x.shape
+    out = torch.zeros(rows, width, dtype=x.dtype)
+    r0, r1 = max(t, 0), min(t + rows, T)
+    c1 = min(col + width, W)
+    if r0 < r1 and col < c1:
+        out[r0 - t : r1 - t, : c1 - col] = x[b, r0:r1, col:c1]
+    return out
+
+
+def gate_tile_emulated(hb, c, wg_l, bconv_l, g_add_l, d, b, t0, C, cin):
+    """One 128-row tile of the TMA gate kernel, emulated: the producer's
+    k-stages (three taps of ceil(C/64) boxes of hb at t0 - 2d, t0 - d, t0,
+    then ceil(cin/64) boxes of c; each against the weight stage at packed
+    column j C + col, or 3 C + col, zero past K), the products of both halves
+    of the packed gate columns, then the epilogue's pair mapping: half h's
+    column 8 j + 2 q + e is gate pair h G/4 + 4 j + q, tanh side for e = 0.
+    Returns ab (128, G) at the original columns, f32, before rounding."""
+    G, K = wg_l.shape
+    NH = G // 2
+    wpad = torch.nn.functional.pad(wg_l, (0, 64))  # columns past K read as zeros
+    acc = torch.zeros(128, G, dtype=torch.float64)
+    kbc = -(-C // 64)
+    stages = [(hb, j, kb * 64, j * C + kb * 64) for j in range(3) for kb in range(kbc)]
+    stages += [(c, None, kb * 64, 3 * C + kb * 64) for kb in range(-(-cin // 64))]
+    for src, j, col, k0 in stages:
+        a = tma_box(src, col, t0 - (2 - j) * d if j is not None else t0, b).double()
+        for h in range(2):
+            acc[:, h * NH : (h + 1) * NH] += a @ wpad[h * NH : (h + 1) * NH, k0 : k0 + 64].double().T
+    ab = torch.zeros(128, G, dtype=torch.float64)
+    n = torch.arange(NH)
+    for h in range(2):
+        i = h * NH // 2 + 4 * (n // 8) + (n % 8) // 2  # gate pair of accumulator column n
+        tanh_side = (n % 2) == 0
+        ab[:, i[tanh_side]] = acc[:, h * NH + n[tanh_side]]
+        ab[:, NH + i[~tanh_side]] = acc[:, h * NH + n[~tanh_side]]
+    bias = bconv_l.double() + (0.0 if g_add_l is None else g_add_l.double())
+    return ab + bias
+
+
+@pytest.mark.parametrize("widths", [(256, 368, 64), (128, 256, 80), (256, 368, 40), (136, 256, 0)],
+                         ids=["svqwae", "vocoder_raw", "cin40", "C136_nocond"])
+def test_gate_kernel_decomposition_matches_the_plain_gate_product(widths):
+    """The TMA gate kernel's tiles (k-stages of zero-filled boxes, both halves
+    of the packed columns, the pair mapping of its epilogue) give the plain
+    forward's layer-0 ab, at T not a multiple of 128 (a ragged last tile)
+    and a dilation whose taps leave the batch row in the first tile."""
+    C, G, cin = widths
+    B, T, d = 2, 300, 128
+    rng = np.random.default_rng(21)
+
+    def mk(*shape):
+        return torch.from_numpy((0.3 * rng.standard_normal(shape)).astype(np.float32))
+
+    x, wconv, bconv = mk(B, T, C), mk(1, 3, C, G), mk(1, G)
+    c, wc, g_add = (mk(B, T, cin), mk(1, cin, G), mk(B, 1, G)) if cin else (None, None, None)
+    wout, bout, wskip, bskip = mk(1, G // 2, C), mk(1, C), mk(1, G // 2, 8), mk(1, 8)
+    _, _, p_ab = glu_stack_forward_reference(x, c, g_add, wconv, bconv, wc, wout, bout, wskip, bskip, (d,))
+    wg = pack_weights(wconv, wc, wout, wskip, torch.float32)["wg"][0]
+    for b in range(B):
+        for t0 in range(0, T, 128):
+            got = gate_tile_emulated(x, c, wg, bconv[0], None if g_add is None else g_add[b, 0], d, b, t0, C, cin)
+            rows = min(128, T - t0)
+            assert rel(got[:rows].numpy(), p_ab[b, 0, t0 : t0 + rows].double().numpy()) < 1e-6

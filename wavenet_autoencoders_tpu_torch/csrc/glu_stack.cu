@@ -60,13 +60,35 @@
 // whose reduction index is the row), mma.sync m16n8k16 bf16 -> f32 on the
 // tensor cores. f32 storage (the accuracy check) runs the same loads and
 // epilogues with f32 FMAs on CUDA cores. (wgmma m64n128k16 on the same
-// cp.async ring was measured slower for the row passes; TMA-fed,
-// warp-specialised wgmma is later work.)
+// cp.async ring, with the same 128-column tiles and per-thread address
+// math, was measured slower for the row passes.)
+//
+// K2's gate pass in bf16 storage has a kernel of its own (gate_tma_wgmma,
+// below; kernels/glu_stack.py:gate_route picks it). At svqwae's B=40 x
+// T=5120 its products are 2 x 4.1 M rows x 832 x 368 = 2.51 TFLOP a step
+// (2.54 ms at 989 TFLOP/s); its stores, bf16 ab and act (1.1 KB a row), 4.5
+// GB a step (1.35 ms at 3.35 TB/s). On gemm_pipe (11.4 ms, 22 % of the
+// FLOP bound) each 128 x 128 tile re-read the whole 832-deep A for each of
+// the 3 column tiles of G = 368 (384 columns) and read 426 KB from L2 (41
+// GB a step); its loads were per-thread cp.async with segment and shift
+// arithmetic; its products 8 warps of mma.sync. The TMA kernel: one tile
+// over all G columns, so A is read once; TMA boxes, so the taps' shifts and
+// the zeros past a batch row's edge cost no thread any address arithmetic;
+// the weight stage multicast to both blocks of a cluster, so a 128-row tile
+// reads 213 KB of A and 306 KB of weights from L2 (26.4 GB a step without
+// multicast, 16.6 GB with it); wgmma from shared memory in two consumer
+// warpgroups. Its cost is the gate epilogue, which no longer hides behind a
+// second block on the SM: tanh and sigmoid of 23.5 K gate pairs a tile
+// next to 184 live accumulators a thread. So the consumers store only ab
+// and three spare warps compute act from the stored ab while the
+// consumers run the next tile's products (the consumers take a third of
+// the pairs themselves, between k-steps; see below).
 //
 // Storage S is f32 or bf16 (template): x, c, weights, ab, skips, dskips and
 // the operand buffers above. Biases, g_add, h, skip, dx, dab, dc and all
 // gradients are f32. Every width (C, G/2, S, cin) is a multiple of 8 (16-byte
 // loads of bf16 operands, 8-column epilogue chunks), which the wrapper checks.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -87,7 +109,7 @@
 
 // Mirrored field for field (all 8-byte) by _GluArgs in kernels/glu_stack.py.
 struct GluArgs {
-  int64_t B, T, L, C, G, S, CIN, store_bf16, has_c, has_g;
+  int64_t B, T, L, C, G, S, CIN, store_bf16, has_c, has_g, gate_wg;
   int64_t dil[MAXL];
   const void* x;
   const void* c;
@@ -574,6 +596,7 @@ template <typename S>
 struct GateOp : Pass<S> {
   static constexpr bool WGRAD = false;
   int T, L, l, G;
+  int C, CIN, d;       // the taps' widths and dilation (the TMA route's loads)
   const float* bconv;  // layer l's (G)
   const float* gadd;   // (B, L, G) or null
   S* ab;
@@ -586,13 +609,21 @@ struct GateOp : Pass<S> {
     const int64_t bl = (int64_t)b * L + l;
     return {(bl * T + t) * G, bl * G};
   }
+  // the products a, b of gate columns i and G/2 + i, and the pair's biases
+  // bi = (bconv[i], bconv[G/2 + i], g_add[i], g_add[G/2 + i]) -> ab's two
+  // values va, vb (f32, stored in S): both routes' arithmetic
+  __device__ __forceinline__ void sum(float a, float b, float4 bi, float& va, float& vb) const {
+    va = a + bi.x, vb = b + bi.y;
+    if (gadd) va += bi.z, vb += bi.w;
+  }
   __device__ __forceinline__ void epi(int, Row r, int m, int n, const float* v) const {
     const int i = n >> 1, G2 = G >> 1;
     float va[4], vb[4], g[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      va[k] = v[2 * k] + bconv[i + k], vb[k] = v[2 * k + 1] + bconv[G2 + i + k];
-      if (gadd) va[k] += gadd[r.g + i + k], vb[k] += gadd[r.g + G2 + i + k];
+      const float4 bi = make_float4(bconv[i + k], bconv[G2 + i + k], gadd ? gadd[r.g + i + k] : 0.0f,
+                                    gadd ? gadd[r.g + G2 + i + k] : 0.0f);
+      sum(v[2 * k], v[2 * k + 1], bi, va[k], vb[k]);
       g[k] = tanhf(rnd<S>(va[k])) * sigmoidf(rnd<S>(vb[k]));
     }
     st4(ab + r.ab + i, va);
@@ -639,11 +670,603 @@ struct OutOp : Pass<S> {
   }
 };
 
+// ---- K2's gate pass on TMA and wgmma (bf16 storage) ------------------------
+// A persistent kernel over 128-row tiles of one batch row each (a ragged
+// last tile where T is not a multiple of 128), every tile over all G gate
+// columns, in three roles:
+// - the producer, one thread of warp 0: TMA loads from 3-D tensor maps
+//   (C, T, B) of hb (x at layer 0) and c, one 64-deep box a k-stage, the
+//   taps at t0 - 2d, t0 - d and t0 (TMA's out-of-bounds fill gives the zeros
+//   past a batch row's edge), and the layer's weight stage from a (K, G, L)
+//   map, each half of the gate columns loaded by one block of a cluster of
+//   GW_CLUSTER and multicast to both. mbarriers pace the ring of stages:
+//   full (the producer's expected bytes) and empty (one arrival a consumer
+//   warp of every block of the cluster). It loads the next tile's first
+//   stages during the epilogue.
+// - the consumers, warpgroups 1 and 2, 64 rows each: wgmma m64 x G/2 x 16
+//   twice a k-step, 128-byte swizzled K-major operands in shared memory, the
+//   accumulators in registers (G/2 a thread). Then ab = S(product + bconv +
+//   g_add) (GateOp::sum; the biases from shared memory, the tile's g_add row
+//   fetched during the products), staged a warp at a time for 8-byte
+//   stores; and, during the next tile's products, act of the first GW_CACT
+//   32-pair chunks, read back from the stored ab.
+// - the act warps, warps 1-3: act of the other pairs from the stored ab of
+//   a tile, read back through a cp.async ring, while the consumers run the
+//   next tile's products; two mbarrier slots hand tiles over (ab stored,
+//   act done).
+// act = S(tanh(ab_a) sigmoid(ab_b)) from the stored bf16 ab is what
+// gemm_pipe's GateOp computes and what K3's gate_act_kernel recomputes, bit for
+// bit: sigmoidn is checked against sigmoidf on every bf16 input
+// (wae_glu_sigmoid_mismatches).
+
+#define GW_CLUSTER 2    // blocks of a cluster along the rows, sharing the weight stage
+#define GW_BM 128       // rows of a tile
+#define GW_BK 64        // depth of a k-stage: one 128-byte swizzle row of bf16
+#define GW_THREADS 384  // the producer warpgroup, then two consumer warpgroups
+#define GW_SROW 72      // bf16 row stride of a warp's staging buffer: 2 x 32 used, no bank conflicts
+#define GW_AQ 5         // items an act thread has in flight
+#define GW_CACT 2       // 32-pair chunks of the first half whose act the consumers compute (balances the roles)
+
+// Shared memory of the kernel whose tile width (each half of the gate
+// columns) is NH: STAGES k-stages of A (128 x 64) and the weights (2 NH x
+// 64), the 8 consumer warps' staging buffers, the act warps' ring, the
+// biases, then the barriers.
+template <int NH>
+struct GateGeo {
+  static constexpr int A_BYTES = GW_BM * GW_BK * 2, H_BYTES = NH * GW_BK * 2;
+  static constexpr int STAGE = A_BYTES + 2 * H_BYTES;
+  static constexpr int STG = 8 * 16 * GW_SROW * 2;
+  static constexpr int RING = 96 * GW_AQ * 32;  // the act warps' loads in flight: a and b of GW_AQ items a thread
+  static constexpr int BIAS = 3 * 2 * NH * 4;     // bconv, then the g_add rows of two tiles (f32)
+  static constexpr int STAGES = (232448 - 1024 - STG - RING - BIAS - 128) / STAGE;
+  static constexpr int SMEM = 1024 + STAGES * STAGE + STG + RING + BIAS + 16 * STAGES + 32;  // 1024: alignment slack
+  static_assert(H_BYTES % 1024 == 0, "each half of the weight stage starts on a swizzle atom");
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+// an arrival on the barrier at the same offset in block `rank` of the cluster
+template <int CL>
+__device__ __forceinline__ void mbar_arrive(uint32_t bar, uint32_t rank) {
+  if constexpr (CL == 1) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+  } else {
+    uint32_t remote;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(bar), "r"(rank));
+    asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(remote) : "memory");
+  }
+}
+// Spins until the phase of the given parity has completed. A wait past ~8 s
+// of SM clock traps: a fault in the pipeline ends the launch with an error
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (!t0) t0 = clock64();
+    else if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+// TMA: the box at (c0, c1, c2) of map m into shared memory at dst, its bytes
+// counted on bar; the multicast form writes the same offsets (dst, bar) in
+// every block of the cluster named by mask.
+__device__ __forceinline__ void tma3(const CUtensorMap* m, uint32_t dst, uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma3_mc(const CUtensorMap* m, uint32_t dst, uint32_t bar, int c0, int c1, int c2,
+                                        uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
+      " [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "h"(mask)
+      : "memory");
+}
+
+// The wgmma descriptor of a K-major bf16 operand stored as TMA's 128-byte
+// swizzle writes it: rows of 128 bytes, 8-row atoms 1024 bytes apart (SBO),
+// LBO unused; the k-th 16-deep slice starts 32 k bytes further (+2 k).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)1 << 16 | (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
+}
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator accesses across the asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x N, f32) += A (64 x 16) B (N x 16)^T, both bf16 K-major in shared
+// memory; D = A B^T when acc is 0.
+#define WG_R4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define WG_R16(i) WG_R4(i), WG_R4(i + 4), WG_R4(i + 8), WG_R4(i + 12)
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da, uint64_t db, int acc);
+template <>
+__device__ __forceinline__ void wgmma_bf16<184>(float (&d)[92], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %94, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n184k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91"
+      "}, %92, %93, p, 1, 1, 0, 0;\n}\n"
+      : WG_R16(0), WG_R16(16), WG_R16(32), WG_R16(48), WG_R16(64), WG_R4(80), WG_R4(84), WG_R4(88)
+      : "l"(da), "l"(db), "r"(acc));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_R16(0), WG_R16(16), WG_R16(32), WG_R16(48)
+      : "l"(da), "l"(db), "r"(acc));
+}
+#undef WG_R16
+#undef WG_R4
+
+// sigmoidf of N values, bit for bit, without a branch a value: 1 / y, y = 1 +
+// exp(-x), by two Newton steps from the hardware's approximate reciprocal,
+// which is correctly rounded, as the IEEE division is, for every bf16 x with
+// y < 2^126 (wae_glu_sigmoid_mismatches checks all 65,536); a group with a
+// larger y takes the division.
+template <int N>
+__device__ __forceinline__ void sigmoidn(const float (&x)[N], float (&r)[N]) {
+  float y[N];
+  bool big = false;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    y[k] = 1.0f + expf(-x[k]);
+    float q;
+    asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(q) : "f"(y[k]));
+    q = __fmaf_rn(q, __fmaf_rn(-y[k], q, 1.0f), q);
+    r[k] = __fmaf_rn(q, __fmaf_rn(-y[k], q, 1.0f), q);
+    big |= !(y[k] < 0x1p126f);
+  }
+  if (big) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) r[k] = 1.0f / y[k];
+  }
+}
+
+// act = S(tanh(a) * sigmoid(b)) of N = 2 W gate pairs whose ab values a, b
+// (in S) are W 32-bit words each: gate_act_kernel's arithmetic, bit for bit
+template <int W>
+__device__ __forceinline__ void gate_actw(const uint32_t (&wa)[W], const uint32_t (&wb)[W], uint32_t (&o)[W]) {
+  float t[2 * W], vb[2 * W], sg[2 * W];
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    const float2 fa = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wa[k]));
+    const float2 fb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wb[k]));
+    t[2 * k] = tanhf(fa.x), t[2 * k + 1] = tanhf(fa.y), vb[2 * k] = fb.x, vb[2 * k + 1] = fb.y;
+  }
+  sigmoidn<2 * W>(vb, sg);
+#pragma unroll
+  for (int k = 0; k < W; ++k) o[k] = pack_bf2(t[2 * k] * sg[2 * k], t[2 * k + 1] * sg[2 * k + 1]);
+}
+__device__ __forceinline__ uint4 gate_act8(uint4 a, uint4 b) {
+  const uint32_t wa[4] = {a.x, a.y, a.z, a.w}, wb[4] = {b.x, b.y, b.z, b.w};
+  uint32_t o[4];
+  gate_actw<4>(wa, wb, o);
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+__device__ __forceinline__ uint2 gate_act4(uint2 a, uint2 b) {
+  const uint32_t wa[2] = {a.x, a.y}, wb[2] = {b.x, b.y};
+  uint32_t o[2];
+  gate_actw<2>(wa, wb, o);
+  return make_uint2(o[0], o[1]);
+}
+
+// Counts the bf16 values x whose sigmoidn differs from sigmoidf in any bit,
+// in groups of 8 and of 4 (gate_act8, gate_act4).
+__global__ void sigmoid_check_kernel(unsigned* bad) {
+  const int i0 = (blockIdx.x * blockDim.x + threadIdx.x) * 8;
+  if (i0 >= 65536) return;
+  float x[8], r[8], xl[4], xh[4], rl[4], rh[4];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) x[k] = __uint_as_float((uint32_t)(i0 + k) << 16);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) xl[k] = x[k], xh[k] = x[4 + k];
+  sigmoidn<8>(x, r);
+  sigmoidn<4>(xl, rl);
+  sigmoidn<4>(xh, rh);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float want = sigmoidf(x[k]), r4 = k < 4 ? rl[k] : rh[k - 4];
+    if (__float_as_uint(r[k]) != __float_as_uint(want) && !(r[k] != r[k] && want != want)) atomicAdd(bad, 1u);
+    if (__float_as_uint(r4) != __float_as_uint(want) && !(r4 != r4 && want != want)) atomicAdd(bad, 1u);
+  }
+}
+
+// The gate pass of layer op.l: ta is the map of hb (x at layer 0), tc of c,
+// tw of the packed gate weights (K, G, L), boxes of 64 columns.
+template <class Op, int NH, int CL>
+__global__ void __launch_bounds__(GW_THREADS, 1)
+    gate_tma_wgmma(const Op op, const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tc,
+                   const __grid_constant__ CUtensorMap tw) {
+  using S = typename Op::Store;
+  using GG = GateGeo<NH>;
+  constexpr int STAGES = GG::STAGES, NJ = NH / 8, G4 = NH / 2, G = 2 * NH;  // NJ 8-column groups, G4 gate pairs a half
+  extern __shared__ unsigned char gw_raw[];
+  const uint32_t raw = smem_addr(gw_raw), base = (raw + 1023) & ~1023u;
+  S* stg = reinterpret_cast<S*>(gw_raw + (base - raw) + STAGES * GG::STAGE);
+  S* ring = stg + GG::STG / 2;
+  float* bias = reinterpret_cast<float*>(ring + GG::RING / 2);  // bconv (G), g_add rows (2 x G)
+  // barriers: full and empty a stage; ab stored (consumers -> act warps) and
+  // act done (act warps -> consumers) a slot of two
+  const uint32_t full0 = base + STAGES * GG::STAGE + GG::STG + GG::RING + GG::BIAS, empty0 = full0 + 8 * STAGES;
+  const uint32_t abready0 = empty0 + 8 * STAGES, actfree0 = abready0 + 16;
+  auto a_at = [&](int s) { return base + s * GG::STAGE; };
+  auto w_at = [&](int s) { return base + s * GG::STAGE + GG::A_BYTES; };
+
+  const int kbc = (op.C + GW_BK - 1) / GW_BK, nkb = 3 * kbc + (op.CIN + GW_BK - 1) / GW_BK;
+  const int ntt = (op.T + GW_BM - 1) / GW_BM, ntiles = op.M / op.T * ntt, npairs = (ntiles + CL - 1) / CL;
+  uint32_t rank, cid, ncl;
+  asm("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  asm("mov.u32 %0, %%clusterid.x;\n" : "=r"(cid));
+  asm("mov.u32 %0, %%nclusterid.x;\n" : "=r"(ncl));
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(full0 + 8 * s, 1), mbar_init(empty0 + 8 * s, 8 * CL);
+    for (int s = 0; s < 2; ++s) mbar_init(abready0 + 8 * s, 8), mbar_init(actfree0 + 8 * s, 3);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if constexpr (CL > 1)
+    asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  else
+    __syncthreads();
+
+  if (threadIdx.x < 128) asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+  if (threadIdx.x < 32) {  // the producer: one thread
+    if (threadIdx.x != 0) return;
+    int s = 0;
+    uint32_t ph = 0;
+    for (int p = cid; p < npairs; p += ncl) {
+      const int q = min(p * CL + (int)rank, ntiles - 1);  // a tile past the end: any rows, never stored
+      const int b = q / ntt, t0 = (q - b * ntt) * GW_BM;
+      for (int kb = 0; kb < nkb; ++kb) {
+        mbar_wait(empty0 + 8 * s, ph ^ 1);
+        const uint32_t full = full0 + 8 * s;
+        mbar_expect_tx(full, GG::STAGE);
+        int k0;
+        if (kb < 3 * kbc) {  // tap j of hb, rows t - (2 - j) d
+          const int j = kb / kbc, col = (kb - j * kbc) * GW_BK;
+          tma3(&ta, a_at(s), full, col, t0 - (2 - j) * op.d, b);
+          k0 = j * op.C + col;
+        } else {
+          const int col = (kb - 3 * kbc) * GW_BK;
+          tma3(&tc, a_at(s), full, col, t0, b);
+          k0 = 3 * op.C + col;
+        }
+        if constexpr (CL == 1) {
+          tma3(&tw, w_at(s), full, k0, 0, op.l);
+          tma3(&tw, w_at(s) + GG::H_BYTES, full, k0, NH, op.l);
+        } else {
+          tma3_mc(&tw, w_at(s) + rank * GG::H_BYTES, full, k0, rank * NH, op.l, (uint16_t)((1 << CL) - 1));
+        }
+        if (++s == STAGES) s = 0, ph ^= 1;
+      }
+    }
+    // every stage released by the consumers of every block of the cluster
+    // before this block exits: no remote arrival lands after it
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_wait(empty0 + 8 * s, ph ^ 1);
+      if (++s == STAGES) s = 0, ph ^= 1;
+    }
+    return;
+  }
+
+  if (threadIdx.x < 128) {  // the act warps: act from the ab a tile's consumers stored, during the next tile's products
+    int k = 0;  // the block's stored tiles
+    for (int p = cid; p < npairs; p += ncl, ++k) {
+      const int q = p * CL + (int)rank;
+      if (q >= ntiles) break;
+      mbar_wait(abready0 + 8 * (k & 1), (k >> 1) & 1);
+      constexpr int NI = NH / 8 - 4 * GW_CACT;  // items of a row: 8-pair groups past the consumers' chunks
+      const int b = q / ntt, t0 = (q - b * ntt) * GW_BM, n = min(GW_BM, op.T - t0) * NI;
+      const S* abt = op.ab + (((int64_t)b * op.L + op.l) * op.T + t0) * G;
+      S* actt = op.act + ((int64_t)b * op.T + t0) * NH;
+      // items of 8 gate pairs of a row, the thread's every 96th, read through
+      // its own ring of GW_AQ slots in shared memory by cp.async (one group
+      // an item, empty past the end), so that GW_AQ - 1 reads are in flight
+      // while one is computed
+      const int at = threadIdx.x - 32;
+      S* mine = ring + at * GW_AQ * 16;
+      auto fetch = [&](int j, int slot) {
+        const int it = at + 96 * j;
+        if (it < n) {
+          const int r = it / NI, c = (it - r * NI + 4 * GW_CACT) * 8;
+          cp_async16(mine + slot * 16, abt + (int64_t)r * G + c, true);
+          cp_async16(mine + slot * 16 + 8, abt + (int64_t)r * G + NH + c, true);
+        }
+        cp_commit();
+      };
+#pragma unroll
+      for (int j = 0; j < GW_AQ - 1; ++j) fetch(j, j);
+      int slot = 0;
+      for (int j = 0, it = at; it < n; ++j, it += 96) {
+        fetch(j + GW_AQ - 1, slot == 0 ? GW_AQ - 1 : slot - 1);
+        cp_wait<GW_AQ - 1>();
+        const uint4 va = *reinterpret_cast<const uint4*>(mine + slot * 16);
+        const uint4 vb = *reinterpret_cast<const uint4*>(mine + slot * 16 + 8);
+        const int r = it / NI, c = (it - r * NI + 4 * GW_CACT) * 8;
+        *reinterpret_cast<uint4*>(actt + (int64_t)r * NH + c) = gate_act8(va, vb);
+        slot = slot == GW_AQ - 1 ? 0 : slot + 1;
+      }
+      cp_wait<0>();
+      __syncwarp();
+      if (lane == 0) mbar_arrive<1>(actfree0 + 8 * (k & 1), 0);
+    }
+    return;
+  }
+
+  // a consumer: rows 64 cw + 16 wi + [0, 16) of a tile, lane's rows r8 and r8 + 8
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
+  const int cw = threadIdx.x / 128 - 1, wi = (threadIdx.x >> 5) & 3, q4 = lane & 3, r8 = lane >> 2;
+  S* ws = stg + (cw * 4 + wi) * 16 * GW_SROW;
+  float acc[2][NH / 2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < NH / 2; ++i) acc[h][i] = 0.0f;
+  int s = 0, k = 0;
+  uint32_t ph = 0;
+  const int ct = threadIdx.x - 128;  // 0 .. 255
+  for (int i = ct; i < G; i += 256) bias[i] = op.bconv[i];
+  // act of the consumers' chunks (the first GW_CACT 32-pair chunks of half
+  // 0) of the warp's rows of the previous tile (batch row pb, first row pt0;
+  // none while pb < 0), done during this tile's products: the chunk's ab
+  // read back into the idle staging buffer by cp.async (lane: half lane & 1
+  // of row lane >> 1), then 4 pairs at a time between issuing a k-step's
+  // products and waiting for them
+  int pb = -1, pt0 = 0;
+  const int ar = lane >> 1, ah = lane & 1;
+  auto act_read = [&](int c) {
+    if (pt0 + ar < op.T) {
+      const S* src = op.ab + (((int64_t)pb * op.L + op.l) * op.T + pt0 + ar) * G + ah * NH + 32 * c;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) cp_async16(ws + ar * GW_SROW + 32 * ah + 8 * u, src + 8 * u, true);
+    }
+    cp_commit();
+  };
+  // piece g (0 .. 3) of chunk c: 4 pairs of the lane's 16; the first piece
+  // waits for the chunk's read, the last lets the staging buffer go
+  auto act_piece = [&](int c, int g) {
+    if (g == 0) cp_wait<0>(), __syncwarp();
+    if (pt0 + ar < op.T) {
+      const S* w = ws + ar * GW_SROW + 16 * ah + 4 * g;
+      *reinterpret_cast<uint2*>(op.act + ((int64_t)pb * op.T + pt0 + ar) * NH + 32 * c + 16 * ah + 4 * g) =
+          gate_act4(*reinterpret_cast<const uint2*>(w), *reinterpret_cast<const uint2*>(w + 32));
+    }
+    if (g == 3) __syncwarp();
+  };
+  for (int p = cid; p < npairs; p += ncl, ++k) {
+    const int q = p * CL + (int)rank;
+    // this tile's g_add row into its slot, read by the epilogue after the
+    // products (the slot's previous tile, two back, is done with it)
+    if (op.gadd && q < ntiles) {
+      const int b = q / ntt;
+      for (int c = ct * 4; c < G; c += 1024)
+        cp_async16(bias + G * (1 + (k & 1)) + c, op.gadd + ((int64_t)b * op.L + op.l) * G + c, true);
+    }
+    cp_commit();
+    // the previous tile's chunk c is read at k-step 5 c and computed at
+    // 5 c + 1 .. 5 c + 4, a piece a k-step; what a short tile leaves after
+    // its last k-step
+    constexpr int PK = 5;
+    for (int kb = 0; kb < nkb; ++kb) {
+      mbar_wait(full0 + 8 * s, ph);
+      const uint64_t da = sw128_desc(a_at(s) + cw * 64 * 128), db = sw128_desc(w_at(s));
+      fence_acc(acc[0]), fence_acc(acc[1]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < GW_BK / 16; ++kk) {
+        wgmma_bf16<NH>(acc[0], da + 2 * kk, db + 2 * kk, kb | kk);
+        wgmma_bf16<NH>(acc[1], da + 2 * kk, db + (GG::H_BYTES >> 4) + 2 * kk, kb | kk);
+      }
+      wgmma_commit();
+      if (pb >= 0 && kb < GW_CACT * PK) {
+        const int c = kb / PK, g = kb - c * PK - 1;
+        if (g < 0) act_read(c);
+        else act_piece(c, g);
+      }
+      wgmma_wait<0>();
+      fence_acc(acc[0]), fence_acc(acc[1]);
+      if (lane < CL) mbar_arrive<CL>(empty0 + 8 * s, lane);
+      if (++s == STAGES) s = 0, ph ^= 1;
+    }
+    if (pb >= 0)
+      for (int i = nkb; i < GW_CACT * PK; ++i) {
+        const int c = i / PK, g = i - c * PK - 1;
+        if (g < 0) act_read(c);
+        else act_piece(c, g);
+      }
+    pb = -1;
+    if (q >= ntiles) continue;
+
+    // ab = S(product + bconv + g_add) at the original columns (GateOp::sum,
+    // gemm_pipe's rounding), a chunk of 32 gate pairs of one half at a time: into the
+    // warp's staging rows [ab_a | ab_b], then 8-byte stores of whole row
+    // pieces, lane (pr, pc) columns pc .. pc + 3 of rows pr + 4 k, every
+    // offset from its base pointer known at compile time. (The act of the
+    // consumers' chunks follows during the next tile's products.)
+    const int b = q / ntt, t0 = (q - b * ntt) * GW_BM + 64 * cw + 16 * wi;  // the warp's first row
+    const int64_t bl = (int64_t)b * op.L + op.l;
+    cp_wait<0>();
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");  // every consumer's part of the g_add row has landed
+    const float* bc = bias + q4;
+    const float* gr = op.gadd ? bias + G * (1 + (k & 1)) + q4 : nullptr;
+    const int pr = lane >> 3, pc = (lane & 7) * 4, rows = op.T - t0 - pr;  // row pr + 4 k is stored while 4 k < rows
+    S* abp = op.ab + (bl * op.T + t0 + pr) * G + pc;
+    const S* wsp = ws + pr * GW_SROW + pc;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int jc = 0; jc < (NJ + 7) / 8; ++jc) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int j = jc * 8 + jj, i = h * G4 + 4 * j;  // the lane's gate pair is i + q4
+          if (j < NJ) {
+            const float4 bi = make_float4(bc[i], bc[NH + i], gr ? gr[i] : 0.0f, gr ? gr[NH + i] : 0.0f);
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+              float va, vb;
+              op.sum(acc[h][4 * j + 2 * rr], acc[h][4 * j + 2 * rr + 1], bi, va, vb);
+              S* o = ws + (r8 + 8 * rr) * GW_SROW + 4 * jj + q4;
+              st(o, va), st(o + 32, vb);
+            }
+          }
+        }
+        __syncwarp();
+        const int i0 = h * G4 + 32 * jc, nv = G4 - 32 * jc < 32 ? G4 - 32 * jc : 32;  // nv gate pairs from i0
+        if (pc < nv) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            if (4 * r < rows) {
+#pragma unroll
+              for (int o = 0; o < 2; ++o)
+                *reinterpret_cast<uint2*>(abp + 4 * r * G + o * NH + i0) =
+                    *reinterpret_cast<const uint2*>(wsp + 4 * r * GW_SROW + 32 * o);
+            }
+        }
+        __syncwarp();
+      }
+    pb = b, pt0 = t0;
+    // hand the tile to the act warps once they are done with the slot's
+    // previous tile
+    mbar_wait(actfree0 + 8 * (k & 1), ((k >> 1) & 1) ^ 1);
+    __syncwarp();
+    if (lane == 0) mbar_arrive<1>(abready0 + 8 * (k & 1), 0);
+  }
+  if (pb >= 0)  // the last tile's
+    for (int c = 0; c < GW_CACT; ++c) {
+      act_read(c);
+      for (int g = 0; g < 4; ++g) act_piece(c, g);
+    }
+}
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// The map of a row-major bf16 array (d2, d1, d0): boxes of 64 x rows x 1,
+// stored with the 128-byte swizzle, zeros outside the array.
+static cudaError_t tmap3(CUtensorMap* m, const void* p, uint64_t d0, uint64_t d1, uint64_t d2, uint32_t rows) {
+  const EncodeTiled f = encode_tiled();
+  if (!f) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {d0, d1, d2}, strides[2] = {d0 * 2, d0 * d1 * 2};
+  const cuuint32_t box[3] = {GW_BK, rows, 1}, es[3] = {1, 1, 1};
+  const CUresult r = f(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p), dims, strides, box, es,
+                       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The maps of one forward call: x, hb, c and the gate weights.
+struct GateMaps {
+  CUtensorMap x, hb, c, w;
+};
+
+template <int NH>
+static cudaError_t launch_gate_tma(const GateOp<__nv_bfloat16>& op, const GateMaps& mp, cudaStream_t st) {
+  constexpr int CL = GW_CLUSTER;
+  auto kern = gate_tma_wgmma<GateOp<__nv_bfloat16>, NH, CL>;
+  constexpr int smem = GateGeo<NH>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL, attr[0].val.clusterDim.y = 1, attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(GW_THREADS), cfg.dynamicSmemBytes = smem, cfg.stream = st, cfg.attrs = attr, cfg.numAttrs = 1;
+  static int resident = 0;  // clusters the card holds at once: the persistent grid
+  if (!resident) {
+    int dev = 0, sms = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return e;
+    cfg.gridDim = dim3(sms / CL * CL);
+    if ((e = cudaOccupancyMaxActiveClusters(&resident, kern, &cfg)) != cudaSuccess) return e;
+    if (resident < 1) return cudaErrorInvalidConfiguration;
+  }
+  const int ntiles = op.M / op.T * ((op.T + GW_BM - 1) / GW_BM), npairs = (ntiles + CL - 1) / CL;
+  cfg.gridDim = dim3((npairs < resident ? npairs : resident) * CL);
+  return cudaLaunchKernelEx(&cfg, kern, op, op.l == 0 ? mp.x : mp.hb, mp.c, mp.w);
+}
+
+// The gate pass's route: the TMA kernel where GluArgs::gate_wg says so
+// (kernels/glu_stack.py:gate_route), else gemm_pipe.
+template <typename S>
+static cudaError_t launch_gate(const GateOp<S>& g, const GateMaps* mp, cudaStream_t st) {
+  if constexpr (std::is_same<S, __nv_bfloat16>::value) {
+    if (mp) {
+      if (g.G == 368) return launch_gate_tma<184>(g, *mp, st);
+      if (g.G == 256) return launch_gate_tma<128>(g, *mp, st);
+      return cudaErrorInvalidValue;
+    }
+  }
+  return launch_gemm(g, 1, st);
+}
+
 template <typename S>
 static cudaError_t forward_impl(const GluArgs& a) {
   cudaStream_t st = (cudaStream_t)a.stream;
   const int B = (int)a.B, T = (int)a.T, L = (int)a.L, C = (int)a.C, G = (int)a.G;
   const int G2 = G / 2, SK = (int)a.S, CIN = a.has_c ? (int)a.CIN : 0, M = B * T, K = 3 * C + CIN;
+  GateMaps maps;
+  const GateMaps* mp = nullptr;
+  if (std::is_same<S, __nv_bfloat16>::value && a.gate_wg) {
+    cudaError_t e;
+    if ((e = tmap3(&maps.x, a.x, C, T, B, GW_BM)) != cudaSuccess ||
+        (e = tmap3(&maps.hb, a.hb, C, T, B, GW_BM)) != cudaSuccess ||
+        (e = tmap3(&maps.c, CIN ? a.c : a.x, CIN ? CIN : C, T, B, GW_BM)) != cudaSuccess ||
+        (e = tmap3(&maps.w, a.wg, K, G, L, G2)) != cudaSuccess)
+      return e;
+    mp = &maps;
+  }
   for (int l = 0; l < L; ++l) {
     const int d = (int)a.dil[l];
     const void* hb = l == 0 ? a.x : a.hb;  // hb = S(x) before the first layer
@@ -656,11 +1279,11 @@ static cudaError_t forward_impl(const GluArgs& a) {
     if (CIN) add_seg(g.A, a.c, CIN, CIN, 0);
     g.B = operand<S>(T);
     add_seg(g.B, (const S*)a.wg + (int64_t)l * G * K, K, K, 0);
-    g.T = T, g.L = L, g.l = l, g.G = G;
+    g.T = T, g.L = L, g.l = l, g.G = G, g.C = C, g.CIN = CIN, g.d = d;
     g.bconv = a.bconv + (int64_t)l * G;
     g.gadd = a.has_g ? a.g_add : nullptr;
     g.ab = (S*)a.ab, g.act = (S*)a.act;
-    cudaError_t e = launch_gemm(g, 1, st);
+    cudaError_t e = launch_gate(g, mp, st);
     if (e != cudaSuccess) return e;
 
     OutOp<S> o;
@@ -1016,3 +1639,19 @@ extern "C" int64_t wae_glu_workspace_floats(const GluArgs* args) {
 }
 
 extern "C" const char* wae_glu_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
+
+
+// The number of bf16 inputs on which the TMA gate kernel's sigmoid differs
+// from sigmoidf (0 is what its act's equality with K3's gate_act_kernel
+// rests on), or -1 on a CUDA error. Synchronous: a check, not a pass.
+extern "C" int64_t wae_glu_sigmoid_mismatches() {
+  unsigned* d = nullptr;
+  unsigned h = 0;
+  if (cudaMalloc(&d, sizeof(unsigned)) != cudaSuccess) return -1;
+  const bool ok = cudaMemset(d, 0, sizeof(unsigned)) == cudaSuccess &&
+                  (sigmoid_check_kernel<<<65536 / 8 / 128, 128>>>(d), cudaGetLastError() == cudaSuccess) &&
+                  cudaMemcpy(&h, d, sizeof(unsigned), cudaMemcpyDeviceToHost) == cudaSuccess;
+  cudaFree(d);
+  return ok ? (int64_t)h : -1;
+}
+

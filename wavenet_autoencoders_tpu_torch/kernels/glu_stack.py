@@ -22,7 +22,10 @@ gradients into noise.
 
 Dispatch is on the device of ``x``: CPU tensors go to the plain versions,
 CUDA tensors to the kernels, anything the kernels refuse raises. There is
-no fallback.
+no fallback. Inside K2, :func:`gate_route` picks the gate pass's kernel by
+storage dtype and width (bf16 at the built widths: TMA + wgmma; else the
+generic product core); both are hand-written, and the route is decided
+before the launch, not on a refusal.
 
 The kernels read every product's operands as plain row-major matrices in
 S: the wrapper packs the weights once per call (:func:`pack_weights`, the
@@ -44,6 +47,13 @@ import torch.nn.functional as F
 #: to count.
 LAUNCHES_FWD = 0
 LAUNCHES_BWD = 0
+#: Layer launches of K2's gate pass on the TMA + wgmma kernel (one a layer
+#: of a forward call that :func:`gate_route` sends there).
+LAUNCHES_GATE_WG = 0
+
+#: The gate widths G that the TMA + wgmma gate kernel is built for (its
+#: tile is 128 rows by all G columns, two wgmma N = G/2 a k-step).
+GATE_WG_WIDTHS = (256, 368)
 
 RS = math.sqrt(0.5)
 IRS = math.sqrt(2.0)
@@ -206,6 +216,17 @@ def check_widths(C, G, Sk, cin):
         raise ValueError(f"glu_stack kernels need widths that are multiples of 8: {bad}")
 
 
+def gate_route(C, G, Sk, cin, store) -> str:
+    """Which kernel runs K2's gate pass: ``"tma_wgmma"`` (TMA loads,
+    warp-specialised wgmma over whole-G row tiles) for bf16 storage at the
+    widths it is built for (:data:`GATE_WG_WIDTHS`, every width a multiple
+    of 8 as :func:`check_widths` asks), else ``"gemm_pipe"``: f32 storage,
+    which wgmma cannot multiply at full precision, and any other G. ``cin``
+    is the padded width (0 without conditioning)."""
+    fits = G in GATE_WG_WIDTHS and all(v % 8 == 0 for v in (C, G // 2, Sk, cin))
+    return "tma_wgmma" if store == torch.bfloat16 and fits else "gemm_pipe"
+
+
 def pad_cin(c, wc):
     """Zero-pad the conditioning's columns and ``wc``'s rows up to a
     multiple of 8 (cin = 39 in the ae and vocoder presets). The zero
@@ -231,7 +252,7 @@ class _GluArgs(ctypes.Structure):
 
     _fields_ = (
         [(n, ctypes.c_int64) for n in (
-            "B", "T", "L", "C", "G", "S", "CIN", "store_bf16", "has_c", "has_g",
+            "B", "T", "L", "C", "G", "S", "CIN", "store_bf16", "has_c", "has_g", "gate_wg",
         )]
         + [("dil", ctypes.c_int64 * _MAXL)]
         + [(n, ctypes.c_void_p) for n in (
@@ -253,7 +274,20 @@ def _lib():
     lib.wae_glu_workspace_floats.restype = ctypes.c_int64
     lib.wae_glu_error_string.argtypes = [ctypes.c_int]
     lib.wae_glu_error_string.restype = ctypes.c_char_p
+    lib.wae_glu_sigmoid_mismatches.argtypes = []
+    lib.wae_glu_sigmoid_mismatches.restype = ctypes.c_int64
     return lib
+
+
+def gate_sigmoid_mismatches() -> int:
+    """On the card: the number of bf16 inputs on which the TMA gate
+    kernel's branch-free sigmoid differs in any bit from the one K3's
+    ``gate_act_kernel`` uses (0, or K2's act and K3's recomputed act part).
+    Raises on a CUDA error."""
+    n = _lib().wae_glu_sigmoid_mismatches()
+    if n < 0:
+        raise RuntimeError("glu_stack sigmoid check failed to run")
+    return n
 
 
 def _check(name, x, shape, dtype, dev):
@@ -313,7 +347,7 @@ def _packed_shapes(L, C, G, Sk, cin, store):
 
 
 def _forward_cuda(x, c, g_add, wconv, bconv, wc, wout, bout, wskip, bskip, dilations):
-    global LAUNCHES_FWD
+    global LAUNCHES_FWD, LAUNCHES_GATE_WG
     store = _storage(x)
     dev = x.device
     B, T, C, L, G, Sk, cin = _dims(x.shape, wconv, wskip, c, dilations)
@@ -341,6 +375,7 @@ def _forward_cuda(x, c, g_add, wconv, bconv, wc, wout, bout, wskip, bskip, dilat
     with torch.cuda.device(dev):
         a = _args(store, B, T, C, L, G, Sk, cin, g_add is not None, dilations,
                   torch.cuda.current_stream(dev).cuda_stream)
+        a.gate_wg = int(gate_route(C, G, Sk, cin, store) == "tma_wgmma")
         for k, v in t.items():
             setattr(a, k, _ptr(v))
         a.h, a.skip, a.skips, a.ab, a.hb, a.act = map(_ptr, (h, skip, skips, ab, hb, act))
@@ -348,6 +383,7 @@ def _forward_cuda(x, c, g_add, wconv, bconv, wc, wout, bout, wskip, bskip, dilat
     if err != 0:
         raise RuntimeError(f"glu_stack forward launch failed: {lib.wae_glu_error_string(err).decode()}")
     LAUNCHES_FWD += 1
+    LAUNCHES_GATE_WG += L * a.gate_wg
     return skips, h, ab
 
 

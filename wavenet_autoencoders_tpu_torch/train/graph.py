@@ -43,10 +43,11 @@ from wavenet_autoencoders_tpu_torch.kernels import glu_stack, threefry, upsample
 from wavenet_autoencoders_tpu_torch.utils import spans
 from wavenet_autoencoders_tpu_torch.utils.params import flatten_state
 
-#: the launch counters a step's body can move (K2, K3, threefry, the
-#: upsampler's forward and backward): (module, attribute)
-COUNTERS = ((glu_stack, "LAUNCHES_FWD"), (glu_stack, "LAUNCHES_BWD"), (threefry, "LAUNCHES"),
-            (upsample, "LAUNCHES_FWD"), (upsample, "LAUNCHES_BWD"))
+#: the launch counters a step's body can move (K2, K3, K2's gate layers on
+#: the TMA + wgmma kernel, threefry, the upsampler's forward and backward):
+#: (module, attribute)
+COUNTERS = ((glu_stack, "LAUNCHES_FWD"), (glu_stack, "LAUNCHES_BWD"), (glu_stack, "LAUNCHES_GATE_WG"),
+            (threefry, "LAUNCHES"), (upsample, "LAUNCHES_FWD"), (upsample, "LAUNCHES_BWD"))
 
 
 def _counts() -> list[int]:

@@ -241,7 +241,9 @@ def records() -> dict:
 
     levels = {**_LEVELS, "kernels.decode.LAUNCHES": decode.LAUNCHES,
               "kernels.glu_stack.LAUNCHES_FWD": glu_stack.LAUNCHES_FWD,
-              "kernels.glu_stack.LAUNCHES_BWD": glu_stack.LAUNCHES_BWD, "kernels.threefry.LAUNCHES": threefry.LAUNCHES,
+              "kernels.glu_stack.LAUNCHES_BWD": glu_stack.LAUNCHES_BWD,
+              "kernels.glu_stack.LAUNCHES_GATE_WG": glu_stack.LAUNCHES_GATE_WG,
+              "kernels.threefry.LAUNCHES": threefry.LAUNCHES,
               "kernels.upsample.LAUNCHES_FWD": upsample.LAUNCHES_FWD,
               "kernels.upsample.LAUNCHES_BWD": upsample.LAUNCHES_BWD}
     return {"spans": list(spans.values()), "counters": counters, "counts": counts, "levels": levels,
