@@ -38,11 +38,11 @@ def make_cfg(spec, **over):
     return load_preset(spec["preset"], spec.get("hparams", "")).replace(**{**spec.get("over", {}), **over})
 
 
-def run(inputs, rows=None, *, one_process=False, forward_kw=None):
+def run(inputs, rows=None, *, one_process=False, **over):
     """The steps of ``inputs`` on ``rows`` of each batch (all rows when None);
     under a process group on this rank's mesh coordinates. ``one_process``
     trains without the mesh (the config's ``mesh_shape`` set to model 1);
-    ``forward_kw(step)`` gives extra forward arguments (injected noise).
+    ``over`` overrides more of the config (``seed``: another step key).
     Returns {name: array}."""
     import torch
 
@@ -53,7 +53,7 @@ def run(inputs, rows=None, *, one_process=False, forward_kw=None):
     from wavenet_autoencoders_tpu_torch.utils.params import flatten_state, gather_params, load_flat_params
 
     spec, params, batches = load_inputs(inputs)
-    cfg = make_cfg(spec, **({"mesh_shape": {"data": -1, "model": 1}} if one_process else {}))
+    cfg = make_cfg(spec, **over, **({"mesh_shape": {"data": -1, "model": 1}} if one_process else {}))
     model = build_model(cfg, device="cpu").train()
     load_flat_params(model, params)
     state = shard_state(cfg, init_state(cfg, model))
@@ -71,7 +71,7 @@ def run(inputs, rows=None, *, one_process=False, forward_kw=None):
     try:
         for i, b in enumerate(batches):
             batch = {k: torch.from_numpy(v if rows is None else v[rows]) for k, v in b.items()}
-            state, m = step(state, batch, forward_kw=None if forward_kw is None else forward_kw(i))
+            state, m = step(state, batch)
             for k, v in m.items():
                 out[f"metrics/{i}/{k}"] = np.float64(v)
     finally:

@@ -393,12 +393,13 @@ def test_gate_route_keeps_gemm_pipe_for_widths_the_kernel_is_not_built_for(G):
 
 
 def test_gate_launch_counter_is_a_graph_counter_and_a_tracer_level():
-    """A graph replay counts the gate kernel's layer launches (graph.COUNTERS)
-    and the tracer's records carry the counter as a level."""
-    from wavenet_autoencoders_tpu_torch.train import graph
+    """A graph replay counts the gate kernel's layer launches (a counter of
+    kernels.COUNTERS) and the tracer's records carry the counter as a
+    level."""
+    from wavenet_autoencoders_tpu_torch import kernels
     from wavenet_autoencoders_tpu_torch.utils import spans
 
-    assert (glu_stack_mod, "LAUNCHES_GATE_WG") in graph.COUNTERS
+    assert "kernels.glu_stack.LAUNCHES_GATE_WG" in kernels.COUNTERS
     before = glu_stack_mod.LAUNCHES_GATE_WG
     try:
         glu_stack_mod.LAUNCHES_GATE_WG = 20

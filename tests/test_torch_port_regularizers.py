@@ -1,10 +1,11 @@
 """The port's training regularizers against the JAX package on the CPU: EMA
 codebooks, usage and dead-code reseed, time jitter (both readings),
-VQ-dropout and dropout in the residual GLU block, with the JAX package's
-draws injected (``u``, ``start``, ``cand_idx``, the dropout masks: the same
-``jax.random`` calls on the same keys); and the port's own draws (from JAX
-keys, ``tests/test_torch_port_draws.py`` holds them bit for bit) held by
-their distributions.
+VQ-dropout and dropout in the residual GLU block, the primitives with the
+JAX package's draws injected (``u``, ``start``, ``cand_idx``, a block's
+dropout mask: the same ``jax.random`` calls on the same keys) and the
+WaveNet from the port key of the JAX key; and the port's own draws (from
+JAX keys, ``tests/test_torch_port_draws.py`` holds them bit for bit) held
+by their distributions.
 
 Tolerances: 1e-5 abs on f32 values (the EMA update, quantized codes,
 losses, dropout outputs), 1e-5 relative on perplexity; indices, dead masks
@@ -133,22 +134,18 @@ def test_residual_glu_dropout_matches_jax(dropout):
 
 def test_wavenet_draws_one_dropout_mask_per_layer_like_jax():
     """The unfused stack's dropout: the JAX forward splits its key once per
-    layer; the port takes those masks, and a fused-stack net with dropout
-    takes the unfused stack (the JAX rule), so it gives the same output."""
+    layer, and so does the port from the same key; a fused-stack net with
+    dropout takes the unfused stack (the JAX rule), so it gives the same
+    output."""
     jnet, params, net = nets(seed=2, dropout=0.1)
     B, T = 2, 24
     x = np.random.default_rng(0).integers(0, 256, (B, T)).astype(np.int32)
     c, g = _rand(1, B, T, 5), np.array([1, 3], np.int32)
-    key = jax.random.PRNGKey(5)
-    want = jnet.apply(params, jnp.asarray(x), jnp.asarray(c), jnp.asarray(g), rng=key, train=True)
-    masks, rng = [], key
-    for _ in range(jnet.layers):
-        rng, sub = jax.random.split(rng)
-        masks.append(_t(jax.random.bernoulli(sub, 0.9, (B, T, 8))))
+    want = jnet.apply(params, jnp.asarray(x), jnp.asarray(c), jnp.asarray(g), rng=jax.random.PRNGKey(5), train=True)
     with torch.no_grad():
-        got = net.apply(_t(x).long(), _t(c), _t(g), train=True, dropout_masks=masks)
+        got = net.apply(_t(x).long(), _t(c), _t(g), train=True, key=jr.PRNGKey(5))
         net.fused_stack = True
-        fused = net.apply(_t(x).long(), _t(c), _t(g), train=True, dropout_masks=masks)
+        fused = net.apply(_t(x).long(), _t(c), _t(g), train=True, key=jr.PRNGKey(5))
         plain = net.apply(_t(x).long(), _t(c), _t(g), train=False)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
     np.testing.assert_array_equal(fused.numpy(), got.numpy())

@@ -20,7 +20,8 @@ torch.set_num_threads(1)
 from wavenet_autoencoders_tpu_torch.config import load_preset  # noqa: E402
 from wavenet_autoencoders_tpu_torch.data.dataset import WaveDataset, data_iterator  # noqa: E402
 from wavenet_autoencoders_tpu_torch.models import build_model  # noqa: E402
-from wavenet_autoencoders_tpu_torch.train.graph import COUNTERS, GraphedStep, StatePointers  # noqa: E402
+from wavenet_autoencoders_tpu_torch import kernels  # noqa: E402
+from wavenet_autoencoders_tpu_torch.train.graph import GraphedStep, StatePointers  # noqa: E402
 from wavenet_autoencoders_tpu_torch.train.loop import batch_to_device  # noqa: E402
 from wavenet_autoencoders_tpu_torch.train.step import init_state, make_train_step  # noqa: E402
 from wavenet_autoencoders_tpu_torch.utils import spans  # noqa: E402
@@ -57,7 +58,7 @@ class CpuGraph(GraphedStep):
                     self.out[k].copy_(v)
 
         self.graph = types.SimpleNamespace(replay=replay)
-        self.launches = [0] * len(COUNTERS)
+        self.launches = dict.fromkeys(kernels.COUNTERS, 0)
         self.pointers = StatePointers(state)
 
 
@@ -164,6 +165,26 @@ def test_the_counters(tmp_path, monkeypatch):
     spans.disable()
     rec = spans.records()
     assert len(rec["spans"]) + len(rec["counts"]) == 4 and rec["dropped"] == 2
+
+
+def test_every_kernel_launch_counter_is_listed_once_and_is_a_tracer_level():
+    """``kernels.COUNTERS`` names every ``LAUNCHES*`` int of every kernel
+    module, each once, and the tracer's levels beyond ``level()``'s are
+    those names, in that order, at the counters' values."""
+    import importlib
+    import pkgutil
+
+    found = set()
+    for info in pkgutil.iter_modules(kernels.__path__):
+        module = importlib.import_module(f"{kernels.__name__}.{info.name}")
+        found |= {f"kernels.{info.name}.{a}" for a in vars(module) if a.startswith("LAUNCHES")}
+    assert len(set(kernels.COUNTERS)) == len(kernels.COUNTERS)
+    assert set(kernels.COUNTERS) == found
+    spans.enable()
+    spans.disable()
+    levels = spans.records()["levels"]
+    assert [k for k in levels if k not in spans._LEVELS] == list(kernels.COUNTERS)
+    assert {k: levels[k] for k in kernels.COUNTERS} == kernels.launches()
 
 
 def test_spans_lie_on_the_profilers_clock():

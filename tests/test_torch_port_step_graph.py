@@ -50,7 +50,8 @@ from wavenet_autoencoders_tpu_torch.config import load_preset  # noqa: E402
 from wavenet_autoencoders_tpu_torch.models import build_model  # noqa: E402
 from wavenet_autoencoders_tpu_torch.train import loop  # noqa: E402
 from wavenet_autoencoders_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
-from wavenet_autoencoders_tpu_torch.train.graph import COUNTERS, GraphedStep, StatePointers, state_tensors  # noqa: E402
+from wavenet_autoencoders_tpu_torch import kernels  # noqa: E402
+from wavenet_autoencoders_tpu_torch.train.graph import GraphedStep, StatePointers, state_tensors  # noqa: E402
 from wavenet_autoencoders_tpu_torch.train.schedule import get_schedule  # noqa: E402
 from wavenet_autoencoders_tpu_torch.train.step import (  # noqa: E402
     ADAM_B1,
@@ -77,7 +78,7 @@ class CpuGraph(GraphedStep):
 
     def _capture(self, body, state):
         self.graph = lambda: body(state, self.static)
-        self.launches = [0] * len(COUNTERS)
+        self.launches = dict.fromkeys(kernels.COUNTERS, 0)
         self.pointers = StatePointers(state)
 
     def _replay(self):
@@ -418,8 +419,6 @@ def test_the_graph_is_refused_where_it_cannot_be_had():
     assert make_train_step(cfg, model).form(0) == "eager (the model is on the CPU)"
     step = cpu_graphed(cfg, model)
     batch = {k: torch.from_numpy(v) for k, v in quality_batch().items()}
-    with pytest.raises(ValueError, match="graph=False"):
-        step(init_state(cfg, model), batch, cand_idx=[torch.zeros(8, dtype=torch.long)] * 2)
     st, _ = step(init_state(cfg, model), batch)
     with pytest.raises(ValueError, match="first batch's keys, shapes and dtypes"):
         step(st, {k: v[:1] for k, v in batch.items()})

@@ -293,32 +293,17 @@ def test_two_rank_tp_steps_equal_one_process(tmp_path, fused):
 def test_tp_dropout_draws_the_masks_of_one_process(tmp_path):
     """Both model ranks draw one process's masks (the JAX step's: one split
     of ``fold_in(PRNGKey(seed + 1), step)`` a layer): their step equals the
-    one-process step given those masks."""
+    one-process step, which draws its own."""
     from _torch_port_tp_worker import make_cfg
 
-    from wavenet_autoencoders_tpu_torch.utils import jax_random as jr
-
     spec = _spec(dropout=0.05)
-    batches = _batches(2)
-    inputs = _inputs(tmp_path, spec, _seeded_params(spec), batches)
+    inputs = _inputs(tmp_path, spec, _seeded_params(spec), _batches(2))
     r0, r1 = _spawn(tmp_path, inputs, 2)
-    cfg = make_cfg(spec)
-
-    def masks(step):
-        key = jr.fold_in(jr.PRNGKey(cfg.seed + 1), step)
-        shape = (len(batches[step]["x"]), batches[step]["x"].shape[1], cfg.residual_channels)
-        out = []
-        for _ in range(cfg.layers):
-            key, sub = jr.split(key)
-            out.append(jr.bernoulli(sub, 0.95, shape))
-        return {"dropout_masks": out}
-
-    ref = run(inputs, one_process=True, forward_kw=masks)
+    ref = run(inputs, one_process=True)
     _assert_steps_close(r0, ref, 2)
     np.testing.assert_array_equal(r0["params/wavenet/layers/0/conv/v"], r1["params/wavenet/layers/0/conv/v"])
-    # and the masks matter: without them the step is another one
-    other = run(inputs, one_process=True,
-                forward_kw=lambda s: {"dropout_masks": [m.flip(0) for m in masks(s)["dropout_masks"]]})
+    # and the masks matter: under another seed's key the step is another one
+    other = run(inputs, one_process=True, seed=make_cfg(spec).seed + 1)
     assert abs(other["metrics/0/loss"] - ref["metrics/0/loss"]) > 1e-4 * ref["metrics/0/loss"]
 
 

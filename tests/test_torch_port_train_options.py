@@ -2,8 +2,8 @@
 CPU at the tiny svqwae (``_torch_port_util.TINY_SVQWAE``: 4 layers, widths
 8-32): train steps with EMA codebooks and with dead-code reseed (the
 threshold and usage decay set so that unused codes die after one step, the
-JAX package's reseed candidates injected), and EMA-codebook checkpoints read
-by the other package.
+port's step drawing the JAX step's reseed candidates from the same key),
+and EMA-codebook checkpoints read by the other package.
 
 Tolerances (f32): loss and grad norm 1e-4 relative; parameters (the
 elements whose Adam moment is not f32 noise, as in
@@ -53,14 +53,6 @@ def pair(**over):
                                                                     make_train_step(cfg, model))
 
 
-def cand_idx(key, step, K, n, slices):
-    """The JAX step's reseed candidates: fold_in(fold_in(key, step), 0x5EED)
-    folded with the slice, randint over the batch's n latent frames."""
-    rng = jax.random.fold_in(jax.random.fold_in(key, step), 0x5EED)
-    return [torch.from_numpy(np.array(jax.random.randint(jax.random.fold_in(rng, i), (K,), 0, n)))
-            for i in range(slices)]
-
-
 def assert_close_to_jax(js, jm, st, m, state=True):
     """Metrics, and with ``state`` the parameters and the model state."""
     np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=1e-4)
@@ -102,15 +94,17 @@ def test_ema_codebook_steps_match_jax(over):
 @pytest.mark.parametrize("ema", [False, True], ids=["sliced", "ema"])
 def test_reseed_steps_match_jax(ema):
     """Two steps: in step 1 the unused codes die and are revived from the
-    batch's pre-VQ codes with the JAX package's candidates."""
+    batch's pre-VQ codes with the JAX package's candidates: the port's step
+    draws them under ``fold_in(PRNGKey(cfg.seed + 1), step)``, and the JAX
+    step is given that key, as the JAX loop gives it."""
     (jcfg, jmodel, js, jstep), (cfg, model, st, step) = pair(ema=ema, **RESEED)
-    key = jax.random.PRNGKey(1)
+    assert jcfg.seed == cfg.seed
+    key = jax.random.PRNGKey(cfg.seed + 1)
     b = tiny_batch(2)
-    n = b["c"].shape[0] * b["c"].shape[1] // model.downsample
     reseeded = []
     for i in range(2):
         js, jm = jstep(js, b, key)
-        st, m = step(st, torch_batch(b), cand_idx=cand_idx(key, i, cfg.K, n, cfg.num_slices))
+        st, m = step(st, torch_batch(b))
         assert_close_to_jax(js, jm, st, m, state=i == 0)
         reseeded.append(float(m["reseeded"]))
     assert reseeded[0] > 0, reseeded

@@ -166,10 +166,10 @@ def test_dispatch_by_device():
 def test_counters_reach_the_tracer_and_the_graph():
     """The launch counters are levels of the tracer's records and counters
     a graphed step's replay adds to."""
-    from wavenet_autoencoders_tpu_torch.train import graph
+    from wavenet_autoencoders_tpu_torch import kernels
     from wavenet_autoencoders_tpu_torch.utils import spans
 
-    assert (K, "LAUNCHES_FWD") in graph.COUNTERS and (K, "LAUNCHES_BWD") in graph.COUNTERS
+    assert {"kernels.upsample.LAUNCHES_FWD", "kernels.upsample.LAUNCHES_BWD"} <= set(kernels.COUNTERS)
     spans.enable()
     try:
         levels = spans.records()["levels"]

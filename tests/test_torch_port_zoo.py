@@ -4,10 +4,10 @@ every family's training forward and ``encode``, three f32 train steps,
 ``batch_wavegen``, npz checkpoints in both directions, and the CLI's
 ``train`` -> ``infer`` -> ``synthesize`` for IN-WAE.
 
-The Gumbel-softmax families draw their training noise from different
-random streams in the two packages, so the tests hand the port the JAX
-draws (``uniforms=``), reproduced from the JAX keys; in eval mode the
-argmax path is deterministic and is compared directly.
+The training forward takes the port key of the JAX forward's key, and the
+train steps draw under ``fold_in(PRNGKey(cfg.seed + 1), step)``, the key
+the JAX step is given, so the Gumbel-softmax families draw the JAX
+package's noise; in eval mode the argmax path is deterministic.
 
 Tolerances (f32): forward outputs 1e-4 abs, aux loss and perplexity 1e-5
 relative, ``encode`` 1e-4 abs; train steps as tests/test_torch_port_train.py
@@ -36,6 +36,7 @@ from wavenet_autoencoders_tpu_torch.config import available_presets, load_preset
 from wavenet_autoencoders_tpu_torch.models import build_model  # noqa: E402
 from wavenet_autoencoders_tpu_torch.train.checkpoint import save_checkpoint  # noqa: E402
 from wavenet_autoencoders_tpu_torch.train.step import init_state, make_train_step  # noqa: E402
+from wavenet_autoencoders_tpu_torch.utils import jax_random as jr  # noqa: E402
 from wavenet_autoencoders_tpu_torch.utils.params import (  # noqa: E402
     _flatten_tree,
     flatten_params,
@@ -117,21 +118,6 @@ def port_x(cfg, x):
     return torch.from_numpy(x).long() if cfg.is_mulaw_quantize else torch.from_numpy(x)[..., None]
 
 
-def gumbel_uniforms(rng, slices, shape):
-    """The uniforms the JAX CatWAE / CatMfccAE forward draws from ``rng``
-    (the forward splits once, gumbel_apply once per slice)."""
-    _, sk = jax.random.split(rng)
-    out = []
-    for _ in range(slices):
-        sk, ski = jax.random.split(sk)
-        out.append(torch.tensor(np.asarray(jax.random.uniform(ski, shape, minval=1e-10, maxval=1.0))))
-    return out
-
-
-def latent_frames(model, frames):
-    return frames // getattr(model, "downsample", 1)
-
-
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 def test_forward_matches_jax(family):
     (jcfg, jmodel, js), (cfg, model) = pair(family)
@@ -140,13 +126,9 @@ def test_forward_matches_jax(family):
     g = b.get("g")
     y, aux, perp, _ = jmodel.forward(js.params, js.model_state, rng, jax_x(jcfg, b["x"]), jnp.asarray(b["c"]),
                                      None if g is None else jnp.asarray(g), train=True)
-    kw = {}
-    if family in STOCHASTIC:
-        shape = (2, latent_frames(model, b["c"].shape[1]), cfg.K)
-        kw["uniforms"] = gumbel_uniforms(rng, cfg.num_slices, shape)
     with torch.no_grad():
         y2, aux2, perp2 = model.forward(port_x(cfg, b["x"]), torch.from_numpy(b["c"]),
-                                        None if g is None else torch.from_numpy(g), train=True, **kw)
+                                        None if g is None else torch.from_numpy(g), train=True, key=jr.PRNGKey(3))
     assert y2.shape == y.shape
     np.testing.assert_allclose(y2.numpy(), np.asarray(y), atol=1e-4)
     np.testing.assert_allclose(float(aux2), float(aux), rtol=1e-5)
@@ -214,14 +196,8 @@ def test_three_f32_train_steps_match_jax(family, fused):
     st = init_state(cfg, model)
     b = batch(family)
     tb = {k: torch.from_numpy(v) for k, v in b.items()}
-    forward = model.forward
     for i in range(3):
-        if family in STOCHASTIC:
-            # the JAX step's forward key: fold_in(rng, step)
-            shape = (2, latent_frames(model, b["c"].shape[1]), cfg.K)
-            u = gumbel_uniforms(jax.random.fold_in(jax.random.PRNGKey(1), i), cfg.num_slices, shape)
-            model.forward = lambda *a, _u=u, **kw: forward(*a, **{**kw, "uniforms": _u})
-        js, jm = jstep(js, b, jax.random.PRNGKey(1))
+        js, jm = jstep(js, b, jax.random.PRNGKey(cfg.seed + 1))
         st, m = step(st, tb)
         for k in ("loss", "recon_loss", "aux_loss", "perplexity", "grad_norm", "lr"):
             np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-5, err_msg=f"step {i} {k}")

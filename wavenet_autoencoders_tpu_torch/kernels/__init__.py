@@ -16,5 +16,38 @@ version and a launch counter.
   the upsampler to XLA).
 
 ``build`` compiles ``csrc/*.cu`` with ``nvcc`` at first use; importing this
-package needs no CUDA toolkit.
+package needs no CUDA toolkit. Each module counts its launches in module
+ints, one per call of a C entry point: ``COUNTERS`` names them all, and
+``launches`` / ``add_launches`` read and move them for the train step's
+CUDA graph and the tracer's levels.
 """
+from __future__ import annotations
+
+import functools
+import importlib
+
+#: every kernel launch counter, in module and attribute order, under the
+#: name the tracer reports it by
+COUNTERS = ("kernels.decode.LAUNCHES", "kernels.glu_stack.LAUNCHES_FWD", "kernels.glu_stack.LAUNCHES_BWD",
+            "kernels.glu_stack.LAUNCHES_GATE_WG", "kernels.threefry.LAUNCHES", "kernels.upsample.LAUNCHES_FWD",
+            "kernels.upsample.LAUNCHES_BWD")
+
+
+@functools.cache
+def _counter(name: str):
+    # imported at first use, not with the package: decode imports ops, which
+    # imports utils/jax_random, which imports this package's threefry
+    _, module, attr = name.split(".")
+    return importlib.import_module(f"{__name__}.{module}"), attr
+
+
+def launches() -> dict[str, int]:
+    """{counter name: launches so far}, in ``COUNTERS``' order."""
+    return {name: getattr(*_counter(name)) for name in COUNTERS}
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Adds ``counts`` ({counter name: n}, n < 0 to take away) to the counters."""
+    for name, n in counts.items():
+        module, attr = _counter(name)
+        setattr(module, attr, getattr(module, attr) + n)

@@ -12,9 +12,10 @@
 
 z is (B, T', D) throughout. ``.detach()`` stands for ``stop_gradient``.
 Each stochastic function draws its noise from a JAX ``key`` with the JAX
-function's call (``utils.jax_random``), or takes it as an argument (``u``,
-``start``, ``uniforms``, ``cand_idx``: the train step draws the reseed
-candidates from the JAX step's keys). Inside
+function's call (``utils.jax_random``); the primitives that the
+regularizer tests hold against JAX's also take it as an argument (``u``,
+``start``, ``cand_idx``: the train step draws the reseed candidates from
+the JAX step's keys). Inside
 ``parallel.distributed.synced()`` the noise is this rank's rows of the
 global batch's draw, and the code counts (perplexity, usage) and the EMA
 statistics are those of the global batch.
@@ -238,11 +239,11 @@ class Gumbel(nn.Module):
 
 
 def gumbel_apply(p: Gumbel, z: torch.Tensor, *, tau: float = 0.1, hard: bool = False, train: bool = True,
-                 key: torch.Tensor | None = None, uniforms=None):
+                 key: torch.Tensor | None = None):
     """Gumbel-softmax pick of one code per slice; straight-through when
     ``hard``; the argmax one-hot outside training. The training noise of
     slice i is ``uniform(sk, (B, T, k), 1e-10, 1)`` after ``key, sk =
-    split(key)`` (JAX ``gumbel_apply``), or ``uniforms[i]`` when given.
+    split(key)`` (JAX ``gumbel_apply``).
     Returns (quantized, aux_loss=0, perplexity summed over slices, indices
     (B, T, slices))."""
     B, T, D = z.shape
@@ -252,14 +253,11 @@ def gumbel_apply(p: Gumbel, z: torch.Tensor, *, tau: float = 0.1, hard: bool = F
     for i in range(n):
         logits = linear_apply(p.heads[i], z[:, :, i * sub : (i + 1) * sub])
         if train:
-            if uniforms is not None:
-                u = uniforms[i]
-            else:
-                if key is None:
-                    raise ValueError("Gumbel noise in training needs a key or its uniforms")
-                key, sk = jr.split(key)
-                rows_all, rows = dist.global_batch_rows(B)
-                u = jr.uniform(sk, (rows_all, *logits.shape[1:]), 1e-10, 1.0, rows=rows)
+            if key is None:
+                raise ValueError("Gumbel noise in training needs a key")
+            key, sk = jr.split(key)
+            rows_all, rows = dist.global_batch_rows(B)
+            u = jr.uniform(sk, (rows_all, *logits.shape[1:]), 1e-10, 1.0, rows=rows)
             w = torch.softmax((logits - torch.log(-torch.log(u))) / tau, dim=-1)
         else:
             w = F.one_hot(logits.argmax(-1), logits.shape[-1]).to(logits.dtype)

@@ -73,11 +73,10 @@ class CatMfccAE(MfccAE):
         z = self.encoder.apply(c, dtype=dtype)
         return bn.gumbel_apply(self.gumbel, z, tau=self.tau, hard=self.hard, train=False)[0]
 
-    def forward(self, x, c, g, *, train: bool = True, dtype=None, key=None, uniforms=None):
+    def forward(self, x, c, g, *, train: bool = True, dtype=None, key=None):
         """The Gumbel noise from ``sk`` of ``key, sk = split(key)`` (JAX
         ``CatMfccAE.forward``)."""
         z = self.encoder.apply(c, dtype=dtype)
         sk = None if key is None else jr.split(key)[1]
-        q, aux, perp, _ = bn.gumbel_apply(self.gumbel, z, tau=self.tau, hard=self.hard, train=train,
-                                          key=sk, uniforms=uniforms)
+        q, aux, perp, _ = bn.gumbel_apply(self.gumbel, z, tau=self.tau, hard=self.hard, train=train, key=sk)
         return self._decode_feat(q, dtype=dtype), aux, perp

@@ -23,8 +23,7 @@ decoder from the key the JAX ``init`` gives ``WaveNet.init``. The training
 noise comes from the step's ``key`` passed to ``forward``, which each
 family splits as its JAX ``forward`` does (the bottleneck's draws: Gumbel,
 VQ-dropout, time jitter; the rest to the decoder, which splits it once a
-layer for its dropout masks); the tests may inject the noise instead
-(``uniforms``, ``noise``, ``dropout_masks``).
+layer for its dropout masks).
 All activations are (B, T, C).
 """
 from __future__ import annotations
@@ -98,9 +97,8 @@ class WVAE(WAEBase):
     def encode(self, c, tar_c=None, dtype=None):
         return self.encoder.apply(c, dtype=dtype)
 
-    def forward(self, x, c, g, *, train: bool = True, dtype=None, key=None, dropout_masks=None):
-        y_hat = self.wavenet.apply(x, self.encode(c, dtype=dtype), g, train=train, dtype=dtype, key=key,
-                                   dropout_masks=dropout_masks)
+    def forward(self, x, c, g, *, train: bool = True, dtype=None, key=None):
+        y_hat = self.wavenet.apply(x, self.encode(c, dtype=dtype), g, train=train, dtype=dtype, key=key)
         return (y_hat, *_no_aux(y_hat))
 
 
@@ -123,9 +121,8 @@ class INWAE(WAEBase):
             return bn.adain(z, self._encode_raw(tar_c, dtype=dtype))
         return bn.instance_norm(z)
 
-    def forward(self, x, c, g, *, train: bool = True, dtype=None, key=None, dropout_masks=None):
-        y_hat = self.wavenet.apply(x, self.encode(c, dtype=dtype), g, train=train, dtype=dtype, key=key,
-                                   dropout_masks=dropout_masks)
+    def forward(self, x, c, g, *, train: bool = True, dtype=None, key=None):
+        y_hat = self.wavenet.apply(x, self.encode(c, dtype=dtype), g, train=train, dtype=dtype, key=key)
         return (y_hat, *_no_aux(y_hat))
 
 
@@ -150,10 +147,9 @@ class NewINWAE(WAEBase):
             return bn.adain(z, self.encoder.apply(tar_c, dtype=dtype))
         return bn.instance_norm(z)
 
-    def forward(self, x, c, g, *, train: bool = True, dtype=None, key=None, dropout_masks=None):
+    def forward(self, x, c, g, *, train: bool = True, dtype=None, key=None):
         lat = self.encode(c, dtype=dtype)
-        y_hat = self.wavenet.apply(x, lat, self.speaker_code(c, dtype=dtype), train=train, dtype=dtype, key=key,
-                                   dropout_masks=dropout_masks)
+        y_hat = self.wavenet.apply(x, lat, self.speaker_code(c, dtype=dtype), train=train, dtype=dtype, key=key)
         return (y_hat, *_no_aux(y_hat))
 
 
@@ -173,16 +169,15 @@ class CatWAE(WAEBase):
         z = self.encoder.apply(c, dtype=dtype)
         return bn.gumbel_apply(self.gumbel, z, tau=self.tau, hard=self.hard, train=False)[0]
 
-    def forward(self, x, c, g, *, train: bool = True, dtype=None, key=None, uniforms=None, dropout_masks=None):
+    def forward(self, x, c, g, *, train: bool = True, dtype=None, key=None):
         """The Gumbel noise from ``sk`` of ``key, sk = split(key)``, the
         decoder's from the rest (JAX ``CatWAE.forward``)."""
         z = self.encoder.apply(c, dtype=dtype)
         sk = None
         if key is not None:
             key, sk = jr.split(key)
-        q, aux, perp, _ = bn.gumbel_apply(self.gumbel, z, tau=self.tau, hard=self.hard, train=train,
-                                          key=sk, uniforms=uniforms)
-        y_hat = self.wavenet.apply(x, q, g, train=train, dtype=dtype, key=key, dropout_masks=dropout_masks)
+        q, aux, perp, _ = bn.gumbel_apply(self.gumbel, z, tau=self.tau, hard=self.hard, train=train, key=sk)
+        y_hat = self.wavenet.apply(x, q, g, train=train, dtype=dtype, key=key)
         return y_hat, aux, perp
 
 
@@ -197,8 +192,8 @@ class Vocoder(nn.Module):
     def encode(self, c, tar_c=None, dtype=None):
         return c
 
-    def forward(self, x, c, g, *, train: bool = True, dtype=None, key=None, dropout_masks=None):
-        y_hat = self.wavenet.apply(x, c, g, train=train, dtype=dtype, key=key, dropout_masks=dropout_masks)
+    def forward(self, x, c, g, *, train: bool = True, dtype=None, key=None):
+        y_hat = self.wavenet.apply(x, c, g, train=train, dtype=dtype, key=key)
         return (y_hat, *_no_aux(y_hat))
 
     @torch.no_grad()
@@ -254,17 +249,15 @@ class VQWAE(WAEBase):
             return list(self.vq.codebooks)
         return [self.vq.codebook]
 
-    def _pre_vq(self, z, train, key, start):
+    def _pre_vq(self, z, train, key):
         """Instance norm, then VQ-dropout from ``sk`` of ``key, sk =
-        split(key)`` (or the given ``start``); returns (z, the key left for
-        the decoder), JAX ``_pre_vq``."""
+        split(key)``; returns (z, the key left for the decoder), JAX
+        ``_pre_vq``."""
         if self.ins_norm:
             z = bn.instance_norm(z)
-        if train and self.vq_drop and self.drop_dim > 0 and (key is not None or start is not None):
-            sk = None
-            if key is not None:
-                key, sk = jr.split(key)
-            z = bn.vq_dropout(z, self.drop_dim, start=start, key=sk)
+        if train and self.vq_drop and self.drop_dim > 0 and key is not None:
+            key, sk = jr.split(key)
+            z = bn.vq_dropout(z, self.drop_dim, key=sk)
         return z, key
 
     def _quantize(self, z, train: bool = False):
@@ -274,7 +267,7 @@ class VQWAE(WAEBase):
             return bn.sliced_vq_apply(self.vq, z, beta=self.beta, commit_scale=self.commit_scale)
         return bn.vq_apply(self.vq, z, beta=self.beta)
 
-    def _post_vq(self, q, train, dtype, key, u, jitter_scale):
+    def _post_vq(self, q, train, dtype, key, jitter_scale):
         """Time jitter from ``sk`` of a split of a local copy of ``key``, so
         the caller's key is unchanged (JAX ``_post_vq``): the decoder's
         first dropout split then draws from the jitter's key again, a reuse
@@ -283,29 +276,25 @@ class VQWAE(WAEBase):
         without one: as JAX computes ``prob·gate`` in f32 and draws either
         way, the jitter runs with probability 0 while the gate is shut (the
         identity, bit for bit), and the step reads no gate on the host."""
-        if train and self.use_time_jitter and (key is not None or u is not None):
+        if train and self.use_time_jitter and key is not None:
             prob = self.time_jitter_prob
             if jitter_scale is not None:
                 prob = jitter_scale * float(np.float32(prob))
-            sk = None if key is None else jr.split(key)[1]
-            q = bn.time_jitter(q, prob, per_side=self.time_jitter_per_side, u=u, key=sk)
+            q = bn.time_jitter(q, prob, per_side=self.time_jitter_per_side, key=jr.split(key)[1])
         if self.post_conv:
             q = conv1d_apply(self.post, q, padding=[(1, 1)], dtype=dtype)
         return q
 
-    def forward(self, x, c, g, *, train: bool = True, dtype=None, key=None, jitter_scale=None, noise=None,
-                dropout_masks=None):
+    def forward(self, x, c, g, *, train: bool = True, dtype=None, key=None, jitter_scale=None):
         """Training forward: encoder -> instance norm -> VQ-dropout -> VQ
         (straight-through; EMA statistics updated in place) -> time jitter ->
         post-conv -> teacher-forced decoder, the noise drawn from ``key`` as
         JAX's ``VQWAE.forward`` draws it. Returns (y_hat, vq_loss,
         perplexity). With ``reseed``, a training forward stashes what
         ``revive`` needs: the pre-VQ codes of the (global) batch and each
-        slice's code fractions. ``noise`` may hold the injected draws
-        ``drop_start`` (B, 1) and ``jitter_u`` (B, T')."""
-        noise = noise or {}
+        slice's code fractions."""
         z = self.encoder.apply(c, dtype=dtype)
-        z, key = self._pre_vq(z, train, key, noise.get("drop_start"))
+        z, key = self._pre_vq(z, train, key)
         q, vq_loss, perp, idx = self._quantize(z, train)
         if train and self.reseed:
             idxs = idx if idx.ndim == 3 else idx[..., None]
@@ -313,8 +302,8 @@ class VQWAE(WAEBase):
                       for i, s in enumerate(self._codebook_sizes())]
             flat = dist.all_gather_rows(z.reshape(-1, z.shape[-1]).detach().float())
             self._vq_diag = {"z": flat, "counts": counts}
-        q = self._post_vq(q, train, dtype, key, noise.get("jitter_u"), jitter_scale)
-        y_hat = self.wavenet.apply(x, q, g, train=train, dtype=dtype, key=key, dropout_masks=dropout_masks)
+        q = self._post_vq(q, train, dtype, key, jitter_scale)
+        y_hat = self.wavenet.apply(x, q, g, train=train, dtype=dtype, key=key)
         return y_hat, vq_loss, perp
 
     @torch.no_grad()

@@ -214,7 +214,7 @@ class WaveNet(nn.Module):
         return c
 
     def apply(self, x, c=None, g=None, *, softmax: bool = False, upsampled: bool = False,
-              train: bool = False, dtype=None, key: torch.Tensor | None = None, dropout_masks=None):
+              train: bool = False, dtype=None, key: torch.Tensor | None = None):
         """Teacher-forced forward.
 
         x: (B, T, in_channels) one-hot or (B, T, 1) scalar input, or (B, T)
@@ -222,10 +222,10 @@ class WaveNet(nn.Module):
         c: (B, T', cin) conditioning at frame rate (upsampled here unless
            ``upsampled``). g: (B,) int speaker ids or (B, gin) features.
         train: training mode: with ``dropout`` > 0, one keep mask per layer
-           on the layer's input, ``dropout_masks[i]`` when given, else drawn
-           from the key of ``key, sub = split(key)``, one split a layer (JAX
-           ``WaveNet.apply``). A net with dropout never takes the fused
-           stack (as in the JAX package), in training or not.
+           on the layer's input, drawn from the key of ``key, sub =
+           split(key)``, one split a layer (JAX ``WaveNet.apply``). A net
+           with dropout never takes the fused stack (as in the JAX
+           package), in training or not.
         dtype: compute dtype of the convs (None = f32 throughout).
         Returns logits/params (B, T, out_channels).
         """
@@ -249,8 +249,7 @@ class WaveNet(nn.Module):
                     key, sub = jr.split(key)
                 h, s = residual_glu_apply(
                     lp, h, c, g_feat, dilation=self.dilation(i),
-                    dropout=self.dropout if train else 0.0, key=sub,
-                    mask=None if dropout_masks is None else dropout_masks[i], dtype=dtype,
+                    dropout=self.dropout if train else 0.0, key=sub, dtype=dtype,
                 )
                 skips = skips + s
         skips = F.relu(skips * math.sqrt(1.0 / self.n_layers))

@@ -21,9 +21,9 @@ A replay writes into the tensors the capture saw: the state's parameters,
 Adam moments, EMA shadow and model buffers (checked before every replay:
 :class:`StatePointers` raises if one was rebound, as ``load_checkpoint``
 rebinds the moments and the shadow), and its outputs, so the metrics it
-returns are copies. The kernels' launch counters count in Python, so they
-see the capture and not the replays: the capture's change of each counter
-is undone and added once a replay.
+returns are copies. The kernels' launch counters (``kernels.COUNTERS``)
+count in Python, so they see the capture and not the replays: the
+capture's change of each counter is undone and added once a replay.
 
 The tracer (``utils.spans``) sees the eager first step (``step.warm``),
 the capture (``step.capture``, ``step.captures``), each replay's launch
@@ -39,19 +39,9 @@ import time
 
 import torch
 
-from wavenet_autoencoders_tpu_torch.kernels import glu_stack, threefry, upsample
+from wavenet_autoencoders_tpu_torch import kernels
 from wavenet_autoencoders_tpu_torch.utils import spans
 from wavenet_autoencoders_tpu_torch.utils.params import flatten_state
-
-#: the launch counters a step's body can move (K2, K3, K2's gate layers on
-#: the TMA + wgmma kernel, threefry, the upsampler's forward and backward):
-#: (module, attribute)
-COUNTERS = ((glu_stack, "LAUNCHES_FWD"), (glu_stack, "LAUNCHES_BWD"), (glu_stack, "LAUNCHES_GATE_WG"),
-            (threefry, "LAUNCHES"), (upsample, "LAUNCHES_FWD"), (upsample, "LAUNCHES_BWD"))
-
-
-def _counts() -> list[int]:
-    return [getattr(m, a) for m, a in COUNTERS]
 
 
 def node_count(graph) -> int:
@@ -105,8 +95,9 @@ class GraphedStep:
     """``metrics = graphed(body, state, batch)``: ``body(state, batch)`` as a
     CUDA graph on ``device`` (see the module's docstring), captured from the
     body of the second call. Batches must keep the first one's keys, shapes
-    and dtypes. ``capture_s`` is the capture's host time, ``launches`` each
-    counter's launches a replay makes (as ``COUNTERS``). It keeps no
+    and dtypes. ``capture_s`` is the capture's host time, ``launches`` the
+    launches a replay makes, {counter name: n} over ``kernels.COUNTERS``
+    (0 for a kernel the step never launches). It keeps no
     reference to ``body``, whose owner holds it: no cycle keeps a dead
     graph's memory."""
 
@@ -116,7 +107,7 @@ class GraphedStep:
         self.out: dict | None = None
         self.graph = None
         self.pointers: StatePointers | None = None
-        self.launches: list[int] | None = None
+        self.launches: dict[str, int] | None = None
         self.capture_s: float | None = None
 
     def __call__(self, body, state, batch: dict) -> dict:
@@ -155,7 +146,7 @@ class GraphedStep:
     def _capture(self, body, state) -> None:
         for p in state.params().values():
             p.grad = None  # autograd allocates the gradients in the graph's pool
-        before = _counts()
+        before = kernels.launches()
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept for its node count
         # a collection inside the capture could destroy an earlier graph
@@ -174,13 +165,11 @@ class GraphedStep:
         graph.instantiate()  # here, not in the first replay
         self.graph, self.capture_s = graph, time.perf_counter() - t0
         spans.level("graph.nodes", node_count(graph))
-        self.launches = [n - b for n, b in zip(_counts(), before)]
-        for (m, a), b in zip(COUNTERS, before):  # the capture launched nothing
-            setattr(m, a, b)
+        self.launches = {name: n - before[name] for name, n in kernels.launches().items()}
+        kernels.add_launches({name: -n for name, n in self.launches.items()})  # the capture launched nothing
         self.pointers = StatePointers(state)
 
     def _replay(self) -> None:
         with torch.cuda.device(self.device), spans.span("step.launch"):
             self.graph.replay()
-        for (m, a), n in zip(COUNTERS, self.launches):
-            setattr(m, a, getattr(m, a) + n)
+        kernels.add_launches(self.launches)

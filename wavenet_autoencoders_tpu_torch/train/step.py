@@ -191,9 +191,13 @@ class ReseedDraws:
             self.first = first
         return [t[step - first] for t in self.table]
 
-    def __call__(self, step: int):
-        words = self.words(step)
+    @staticmethod
+    def candidates(words: list[torch.Tensor]):
+        """``candidates(i, n)``: slice i's words mapped into [0, n)."""
         return lambda i, n: jr.randint_of_bits(words[i][0], words[i][1], 0, n)
+
+    def __call__(self, step: int):
+        return self.candidates(self.words(step))
 
 
 class StepInputs:
@@ -283,7 +287,7 @@ class TrainStep:
             return f"eager ({self.eager})"
         return f"CUDA graph, captured at step {step + 2} (step {step + 1} eager)"
 
-    def body(self, state: TrainState, batch: dict, forward_kw: dict | None = None, cand_idx=None) -> dict:
+    def body(self, state: TrainState, batch: dict) -> dict:
         """One step's device work, read from ``batch``, the state's tensors
         and :class:`StepInputs` alone: no read to the host, and no Python
         number that changes from step to step. Returns the metrics but the
@@ -298,7 +302,6 @@ class TrainStep:
         if self.jitter_start > 0:
             # the jitter gate: probability 0 before time_jitter_start
             extra["jitter_scale"] = inp.gate
-        extra.update(forward_kw or {})
         with dist.synced():
             ranks, _ = dist.global_rows()
             y_hat, aux, perp = model.forward(x, batch.get("c"), batch.get("g"), train=True, dtype=self.dtype, **extra)
@@ -345,12 +348,7 @@ class TrainStep:
             # dead-code revival after the update, from the forward's stash
             # (the same on every rank: global codes, the JAX step's key)
             if self.reseed:
-                if cand_idx is None:
-                    words = inp.words
-                    cands = lambda i, n: jr.randint_of_bits(words[i][0], words[i][1], 0, n)  # noqa: E731
-                else:
-                    cands = lambda i, n: cand_idx[i]  # noqa: E731
-                reseeded = self.vq.revive(inp.active != 0, cands)
+                reseeded = self.vq.revive(inp.active != 0, ReseedDraws.candidates(inp.words))
             else:
                 reseeded = torch.zeros((), device=self.device)
 
@@ -366,10 +364,7 @@ class TrainStep:
             "reseeded": reseeded,
         }
 
-    def __call__(self, state: TrainState, batch: dict, *, forward_kw: dict | None = None, cand_idx=None):
-        if self.runner is not None and (forward_kw or cand_idx is not None):
-            raise ValueError("forward_kw and cand_idx inject draws into an eager step: "
-                             "make_train_step(..., graph=False)")
+    def __call__(self, state: TrainState, batch: dict):
         step = state.step
         with spans.span("step", step=step):
             lr = self.schedule(step)
@@ -379,9 +374,9 @@ class TrainStep:
                 bc1=1.0 - ADAM_B1 ** count, bc2=1.0 - ADAM_B2 ** count,
                 ramp=min(max(step / self.warmup, 0.0), 1.0) if self.warmup > 0 else 1.0,
                 gate=1.0 if step >= self.jitter_start else 0.0,
-                words=self.draws.words(step) if self.draws is not None and cand_idx is None else None)
+                words=self.draws.words(step) if self.draws is not None else None)
             if self.runner is None:
-                metrics = self.body(state, batch, forward_kw, cand_idx)
+                metrics = self.body(state, batch)
             else:
                 metrics = self.runner(self.body, state, batch)
             spans.count_pinned_allocs()
@@ -408,10 +403,9 @@ def make_train_step(cfg: Config, model: nn.Module, graph: bool | None = None) ->
     then on, in place on the state it was captured with
     (``train.graph.GraphedStep``).
 
-    ``forward_kw`` adds keyword arguments to the model's forward (the
-    tests' injected noise: ``uniforms``, ``noise``, ``dropout_masks``);
-    ``cand_idx`` gives the reseed candidates (K indices per slice). Both
-    need an eager step."""
+    Every draw of the step comes from its key (see the module's
+    docstring): the model's forward takes it, and revival maps the reseed
+    words written into :class:`StepInputs`."""
     return TrainStep(cfg, model, graph)
 
 

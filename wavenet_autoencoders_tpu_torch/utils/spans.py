@@ -30,8 +30,8 @@ Counters: ``data.batches`` (batches made), ``step.replays``,
 host allocator created, read at the end of each ``step`` span). Levels,
 read whether or not the tracer is on and handed back with its records:
 ``graph.nodes`` (the last captured step graph's node count) and the
-kernels' launch counters (``kernels.decode.LAUNCHES``, ...), as they
-stand when ``records()`` is called.
+kernels' launch counters under their names in ``kernels.COUNTERS``, as
+they stand when ``records()`` is called.
 
 Off by default: ``span()`` then returns one shared no-op context manager
 and ``count()`` returns after one flag test; nothing is allocated and
@@ -52,6 +52,8 @@ import itertools
 import threading
 import time
 from typing import NamedTuple
+
+from wavenet_autoencoders_tpu_torch import kernels
 
 _ON = False
 _RECORDING: _Recording | None = None
@@ -237,14 +239,6 @@ def records() -> dict:
             j = bisect.bisect_right(own[sp.thread], (sp.start_ns, float("inf"))) - 1
             if j >= 0:
                 spans[i] = sp._replace(batch=own[sp.thread][j][1])
-    from wavenet_autoencoders_tpu_torch.kernels import decode, glu_stack, threefry, upsample
-
-    levels = {**_LEVELS, "kernels.decode.LAUNCHES": decode.LAUNCHES,
-              "kernels.glu_stack.LAUNCHES_FWD": glu_stack.LAUNCHES_FWD,
-              "kernels.glu_stack.LAUNCHES_BWD": glu_stack.LAUNCHES_BWD,
-              "kernels.glu_stack.LAUNCHES_GATE_WG": glu_stack.LAUNCHES_GATE_WG,
-              "kernels.threefry.LAUNCHES": threefry.LAUNCHES,
-              "kernels.upsample.LAUNCHES_FWD": upsample.LAUNCHES_FWD,
-              "kernels.upsample.LAUNCHES_BWD": upsample.LAUNCHES_BWD}
-    return {"spans": list(spans.values()), "counters": counters, "counts": counts, "levels": levels,
+    return {"spans": list(spans.values()), "counters": counters, "counts": counts,
+            "levels": {**_LEVELS, **kernels.launches()},
             "dropped": max(0, issued - len(s.buf))}
