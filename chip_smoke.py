@@ -47,13 +47,16 @@ Phases (each raises on failure, so the script exits non-zero):
    and two K3 calls bitwise equal; K2's gate pass took the TMA + wgmma
    kernel (``LAUNCHES_GATE_WG``, one a layer) in every bf16 case and in no
    f32 one, and that kernel's sigmoid equals ``sigmoidf`` on every bf16
-   input. (Phase 7 repeats the bf16 check at the main path's B=40 x
-   T=5120.)
+   input; K3's dx pass took the TMA + wgmma kernel (``LAUNCHES_DX_WG``, one
+   a layer) in every bf16 case and in no f32 one, and K3's outputs on that
+   route against K3 with the dx pass on ``gemm_pipe``, bit for bit or with
+   the largest difference printed. (Phase 7 repeats the bf16 check at the
+   main path's B=40 x T=5120.)
 6. Training through the port's CLI on ``cuda``: ``train --preset svqwae
    --hparams fused_stack=true --max-steps 3`` at B=40 x T=5120 in bf16 on a
    synthetic dump (48 utterances of 200 frames, 2 speakers). The K2/K3
    counters are zeroed before and read after (one launch each per step, and
-   20 gate layers on the TMA + wgmma kernel);
+   20 gate layers and 20 dx layers on the TMA + wgmma kernels);
    every loss and grad norm is finite; the checkpoint and its ``_ema``
    sibling exist; ``infer`` runs on it; the first step's loss and grad norm
    agree with the unfused train step's from the same init and batch.
@@ -809,7 +812,7 @@ def phase5(k2, k3):
     log(f"phase 5: the TMA gate kernel's sigmoid against sigmoidf on all 65536 bf16 inputs: {sig_bad} differ")
     if sig_bad != 0:
         raise AssertionError(f"the TMA gate kernel's sigmoid differs from sigmoidf on {sig_bad} bf16 inputs")
-    out, abs_err, gate_wg = {}, {"K2": 0.0, "K3": 0.0}, {}
+    out, abs_err, gate_wg, dx_wg, dx_vs_pipe = {}, {"K2": 0.0, "K3": 0.0}, {}, {}, {}
     # the no-conditioning case: K = 3C in the gate product, N = C in dx;
     # vocoder_raw's widths (the G = 256 tile) and cin 40 (a part-filled box)
     sv = dict(C=256, G=368, S=256, cin=64, L=20, stacks=2)
@@ -834,14 +837,22 @@ def phase5(k2, k3):
             fwd_again = K.glu_stack_forward(*args)
             p_skips, p_hfin, p_ab = K.glu_stack_forward_reference(*args)
             bargs = (c, ab, w["wconv"], w["wc"], w["wout"], w["bout"], w["wskip"], dils, cond)
+            n0 = K.LAUNCHES_DX_WG
             grads = K.glu_stack_backward(dskips, hfin, *bargs)
+            dxl = K.LAUNCHES_DX_WG - n0
             again = K.glu_stack_backward(dskips, hfin, *bargs)
+            with dx_on_gemm_pipe():
+                piped = K.glu_stack_backward(dskips, hfin, *bargs)
             plain = K.glu_stack_backward_reference(dskips, p_hfin, c, p_ab, *bargs[2:])
         torch.cuda.synchronize()
         errs, a2, a3 = glu_errors((skips, hfin, ab), (p_skips, p_hfin, p_ab), grads, plain)
         abs_err["K2"], abs_err["K3"] = max(abs_err["K2"], a2), max(abs_err["K3"], a3)
         bitwise = all(g is None or torch.equal(g, h) for g, h in zip(grads, again))
         bitwise2 = all(torch.equal(a, b) for a, b in zip((skips, hfin, ab), fwd_again))
+        # the dx route against gemm_pipe's: gy, which K3 does not return,
+        # feeds every later layer's dact and dW1 products
+        pipe_diff = {n: (g.float() - h.float()).abs().max().item() for n, g, h in zip(GLU_GRADS, grads, piped)
+                     if g is not None}
         if store == torch.float32:
             # K3 against autograd of the plain forward (leaves in GLU_GRADS order)
             leaves = [t.detach().clone().requires_grad_(True) for t in args[:-1]]
@@ -849,21 +860,39 @@ def phase5(k2, k3):
             (s * dskips).sum().backward()
             errs.update({f"{n}_vs_autograd": rel_err(g, t.grad) for n, g, t in zip(GLU_GRADS, grads, leaves)})
         case = f"B={B} T={T} {name}" + ("" if cond else " c=None g_add=None") + tag
-        log(f"phase 5: {case}: gate layers on the TMA kernel {gate}; bitwise-equal K2 reruns {bitwise2}, "
-            f"K3 reruns {bitwise}; rel errors {json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}")
+        log(f"phase 5: {case}: gate layers on the TMA kernel {gate}, dx layers {dxl}; bitwise-equal K2 reruns "
+            f"{bitwise2}, K3 reruns {bitwise}; K3 against its dx pass on gemm_pipe: "
+            f"{'bit for bit' if not any(pipe_diff.values()) else 'largest abs differences ' + json.dumps(pipe_diff)}; "
+            f"rel errors {json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}")
         check_glu(errs, name, case)
         if not (bitwise and bitwise2):
             raise AssertionError(f"two {'K3' if not bitwise else 'K2'} calls on the same inputs differ ({case})")
         want = wd["L"] if store == torch.bfloat16 else 0
         if gate != want:
             raise AssertionError(f"{case}: {gate} gate layers took the TMA kernel, expected {want}")
+        if dxl != want:
+            raise AssertionError(f"{case}: {dxl} dx layers took the TMA kernel, expected {want}")
         key = f"B{B}_T{T}_{name}" + ("" if cond else "_nocond") + tag.replace(" ", "_").replace("=", "")
-        out[key], gate_wg[key] = errs, gate
+        out[key], gate_wg[key], dx_wg[key], dx_vs_pipe[key] = errs, gate, dxl, pipe_diff
     k2["max_rel_err"] = {case: max(e[k] for k in FWD_OUTPUTS) for case, e in out.items()}
     k3["max_rel_err"] = {case: max(v for k, v in e.items() if k not in FWD_OUTPUTS) for case, e in out.items()}
     k2["max_abs_err"], k3["max_abs_err"] = abs_err["K2"], abs_err["K3"]
     k2["tolerances_rel"] = k3["tolerances_rel"] = TOL_GLU
     k2["gate_wg_launches"] = gate_wg
+    k3["dx_wg_launches"], k3["dx_route_vs_gemm_pipe_max_abs"] = dx_wg, dx_vs_pipe
+
+
+@contextlib.contextmanager
+def dx_on_gemm_pipe():
+    """K3's dx pass on gemm_pipe whatever ``dx_route`` says, inside the block."""
+    from wavenet_autoencoders_tpu_torch.kernels import glu_stack as K
+
+    route = K.dx_route
+    K.dx_route = lambda *a: "gemm_pipe"
+    try:
+        yield
+    finally:
+        K.dx_route = route
 
 
 # The upsampler's shapes: each preset's training batch, the frame
@@ -1102,7 +1131,8 @@ def phase6(k2, k3, tmp: Path):
 
     dump, ckpt, abx = tmp / "dump", tmp / "exp", tmp / "abx"
     dirs = make_dump(dump, np.random.default_rng(6))
-    K.LAUNCHES_FWD = K.LAUNCHES_BWD = K.LAUNCHES_GATE_WG = TF.LAUNCHES = UP.LAUNCHES_FWD = UP.LAUNCHES_BWD = 0
+    K.LAUNCHES_FWD = K.LAUNCHES_BWD = K.LAUNCHES_GATE_WG = K.LAUNCHES_DX_WG = 0
+    TF.LAUNCHES = UP.LAUNCHES_FWD = UP.LAUNCHES_BWD = 0
     t0 = time.perf_counter()
     with tee_stdout() as out:
         cli(["train", "--preset", "svqwae", "--hparams", "fused_stack=true", "--device", "cuda",
@@ -1114,11 +1144,13 @@ def phase6(k2, k3, tmp: Path):
     up_launches("svqwae_cli_train", (UP.LAUNCHES_FWD, UP.LAUNCHES_BWD), launches)
     log(f"phase 6: train 3 steps at B=40 x T=5120 bf16 through the CLI: {t1 - t0:.2f} s host clock "
         f"(build and data included); the step: {graph_form(out.getvalue(), 'phase 6')}; K2/K3 launches {launches} "
-        f"(a replay's counted), gate layers on the TMA kernel {K.LAUNCHES_GATE_WG}")
+        f"(a replay's counted), gate layers on the TMA kernel {K.LAUNCHES_GATE_WG}, dx layers {K.LAUNCHES_DX_WG}")
     if launches != (3, 3):
         raise AssertionError(f"K2/K3 launched {launches} times in 3 fused train steps, expected (3, 3)")
     if K.LAUNCHES_GATE_WG != 3 * 20:
         raise AssertionError(f"{K.LAUNCHES_GATE_WG} gate layers took the TMA kernel in 3 steps, expected 60")
+    if K.LAUNCHES_DX_WG != 3 * 20:
+        raise AssertionError(f"{K.LAUNCHES_DX_WG} dx layers took the TMA kernel in 3 steps, expected 60")
     # 48 utterances at B=40 make one step per epoch, so the epoch records hold
     # every step's loss; the step records (step 1, and the last) the grad norms
     recs = [json.loads(line) for line in (ckpt / "logs" / "metrics.jsonl").read_text().splitlines()]

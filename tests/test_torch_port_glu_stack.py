@@ -30,9 +30,11 @@ from _torch_port_util import nets  # noqa: E402
 from wavenet_autoencoders_tpu.kernels.glu_stack import fused_glu_stack  # noqa: E402
 from wavenet_autoencoders_tpu_torch.kernels import glu_stack as glu_stack_mod  # noqa: E402
 from wavenet_autoencoders_tpu_torch.kernels.glu_stack import (  # noqa: E402
+    DX_WG_WIDTHS,
     GATE_WG_WIDTHS,
     FusedGLUStack,
     check_widths,
+    dx_route,
     gate_perm,
     gate_route,
     glu_stack_backward_reference,
@@ -499,3 +501,129 @@ def test_gate_kernel_decomposition_matches_the_plain_gate_product(widths):
             got = gate_tile_emulated(x, c, wg, bconv[0], None if g_add is None else g_add[b, 0], d, b, t0, C, cin)
             rows = min(128, T - t0)
             assert rel(got[:rows].numpy(), p_ab[b, 0, t0 : t0 + rows].double().numpy()) < 1e-6
+
+
+# ---------------------------------------------------------------------------
+# K3's dx pass on the TMA + wgmma kernel: the route, the counter, and the
+# kernel's decomposition of the product and its epilogue, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+def test_dx_route_by_preset_and_storage(preset):
+    """bf16 storage takes the TMA + wgmma dx kernel at every preset's widths;
+    f32 storage keeps gemm_pipe (wgmma has no full-precision f32 product)."""
+    C, G, S, cin = preset_widths(preset)
+    check_widths(C, G, S, cin)
+    assert (C, cin) in DX_WG_WIDTHS
+    assert dx_route(C, G, S, cin, torch.bfloat16) == "tma_wgmma"
+    assert dx_route(C, G, S, cin, torch.float32) == "gemm_pipe"
+    # no conditioning: built for the residual width of 256
+    assert dx_route(C, G, S, 0, torch.bfloat16) == ("tma_wgmma" if (C, 0) in DX_WG_WIDTHS else "gemm_pipe")
+
+
+@pytest.mark.parametrize("C,cin", [(256, 32), (256, 72), (128, 64), (192, 64), (128, 0), (256, 60)])
+def test_dx_route_keeps_gemm_pipe_for_widths_the_kernel_is_not_built_for(C, cin):
+    assert (C, cin) not in DX_WG_WIDTHS
+    assert dx_route(C, 368, 256, cin, torch.bfloat16) == "gemm_pipe"
+
+
+def test_dx_launch_counter_is_a_graph_counter_and_a_tracer_level():
+    """A graph replay counts the dx kernel's layer launches (a counter of
+    kernels.COUNTERS) and the tracer's records carry the counter as a
+    level."""
+    from wavenet_autoencoders_tpu_torch import kernels
+    from wavenet_autoencoders_tpu_torch.utils import spans
+
+    assert "kernels.glu_stack.LAUNCHES_DX_WG" in kernels.COUNTERS
+    before = glu_stack_mod.LAUNCHES_DX_WG
+    try:
+        glu_stack_mod.LAUNCHES_DX_WG = 20
+        spans.enable()
+        spans.disable()
+        assert spans.records()["levels"]["kernels.glu_stack.LAUNCHES_DX_WG"] == 20
+        assert kernels.launches()["kernels.glu_stack.LAUNCHES_DX_WG"] == 20
+    finally:
+        glu_stack_mod.LAUNCHES_DX_WG = before
+        spans.reset()
+
+
+def test_dx_kernel_counts_no_launch_on_the_plain_version():
+    vals, probe = make_inputs(12)
+    args = [None if v is None else torch.tensor(v).to(torch.bfloat16 if i in (0, 1) else torch.float32)
+            for i, v in enumerate(vals)]
+    _, hfin, ab = glu_stack_forward(*args, DILS4)
+    before = glu_stack_mod.LAUNCHES_DX_WG
+    glu_stack_mod.glu_stack_backward(torch.tensor(probe).to(torch.bfloat16), hfin, args[1], ab, args[3], args[5],
+                                     args[6], args[7], args[8], DILS4, True)
+    assert glu_stack_mod.LAUNCHES_DX_WG == before
+
+
+def dx_tile_emulated(dabs, wx_l, d, b, t0, C, cin):
+    """One 128-row tile of the TMA dx kernel's products, emulated: the
+    producer's k-stages (tap j = 0, 1, 2 of dabs, boxes at t0 + (2 - j) d,
+    ceil(G/64) of them a tap, zeros past T and past G), each against the
+    weight stage read from wx as (C + cin, 3, G) with the tap a dimension
+    of its own (zeros past G there too): the C dx rows on every k-stage,
+    the cin dc rows only on the unshifted tap's. Returns the dx and dc
+    products (128, C) and (128, cin), f64."""
+    N, G3 = wx_l.shape
+    G = G3 // 3
+    w = torch.nn.functional.pad(wx_l.reshape(N, 3, G), (0, 64)).double()  # past G: zeros
+    px = torch.zeros(128, C, dtype=torch.float64)
+    pc = torch.zeros(128, cin, dtype=torch.float64)
+    for j in range(3):
+        for col in range(0, G, 64):
+            a = tma_box(dabs, col, t0 + (2 - j) * d, b).double()
+            px += a @ w[:C, j, col : col + 64].T
+            if j == 2 and cin:
+                pc += a @ w[C:, j, col : col + 64].T
+    return px, pc
+
+
+@pytest.mark.parametrize("widths", [(256, 368, 64), (256, 368, 40), (256, 368, 128), (128, 256, 80)],
+                         ids=["svqwae", "cin40", "cin128", "vocoder_raw"])
+def test_dx_kernel_decomposition_matches_the_plain_backward(widths):
+    """The TMA dx kernel's tiles (zero-filled boxes of future rows, the
+    weight stage with its tap a dimension of its own, dc products on the
+    unshifted tap alone) and its epilogue (dx = dx/sqrt 2 + v, gy = dx/sqrt
+    2, dc written at the walk's first layer and accumulated after) give the
+    plain backward's dx, gy and dc over two layers, at T not a multiple of
+    128 (a ragged last tile) and 2d >= 128 (the t + 2d box leaves the batch
+    row in the last tiles)."""
+    C, G, cin = widths
+    B, T, dils = 2, 300, (80, 70)
+    rng = np.random.default_rng(23)
+
+    def mk(*shape):
+        return torch.from_numpy((0.3 * rng.standard_normal(shape)).astype(np.float32))
+
+    wconv, wc = mk(2, 3, C, G), mk(2, cin, G)
+    wx = pack_weights(wconv, wc, mk(2, G // 2, C), mk(2, G // 2, 8), torch.float32)["wx"]
+    dabs = [mk(B, T, G), mk(B, T, G)]
+    # the plain backward's dx and dc lines (glu_stack_backward_reference), in
+    # the walk's order l = 1, 0; dx starts at 0
+    dx, dc, want = torch.zeros(B, T, C, dtype=torch.float64), None, {}
+    for l in (1, 0):
+        d, dab = dils[l], dabs[l].double()
+        dabp = torch.nn.functional.pad(dab, (0, 0, 0, 2 * d))
+        dx = dx * RS_ + sum(dabp[:, sh : sh + T] @ wconv[l, j].double().T
+                            for j, sh in enumerate((2 * d, d, 0)))
+        dct = dab @ wc[l].double().T
+        dc = dct if dc is None else dc + dct
+        want[l] = (dx.clone(), dx * RS_, dc.clone())
+    # the kernel: a tile at a time, the epilogue on the tile's valid rows;
+    # dx starts at 0 and dc uninitialised, as the backward allocates them
+    gx, gc = torch.zeros(B, T, C, dtype=torch.float64), 1e3 * mk(B, T, cin).double()
+    for l in (1, 0):
+        for b in range(B):
+            for t0 in range(0, T, 128):
+                px, pc = dx_tile_emulated(dabs[l], wx[l], dils[l], b, t0, C, cin)
+                rows = min(128, T - t0)
+                gx[b, t0 : t0 + rows] = gx[b, t0 : t0 + rows] * RS_ + px[:rows]
+                gc[b, t0 : t0 + rows] = pc[:rows] if l == 1 else gc[b, t0 : t0 + rows] + pc[:rows]
+        for got, ref in zip((gx, gx * RS_, gc), want[l]):
+            assert rel(got.numpy(), ref.numpy()) < 1e-9
+
+
+RS_ = 0.5 ** 0.5

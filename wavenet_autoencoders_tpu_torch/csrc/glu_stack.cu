@@ -53,7 +53,8 @@
 // B=40 x T=5120: K2 does 2*(832*368 + 184*512) = 800,768 FLOP per row and
 // layer, 3.28 TFLOP in all, 3.32 ms at the 989 TFLOP/s bf16 tensor-core
 // peak; the bytes it must write (ab) take 0.90 ms at 3.35 TB/s. K3 does
-// 6.95 TFLOP, 7.02 ms. Both are bound by operations. Every product is one
+// 6.95 TFLOP, 7.02 ms. Both are bound by operations. Every product but
+// two, in bf16 storage K2's gate pass and K3's dx pass (below), runs on one
 // pipelined core (gemm_pipe): 128 x 128 output tiles, a ring of k-stages in
 // dynamic shared memory filled by 16-byte cp.async (zero-fill at the edges
 // and past a batch row's edge), fragments by ldmatrix (.trans for operands
@@ -84,6 +85,28 @@
 // consumers run the next tile's products (the consumers take a third of
 // the pairs themselves, between k-steps; see below).
 //
+// K3's dx pass in bf16 storage has one too (dx_tma_wgmma, below;
+// kernels/glu_stack.py:dx_route picks it). At svqwae's B=40 x T=5120 its
+// products are 2 x 4.1 M rows x (256 x 1104 + 64 x 368) = 2.51 TFLOP a
+// step, 2.54 ms at 989 TFLOP/s; its epilogue's bytes, the f32 read and
+// write of dx, the bf16 gy and the f32 read and write of dc (3 KB a row),
+// 12.6 GB a step, 3.76 ms at 3.35 TB/s; and dabs, read once, 3.0 GB, 0.9 ms.
+// So its floor, ~4.7 ms, is set by bytes, not by products. On gemm_pipe
+// (12.05 ms) each 128 x 128 tile re-read A, 1104 deep for the two dx
+// column tiles and 368 for the dc tile, ~42 GB a step from L2, with
+// mma.sync and per-thread tap arithmetic. The TMA kernel takes the gate
+// kernel's answers for the products: one tile over all C + cin columns, so
+// the three taps of dabs are read once a tile; TMA boxes for the taps
+// (future rows here, zeros past a batch row's end and past G); the weight
+// stage multicast over a cluster of two; wgmma in two consumer warpgroups.
+// For the epilogue's bytes, the larger part of the floor, its tile is 64
+// rows, one consumer warpgroup's, and the two consumers take tiles in
+// turns: one's epilogue loads and stores dx, gy and dc while the other
+// runs its products, so device memory is busy during the products and not
+// after them. The price is weight bytes: a stage serves 64 rows, so a step
+// reads ~30 GB from L2 (~20 with 128-row tiles) and its products alone take
+// ~6.2 ms (4.5 with 128-row tiles); the whole pass ~7.7 ms (H100 SXM).
+//
 // Storage S is f32 or bf16 (template): x, c, weights, ab, skips, dskips and
 // the operand buffers above. Biases, g_add, h, skip, dx, dab, dc and all
 // gradients are f32. Every width (C, G/2, S, cin) is a multiple of 8 (16-byte
@@ -109,7 +132,7 @@
 
 // Mirrored field for field (all 8-byte) by _GluArgs in kernels/glu_stack.py.
 struct GluArgs {
-  int64_t B, T, L, C, G, S, CIN, store_bf16, has_c, has_g, gate_wg;
+  int64_t B, T, L, C, G, S, CIN, store_bf16, has_c, has_g, gate_wg, dx_wg;
   int64_t dil[MAXL];
   const void* x;
   const void* c;
@@ -776,6 +799,14 @@ __device__ __forceinline__ void tma3_mc(const CUtensorMap* m, uint32_t dst, uint
       "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "h"(mask)
       : "memory");
 }
+__device__ __forceinline__ void tma4_mc(const CUtensorMap* m, uint32_t dst, uint32_t bar, int c0, int c1, int c2,
+                                        int c3, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2], %7;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "h"(mask)
+      : "memory");
+}
 
 // The wgmma descriptor of a K-major bf16 operand stored as TMA's 128-byte
 // swizzle writes it: rows of 128 bytes, 8-row atoms 1024 bytes apart (SBO),
@@ -828,6 +859,57 @@ __device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t da, uin
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
       "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
       : WG_R16(0), WG_R16(16), WG_R16(32), WG_R16(48)
+      : "l"(da), "l"(db), "r"(acc));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16<256>(float (&d)[128], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : WG_R16(0), WG_R16(16), WG_R16(32), WG_R16(48), WG_R16(64), WG_R16(80), WG_R16(96), WG_R16(112)
+      : "l"(da), "l"(db), "r"(acc));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16<80>(float (&d)[40], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+      : WG_R16(0), WG_R16(16), WG_R4(32), WG_R4(36)
+      : "l"(da), "l"(db), "r"(acc));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_R16(0), WG_R16(16)
+      : "l"(da), "l"(db), "r"(acc));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16<40>(float (&d)[20], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19"
+      "}, %20, %21, p, 1, 1, 0, 0;\n}\n"
+      : WG_R16(0), WG_R4(16)
       : "l"(da), "l"(db), "r"(acc));
 }
 #undef WG_R16
@@ -1193,17 +1275,29 @@ static EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The map of a row-major bf16 array (d2, d1, d0): boxes of 64 x rows x 1,
-// stored with the 128-byte swizzle, zeros outside the array.
-static cudaError_t tmap3(CUtensorMap* m, const void* p, uint64_t d0, uint64_t d1, uint64_t d2, uint32_t rows) {
+// The map of a row-major bf16 array of rank n (dims[0] the contiguous
+// dimension): boxes of box[0] x ... x box[n - 1], box[0] = 64 (one 128-byte
+// swizzle row), stored with the 128-byte swizzle, zeros outside the array.
+static cudaError_t tmap(CUtensorMap* m, const void* p, int n, const uint64_t* dims, const uint32_t* box) {
   const EncodeTiled f = encode_tiled();
   if (!f) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {d0, d1, d2}, strides[2] = {d0 * 2, d0 * d1 * 2};
-  const cuuint32_t box[3] = {GW_BK, rows, 1}, es[3] = {1, 1, 1};
-  const CUresult r = f(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p), dims, strides, box, es,
+  cuuint64_t d[4], strides[3];
+  cuuint32_t bx[4], es[4];
+  uint64_t s = 2;  // bytes of one element, then of one step along dimension i
+  for (int i = 0; i < n; ++i) {
+    if (i) strides[i - 1] = s;
+    d[i] = dims[i], bx[i] = box[i], es[i] = 1, s *= dims[i];
+  }
+  const CUresult r = f(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, n, const_cast<void*>(p), d, strides, bx, es,
                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+// (d2, d1, d0) in boxes of 64 x rows x 1
+static cudaError_t tmap3(CUtensorMap* m, const void* p, uint64_t d0, uint64_t d1, uint64_t d2, uint32_t rows) {
+  const uint64_t dims[3] = {d0, d1, d2};
+  const uint32_t box[3] = {GW_BK, rows, 1};
+  return tmap(m, p, 3, dims, box);
 }
 
 // The maps of one forward call: x, hb, c and the gate weights.
@@ -1211,11 +1305,12 @@ struct GateMaps {
   CUtensorMap x, hb, c, w;
 };
 
-template <int NH>
-static cudaError_t launch_gate_tma(const GateOp<__nv_bfloat16>& op, const GateMaps& mp, cudaStream_t st) {
-  constexpr int CL = GW_CLUSTER;
-  auto kern = gate_tma_wgmma<GateOp<__nv_bfloat16>, NH, CL>;
-  constexpr int smem = GateGeo<NH>::SMEM;
+// Launches a persistent kernel of GW_THREADS threads a block, in clusters of
+// CL along the rows, over ntiles row tiles: as many clusters as the card
+// holds at once (resident, the kernel's own, found at its first launch), or
+// fewer.
+template <int CL, class Kern, class... A>
+static cudaError_t launch_clusters(Kern kern, int smem, int ntiles, int& resident, cudaStream_t st, const A&... args) {
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr[1];
@@ -1223,7 +1318,6 @@ static cudaError_t launch_gate_tma(const GateOp<__nv_bfloat16>& op, const GateMa
   attr[0].val.clusterDim.x = CL, attr[0].val.clusterDim.y = 1, attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.blockDim = dim3(GW_THREADS), cfg.dynamicSmemBytes = smem, cfg.stream = st, cfg.attrs = attr, cfg.numAttrs = 1;
-  static int resident = 0;  // clusters the card holds at once: the persistent grid
   if (!resident) {
     int dev = 0, sms = 0;
     if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
@@ -1232,9 +1326,17 @@ static cudaError_t launch_gate_tma(const GateOp<__nv_bfloat16>& op, const GateMa
     if ((e = cudaOccupancyMaxActiveClusters(&resident, kern, &cfg)) != cudaSuccess) return e;
     if (resident < 1) return cudaErrorInvalidConfiguration;
   }
-  const int ntiles = op.M / op.T * ((op.T + GW_BM - 1) / GW_BM), npairs = (ntiles + CL - 1) / CL;
+  const int npairs = (ntiles + CL - 1) / CL;
   cfg.gridDim = dim3((npairs < resident ? npairs : resident) * CL);
-  return cudaLaunchKernelEx(&cfg, kern, op, op.l == 0 ? mp.x : mp.hb, mp.c, mp.w);
+  return cudaLaunchKernelEx(&cfg, kern, args...);
+}
+
+template <int NH>
+static cudaError_t launch_gate_tma(const GateOp<__nv_bfloat16>& op, const GateMaps& mp, cudaStream_t st) {
+  static int resident = 0;
+  const int ntiles = op.M / op.T * ((op.T + GW_BM - 1) / GW_BM);
+  return launch_clusters<GW_CLUSTER>(gate_tma_wgmma<GateOp<__nv_bfloat16>, NH, GW_CLUSTER>, GateGeo<NH>::SMEM,
+                                     ntiles, resident, st, op, op.l == 0 ? mp.x : mp.hb, mp.c, mp.w);
 }
 
 // The gate pass's route: the TMA kernel where GluArgs::gate_wg says so
@@ -1391,9 +1493,14 @@ template <typename S>
 struct DxOp : Pass<S> {
   static constexpr bool WGRAD = false;
   int C, CIN, first;
+  int T, G, l, d;  // the TMA route's loads: dabs (B, T, G), the layer and its dilation
   float* dx;
   S* gy;
   float* dc;
+  // the new dx from the old one and the product v; gy = S(g): both routes'
+  // arithmetic
+  __device__ __forceinline__ static float next(float old, float v) { return old * RS + v; }
+  __device__ __forceinline__ static float gy_of(float x) { return x * RS; }
   // a tile of dc columns only: wx is zero in the two shifted taps
   __device__ __forceinline__ int first_seg(int n0) const { return n0 >= C ? 2 : 0; }
   __device__ __forceinline__ void epi(int, int64_t, int m, int n, const float* v) const {
@@ -1402,10 +1509,10 @@ struct DxOp : Pass<S> {
       const int64_t o = (int64_t)m * C + n;
       ld8(dx + o, p);
 #pragma unroll
-      for (int k = 0; k < 8; ++k) p[k] = p[k] * RS + v[k];
+      for (int k = 0; k < 8; ++k) p[k] = next(p[k], v[k]);
       st8(dx + o, p);
 #pragma unroll
-      for (int k = 0; k < 8; ++k) p[k] *= RS;
+      for (int k = 0; k < 8; ++k) p[k] = gy_of(p[k]);
       st8(gy + o, p);
     } else {
       float* q = dc + (int64_t)m * CIN + (n - C);
@@ -1420,6 +1527,231 @@ struct DxOp : Pass<S> {
     }
   }
 };
+
+// ---- K3's dx pass on TMA and wgmma (bf16 storage) ----------------------------
+// A persistent kernel over DX_BM-row tiles of one batch row each (a ragged
+// last tile where T is not a multiple of DX_BM), every tile over all NC = C
+// dx columns and all NI = CIN dc columns, so that the three taps of dabs
+// are read once a tile, in two roles:
+// - the producer, one thread of warp 0: TMA loads from a 3-D map (G, T, B)
+//   of dabs, one 64-deep box a k-stage, the taps at t0 + 2d, t0 + d and t0
+//   (TMA's out-of-bounds fill gives the zeros past a batch row's end and
+//   past G in a tap's last box), and the layer's weight stage from 4-D maps
+//   (G, 3, C + CIN, L) of wx, whose tap is a dimension of its own, so that a
+//   tap's last box reads zeros past G in the weights too: the dx rows, each
+//   half loaded by one block of a cluster of DX_CLUSTER and multicast to
+//   both, and on the unshifted tap's k-stages the dc rows, loaded by block 0
+//   and multicast. It loads the block's tiles one after another through
+//   one ring of stages.
+// - the consumers, warpgroups 1 and 2, which take the block's tiles in
+//   turns (ping-pong): wgmma m64 x NC x 16 on every k-step of a tile and
+//   m64 x NI x 16 on its unshifted tap's (wx's dc rows are zero in the
+//   shifted taps, which gemm_pipe's first_seg skips too), 128-byte swizzled
+//   K-major operands in shared memory, NC/2 + NI/2 accumulators a thread,
+//   one k-step's products in flight while the next is issued. Then the
+//   epilogue from the registers, while the other warpgroup runs the next
+//   tile's products: dx = dx/sqrt 2 + v, gy = S(dx/sqrt 2) (DxOp::next,
+//   gy_of), and dc = v at the walk's first layer, else dc += v, 8-byte
+//   loads and stores of the lane's column pairs. So the epilogue's traffic
+//   to device memory runs beside the products, not after them.
+// The k order a tap (taps t+2d, t+d, t; 64-deep boxes, 16 deep a product)
+// and the roundings are gemm_pipe's, so the outputs are too, bit for bit.
+// Warps 1-3 have no role. (Both consumers on one 128-row tile, as in the
+// gate kernel, halve the weight bytes a row but leave each tile's epilogue
+// after its products, when every SM stores at once: 10.1 against 7.7 ms
+// at svqwae's B=40 x T=5120 on an H100 SXM.)
+
+#define DX_BM 64      // rows of a tile: one consumer warpgroup's
+#define DX_CLUSTER 2  // blocks of a cluster along the rows, sharing the weight stage
+#define DX_EJ 16      // 8-column groups of a row whose old dx a consumer lane loads at once
+
+// Shared memory of the kernel for NC dx and NI dc columns: STAGES k-stages
+// of A (64 x 64), the dx rows (NC x 64) and the dc rows (NI x 64) of the
+// weights, then the barriers.
+template <int NC, int NI>
+struct DxGeo {
+  static constexpr int A_BYTES = DX_BM * GW_BK * 2, X_BYTES = NC * GW_BK * 2, I_BYTES = NI * GW_BK * 2;
+  static constexpr int STAGE = A_BYTES + X_BYTES + I_BYTES;
+  static constexpr int STAGES = (232448 - 1024 - 16) / (STAGE + 16);
+  static constexpr int SMEM = 1024 + STAGES * (STAGE + 16) + 16;  // 1024: alignment slack
+  static_assert(X_BYTES % (1024 * DX_CLUSTER) == 0 && I_BYTES % 1024 == 0,
+                "each block's part of the weight stage starts on a swizzle atom");
+};
+
+// The dx pass of layer op.l: ta is the map of dabs (boxes of DX_BM rows), tx
+// of wx's dx rows (boxes of NC / CL rows), ti of its dc rows (NI rows).
+template <class Op, int NC, int NI, int CL>
+__global__ void __launch_bounds__(GW_THREADS, 1)
+    dx_tma_wgmma(const Op op, const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tx,
+                 const __grid_constant__ CUtensorMap ti) {
+  static_assert(CL > 1, "the weight stage is multicast over the cluster");
+  using DG = DxGeo<NC, NI>;
+  constexpr int STAGES = DG::STAGES;
+  extern __shared__ unsigned char gw_raw[];
+  const uint32_t raw = smem_addr(gw_raw), base = (raw + 1023) & ~1023u;
+  // barriers: full and empty a stage; turn, a tile's last stage landed
+  // (its warpgroup -> the other one, whose tile's first stages follow)
+  const uint32_t full0 = base + STAGES * DG::STAGE, empty0 = full0 + 8 * STAGES, turn = empty0 + 8 * STAGES;
+  auto a_at = [&](int s) { return base + s * DG::STAGE; };
+  auto w_at = [&](int s) { return base + s * DG::STAGE + DG::A_BYTES; };
+
+  const int kbg = (op.G + GW_BK - 1) / GW_BK, nkb = 3 * kbg;  // k-stages a tap, a tile
+  const int ntt = (op.T + DX_BM - 1) / DX_BM, ntiles = op.M / op.T * ntt, npairs = (ntiles + CL - 1) / CL;
+  uint32_t rank, cid, ncl;
+  asm("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  asm("mov.u32 %0, %%clusterid.x;\n" : "=r"(cid));
+  asm("mov.u32 %0, %%nclusterid.x;\n" : "=r"(ncl));
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(full0 + 8 * s, 1), mbar_init(empty0 + 8 * s, 4 * CL);
+    mbar_init(turn, 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+
+  if (threadIdx.x < 128) {  // the producer: one thread
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x != 0) return;
+    constexpr uint16_t mask = (uint16_t)((1 << CL) - 1);
+    int s = 0;
+    uint32_t ph = 0;
+    for (int p = cid; p < npairs; p += ncl) {
+      const int q = min(p * CL + (int)rank, ntiles - 1);  // a tile past the end: any rows, never stored
+      const int b = q / ntt, t0 = (q - b * ntt) * DX_BM;
+      for (int kb = 0; kb < nkb; ++kb) {
+        mbar_wait(empty0 + 8 * s, ph ^ 1);
+        const uint32_t full = full0 + 8 * s;
+        const int j = kb / kbg, col = (kb - j * kbg) * GW_BK;  // tap j: dabs rows t + (2 - j) d
+        const bool dc = NI > 0 && j == 2;
+        mbar_expect_tx(full, DG::A_BYTES + DG::X_BYTES + (dc ? DG::I_BYTES : 0));
+        tma3(&ta, a_at(s), full, col, t0 + (2 - j) * op.d, b);
+        tma4_mc(&tx, w_at(s) + rank * (DG::X_BYTES / CL), full, col, j, rank * (NC / CL), op.l, mask);
+        if (dc && rank == 0) tma4_mc(&ti, w_at(s) + DG::X_BYTES, full, col, 2, NC, op.l, mask);
+        if (++s == STAGES) s = 0, ph ^= 1;
+      }
+    }
+    // every stage released by the consumers of every block of the cluster
+    // before this block exits: no remote arrival lands after it
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_wait(empty0 + 8 * s, ph ^ 1);
+      if (++s == STAGES) s = 0, ph ^= 1;
+    }
+    return;
+  }
+
+  // a consumer warpgroup: the block's tiles cw, cw + 2, ...; rows 16 wi +
+  // [0, 16) of a tile, lane's rows r8 and r8 + 8
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int cw = threadIdx.x / 128 - 1, wi = (threadIdx.x >> 5) & 3, q4 = lane & 3, r8 = lane >> 2;
+  float ax[NC / 2], ai[NI > 0 ? NI / 2 : 1];
+  for (int p = cid + cw * ncl, k = cw; p < npairs; p += 2 * ncl, k += 2) {
+    const int q = p * CL + (int)rank;
+    // the ring's place of the tile's first k-stage: the block's k-th tile.
+    // A full barrier's parity names its phase only once the stage's previous
+    // load (STAGES k-stages back) has landed: for the tile's first stages,
+    // those of tile k - 1, which the turn barrier's phase k - 1 reports.
+    int s = (int)(((int64_t)k * nkb) % STAGES), done = 0;  // done: the stage whose products are in flight
+    uint32_t ph = (uint32_t)(((int64_t)k * nkb / STAGES) & 1);
+    if (k > 0) mbar_wait(turn, (k - 1) & 1);
+    for (int kb = 0; kb < nkb; ++kb) {
+      mbar_wait(full0 + 8 * s, ph);
+      if (kb == nkb - 1 && lane == 0) mbar_arrive<1>(turn, 0);
+      const uint64_t da = sw128_desc(a_at(s)), dbx = sw128_desc(w_at(s));
+      fence_acc(ax);
+      if constexpr (NI > 0) fence_acc(ai);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < GW_BK / 16; ++kk) wgmma_bf16<NC>(ax, da + 2 * kk, dbx + 2 * kk, kb | kk);
+      if constexpr (NI > 0) {
+        if (kb >= 2 * kbg) {
+          const uint64_t dbi = sw128_desc(w_at(s) + DG::X_BYTES);
+#pragma unroll
+          for (int kk = 0; kk < GW_BK / 16; ++kk) wgmma_bf16<NI>(ai, da + 2 * kk, dbi + 2 * kk, (kb - 2 * kbg) | kk);
+        }
+      }
+      wgmma_commit();
+      // the previous k-step's products are done: its stage goes back
+      wgmma_wait<1>();
+      fence_acc(ax);
+      if constexpr (NI > 0) fence_acc(ai);
+      if (kb > 0 && lane < CL) mbar_arrive<CL>(empty0 + 8 * done, lane);
+      done = s;
+      if (++s == STAGES) s = 0, ph ^= 1;
+    }
+    wgmma_wait<0>();
+    fence_acc(ax);
+    if constexpr (NI > 0) fence_acc(ai);
+    if (lane < CL) mbar_arrive<CL>(empty0 + 8 * done, lane);
+    if (q >= ntiles) continue;
+
+    const int b = q / ntt, tr = (q - b * ntt) * DX_BM + 16 * wi + r8;  // the lane's first row in batch row b
+    const int64_t m = (int64_t)b * op.T + tr;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      if (tr + 8 * rr >= op.T) continue;
+      float* xr = op.dx + (m + 8 * rr) * NC + 2 * q4;
+      __nv_bfloat16* gr = op.gy + (m + 8 * rr) * NC + 2 * q4;
+#pragma unroll
+      for (int j0 = 0; j0 < NC / 8; j0 += DX_EJ) {
+        float2 o[DX_EJ];
+#pragma unroll
+        for (int jj = 0; jj < DX_EJ; ++jj) o[jj] = *reinterpret_cast<const float2*>(xr + 8 * (j0 + jj));
+#pragma unroll
+        for (int jj = 0; jj < DX_EJ; ++jj) {
+          const int j = j0 + jj;
+          const float x0 = Op::next(o[jj].x, ax[4 * j + 2 * rr]), x1 = Op::next(o[jj].y, ax[4 * j + 2 * rr + 1]);
+          *reinterpret_cast<float2*>(xr + 8 * j) = make_float2(x0, x1);
+          *reinterpret_cast<uint32_t*>(gr + 8 * j) = pack_bf2(Op::gy_of(x0), Op::gy_of(x1));
+        }
+      }
+      if constexpr (NI > 0) {
+        float* cr = op.dc + (m + 8 * rr) * NI + 2 * q4;
+        float2 o[NI / 8];
+#pragma unroll
+        for (int j = 0; j < NI / 8; ++j)
+          o[j] = op.first ? make_float2(0.0f, 0.0f) : *reinterpret_cast<const float2*>(cr + 8 * j);
+#pragma unroll
+        for (int j = 0; j < NI / 8; ++j) {
+          float2 v = make_float2(ai[4 * j + 2 * rr], ai[4 * j + 2 * rr + 1]);
+          if (!op.first) v.x = o[j].x + v.x, v.y = o[j].y + v.y;
+          *reinterpret_cast<float2*>(cr + 8 * j) = v;
+        }
+      }
+    }
+  }
+}
+
+// The maps of one backward call: dabs, wx's dx rows and its dc rows.
+struct DxMaps {
+  CUtensorMap a, x, i;
+};
+
+template <int NC, int NI>
+static cudaError_t launch_dx_tma(const DxOp<__nv_bfloat16>& op, const DxMaps& mp, cudaStream_t st) {
+  static int resident = 0;
+  const int ntiles = op.M / op.T * ((op.T + DX_BM - 1) / DX_BM);
+  return launch_clusters<DX_CLUSTER>(dx_tma_wgmma<DxOp<__nv_bfloat16>, NC, NI, DX_CLUSTER>, DxGeo<NC, NI>::SMEM,
+                                     ntiles, resident, st, op, mp.a, mp.x, mp.i);
+}
+
+// The dx pass's route: the TMA kernel where GluArgs::dx_wg says so
+// (kernels/glu_stack.py:dx_route, at the widths instantiated here), else
+// gemm_pipe.
+template <typename S>
+static cudaError_t launch_dx(const DxOp<S>& o, const DxMaps* mp, cudaStream_t st) {
+  if constexpr (std::is_same<S, __nv_bfloat16>::value) {
+    if (mp) {
+      if (o.C == 256 && o.CIN == 64) return launch_dx_tma<256, 64>(o, *mp, st);
+      if (o.C == 256 && o.CIN == 40) return launch_dx_tma<256, 40>(o, *mp, st);
+      if (o.C == 256 && o.CIN == 128) return launch_dx_tma<256, 128>(o, *mp, st);
+      if (o.C == 256 && o.CIN == 0) return launch_dx_tma<256, 0>(o, *mp, st);
+      if (o.C == 128 && o.CIN == 80) return launch_dx_tma<128, 80>(o, *mp, st);
+      return cudaErrorInvalidValue;
+    }
+  }
+  return launch_gemm(o, 1, st);
+}
 
 // ---- the second pass of a weight gradient: add the chunks in order ----------
 struct W1Store {
@@ -1535,6 +1867,16 @@ static cudaError_t backward_impl(const GluArgs& a) {
   cudaError_t e;
 #define CHECK(x)                      \
   if ((e = (x)) != cudaSuccess) return e;
+  DxMaps dmaps;
+  const DxMaps* dmp = nullptr;
+  if (std::is_same<S, __nv_bfloat16>::value && a.dx_wg) {
+    const uint64_t wdims[4] = {(uint64_t)G, 3, (uint64_t)(C + CIN), (uint64_t)L};  // wx (L, C+cin, 3, G)
+    const uint32_t xbox[4] = {GW_BK, 1, (uint32_t)(C / DX_CLUSTER), 1}, ibox[4] = {GW_BK, 1, (uint32_t)(CIN ? CIN : 8), 1};
+    CHECK(tmap3(&dmaps.a, a.dabs, G, T, B, DX_BM));
+    CHECK(tmap(&dmaps.x, a.wx, 4, wdims, xbox));
+    CHECK(tmap(&dmaps.i, a.wx, 4, wdims, ibox));
+    dmp = &dmaps;
+  }
 
   // dbskip is the same sum for every layer
   DskipCol<S> ds;
@@ -1619,8 +1961,9 @@ static cudaError_t backward_impl(const GluArgs& a) {
     dxo.B = operand<S>(T);
     add_seg(dxo.B, (const S*)a.wx + (int64_t)l * (C + CIN) * 3 * G, 3 * G, 3 * G, 0);
     dxo.C = C, dxo.CIN = CIN, dxo.first = l == L - 1;
+    dxo.T = T, dxo.G = G, dxo.l = l, dxo.d = d;
     dxo.dx = a.dx, dxo.gy = (S*)a.gy, dxo.dc = a.dc;
-    CHECK(launch_gemm(dxo, 1, st));
+    CHECK(launch_dx(dxo, dmp, st));
   }
 #undef CHECK
   return cudaGetLastError();

@@ -29,8 +29,8 @@ import importlib
 #: every kernel launch counter, in module and attribute order, under the
 #: name the tracer reports it by
 COUNTERS = ("kernels.decode.LAUNCHES", "kernels.glu_stack.LAUNCHES_FWD", "kernels.glu_stack.LAUNCHES_BWD",
-            "kernels.glu_stack.LAUNCHES_GATE_WG", "kernels.threefry.LAUNCHES", "kernels.upsample.LAUNCHES_FWD",
-            "kernels.upsample.LAUNCHES_BWD")
+            "kernels.glu_stack.LAUNCHES_GATE_WG", "kernels.glu_stack.LAUNCHES_DX_WG", "kernels.threefry.LAUNCHES",
+            "kernels.upsample.LAUNCHES_FWD", "kernels.upsample.LAUNCHES_BWD")
 
 
 @functools.cache

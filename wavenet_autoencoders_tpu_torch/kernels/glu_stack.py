@@ -24,8 +24,9 @@ Dispatch is on the device of ``x``: CPU tensors go to the plain versions,
 CUDA tensors to the kernels, anything the kernels refuse raises. There is
 no fallback. Inside K2, :func:`gate_route` picks the gate pass's kernel by
 storage dtype and width (bf16 at the built widths: TMA + wgmma; else the
-generic product core); both are hand-written, and the route is decided
-before the launch, not on a refusal.
+generic product core), and inside K3 :func:`dx_route` picks the dx pass's
+the same way; all are hand-written, and each route is decided before the
+launch, not on a refusal.
 
 The kernels read every product's operands as plain row-major matrices in
 S: the wrapper packs the weights once per call (:func:`pack_weights`, the
@@ -50,10 +51,18 @@ LAUNCHES_BWD = 0
 #: Layer launches of K2's gate pass on the TMA + wgmma kernel (one a layer
 #: of a forward call that :func:`gate_route` sends there).
 LAUNCHES_GATE_WG = 0
+#: Layer launches of K3's dx pass on the TMA + wgmma kernel (one a layer of
+#: a backward call that :func:`dx_route` sends there).
+LAUNCHES_DX_WG = 0
 
 #: The gate widths G that the TMA + wgmma gate kernel is built for (its
 #: tile is 128 rows by all G columns, two wgmma N = G/2 a k-step).
 GATE_WG_WIDTHS = (256, 368)
+#: The (C, cin) widths that the TMA + wgmma dx kernel is built for (its
+#: tile is 64 rows by all C dx and cin dc columns: wgmma N = C every
+#: k-step, N = cin on the unshifted tap's); cin is the padded width, 0
+#: without conditioning. Any G that :func:`check_widths` takes.
+DX_WG_WIDTHS = ((256, 64), (256, 40), (256, 128), (256, 0), (128, 80))
 
 RS = math.sqrt(0.5)
 IRS = math.sqrt(2.0)
@@ -223,7 +232,22 @@ def gate_route(C, G, Sk, cin, store) -> str:
     of 8 as :func:`check_widths` asks), else ``"gemm_pipe"``: f32 storage,
     which wgmma cannot multiply at full precision, and any other G. ``cin``
     is the padded width (0 without conditioning)."""
-    fits = G in GATE_WG_WIDTHS and all(v % 8 == 0 for v in (C, G // 2, Sk, cin))
+    return _route(G in GATE_WG_WIDTHS, C, G, Sk, cin, store)
+
+
+def dx_route(C, G, Sk, cin, store) -> str:
+    """Which kernel runs K3's dx pass: ``"tma_wgmma"`` (TMA loads,
+    warp-specialised wgmma over row tiles of all C + cin columns) for bf16
+    storage at the widths it is built for (:data:`DX_WG_WIDTHS`, every
+    width a multiple of 8 as :func:`check_widths` asks), else
+    ``"gemm_pipe"``: f32 storage, which wgmma cannot multiply at full
+    precision, and any other (C, cin). ``cin`` is the padded width (0
+    without conditioning)."""
+    return _route((C, cin) in DX_WG_WIDTHS, C, G, Sk, cin, store)
+
+
+def _route(built, C, G, Sk, cin, store) -> str:
+    fits = built and all(v % 8 == 0 for v in (C, G // 2, Sk, cin))
     return "tma_wgmma" if store == torch.bfloat16 and fits else "gemm_pipe"
 
 
@@ -252,7 +276,7 @@ class _GluArgs(ctypes.Structure):
 
     _fields_ = (
         [(n, ctypes.c_int64) for n in (
-            "B", "T", "L", "C", "G", "S", "CIN", "store_bf16", "has_c", "has_g", "gate_wg",
+            "B", "T", "L", "C", "G", "S", "CIN", "store_bf16", "has_c", "has_g", "gate_wg", "dx_wg",
         )]
         + [("dil", ctypes.c_int64 * _MAXL)]
         + [(n, ctypes.c_void_p) for n in (
@@ -388,7 +412,7 @@ def _forward_cuda(x, c, g_add, wconv, bconv, wc, wout, bout, wskip, bskip, dilat
 
 
 def _backward_cuda(dskips, hfin, c, ab, wconv, wc, wout, bout, wskip, dilations, has_g):
-    global LAUNCHES_BWD
+    global LAUNCHES_BWD, LAUNCHES_DX_WG
     store = _storage(ab)
     dev = ab.device
     B, T, Sk = dskips.shape
@@ -423,6 +447,7 @@ def _backward_cuda(dskips, hfin, c, ab, wconv, wc, wout, bout, wskip, dilations,
     lib = _lib()
     with torch.cuda.device(dev):
         a = _args(store, B, T, C, L, G, Sk, cin, has_g, dilations, torch.cuda.current_stream(dev).cuda_stream)
+        a.dx_wg = int(dx_route(C, G, Sk, cin, store) == "tma_wgmma")
         # sized by the C side, which alone knows the passes' partial-sum layout
         work = torch.empty(lib.wae_glu_workspace_floats(ctypes.byref(a)), **f32)
         for d in (t, out, bufs):
@@ -433,6 +458,7 @@ def _backward_cuda(dskips, hfin, c, ab, wconv, wc, wout, bout, wskip, dilations,
     if err != 0:
         raise RuntimeError(f"glu_stack backward launch failed: {lib.wae_glu_error_string(err).decode()}")
     LAUNCHES_BWD += 1
+    LAUNCHES_DX_WG += L * a.dx_wg
     o = out
     return (o["dx"].to(store), o["dc"], o["dgadd"], o["dwconv"], o["dbconv"], o["dwc"], o["dwout"],
             o["dbout"], o["dwskip"], o["dbskip"])
