@@ -201,3 +201,65 @@ def test_spans_lie_on_the_profilers_clock():
     starts = [abs(ranges[f"probe{s.step}"][0] - s.start_ns) for s in mine]
     ends = [abs(ranges[f"probe{s.step}"][1] - s.end_ns) for s in mine]
     assert statistics.median(starts) < 50_000 and statistics.median(ends) < 50_000, (starts, ends)
+
+
+def _raw_dump(root, n_utts=6, frames=40, hop=4, mels=8):
+    """Scalar samples in [-1, 1] and mel frames, no speakers: the input the
+    native loader does not take."""
+    rng = np.random.default_rng(1)
+    lines = []
+    for i in range(n_utts):
+        d = root / f"R{i}"
+        d.mkdir(parents=True)
+        np.save(d / "wave.npy", rng.uniform(-1, 1, frames * hop).astype(np.float32))
+        np.save(d / "mel.norm.npy", rng.uniform(0, 1, (frames, mels)).astype(np.float32))
+        lines.append(f"{d}/|{frames}|-1|dummy")
+    (root / "train.txt").write_text("\n".join(lines) + "\n")
+    return root
+
+
+def _batches(tmp_path, path: str, on: bool, n: int = 4):
+    """``n`` batches from ``data_iterator`` without prefetch (the caller's
+    thread makes each), on the native loader's path (mu-law input) or the
+    Python collator's (mu-law input with ``use_native=False``, or scalar
+    input), the tracer on when ``on``."""
+    if path == "raw":
+        cfg = load_preset("vocoder_raw", "hop_size=4,max_time_steps=128,batch_size=2")
+        ds = WaveDataset(str(_raw_dump(tmp_path / "dump")), cfg, feat_type="mel")
+    else:
+        cfg = load_preset("svqwae", TINY)
+        ds = WaveDataset(str(_dump(tmp_path / "dump")), cfg)
+    if on:
+        spans.enable()
+    it = data_iterator(ds, cfg, prefetch=0, use_native=path == "native")
+    for _ in range(n):
+        next(it)
+    spans.disable()
+    return spans.records()
+
+
+@pytest.mark.parametrize("path", ["raw", "mulaw_python"])
+def test_the_python_collator_records_its_span_and_counter_once_a_batch(tmp_path, path):
+    rec = _batches(tmp_path, path, on=True)
+    by_id = {s.id: s for s in rec["spans"]}
+    builds = [s for s in rec["spans"] if s.name == "data.build"]
+    collates = [s for s in rec["spans"] if s.name == "data.collate"]
+    assert len(builds) == 4 and [s.batch for s in collates] == [1, 2, 3, 4]
+    for s in collates:
+        load = by_id[s.parent]
+        assert load.name == "data.load" and by_id[load.parent].name == "data.build"
+        assert load.start_ns <= s.start_ns <= s.end_ns <= load.end_ns
+    assert rec["counters"] == {"data.batches": 4, "data.collated": 4}
+    assert sorted((n, k, by_id[p].name) for n, k, p in rec["counts"] if n == "data.collated") == [
+        ("data.collated", 1, "data.collate")] * 4
+
+
+def test_the_native_loader_records_no_collate(tmp_path):
+    rec = _batches(tmp_path, "native", on=True)
+    assert {s.name for s in rec["spans"]} == {"data.build", "data.load"}
+    assert rec["counters"] == {"data.batches": 4}
+
+
+@pytest.mark.parametrize("path", ["raw", "native"])
+def test_off_the_data_path_records_nothing(tmp_path, path):
+    assert _batches(tmp_path, path, on=False) == {}

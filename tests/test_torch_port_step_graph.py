@@ -422,3 +422,22 @@ def test_the_graph_is_refused_where_it_cannot_be_had():
     st, _ = step(init_state(cfg, model), batch)
     with pytest.raises(ValueError, match="first batch's keys, shapes and dtypes"):
         step(st, {k: v[:1] for k, v in batch.items()})
+
+
+def test_the_warm_step_runs_on_the_callers_stream(monkeypatch):
+    """``GraphedStep``'s own eager first step (not the test double's) runs
+    the body on the caller's stream and opens no side stream: warmed on a
+    side stream, the card's replays ran ~1.2 ms a step slower until a
+    random later step (``train/graph.py``)."""
+
+    def no_side_stream(*a, **kw):
+        raise AssertionError("the warm step opened a side stream")
+
+    monkeypatch.setattr(torch.cuda, "Stream", no_side_stream)
+    monkeypatch.setattr(torch.cuda, "stream", no_side_stream)
+    seen = []
+    step = GraphedStep(torch.device("cpu"))
+    out = step(lambda state, batch: seen.append((state, batch)) or {"loss": batch["x"].sum()}, "state",
+               {"x": torch.ones(3)})
+    assert float(out["loss"]) == 3.0 and seen[0][0] == "state" and seen[0][1] is step.static
+    assert step.graph is None  # the first call captures nothing

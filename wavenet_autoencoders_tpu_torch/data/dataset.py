@@ -252,8 +252,10 @@ def data_iterator(
     ``non_blocking=True``) so the copy overlaps device compute.
 
     Tracer spans (``utils.spans``): ``data.build`` a batch (its load and the
-    transform inside), tagged with the batch's seq (1, 2, ...), and with
-    prefetch ``data.wait``, the consumer's wait for it.
+    transform inside), tagged with the batch's seq (1, 2, ...), with
+    ``data.collate`` inside its load where the Python collator makes it
+    (counted under ``data.collated``), and with prefetch ``data.wait``, the
+    consumer's wait for it.
     """
     bs = batch_size or cfg.batch_size
     sampler = LengthBucketSampler(dataset.lengths, bs, seed=seed)
@@ -276,9 +278,11 @@ def data_iterator(
                                 seed_s = (seed + step * 7919 + _SEED_STRIDE * s) % _U64
                                 b = _native_batch(dataset, cfg, buf[s : s + n], collate, seed_s)
                             if b is None:
-                                b = collate([dataset[i] for i in buf])
-                                if host_slice is not None:
-                                    b = {k: v[s : s + n] for k, v in b.items()}
+                                with spans.span("data.collate"):
+                                    b = collate([dataset[i] for i in buf])
+                                    if host_slice is not None:
+                                        b = {k: v[s : s + n] for k, v in b.items()}
+                                    spans.count("data.collated")
                         if transform is not None:
                             b = transform(b)
                         spans.count("data.batches")

@@ -7,9 +7,11 @@ the port gets the same.
 ``GraphedStep(device)(body, state, batch)`` runs ``body(state, batch)``
 (``train.step.TrainStep.body``, which reads device tensors alone):
 
-1. the first call runs it eagerly on a side stream: a real step, which
-   builds the kernels, sets their shared-memory attributes and warms cuBLAS
-   and autograd;
+1. the first call runs it eagerly on the caller's stream: a real step,
+   which builds the kernels, sets their shared-memory attributes and warms
+   cuBLAS and autograd. Not on a side stream: warmed there, the replays
+   on an H100 ran ~1.2 ms a step slower, at the same clock, until a switch
+   at a random later step, from tens of steps to beyond 45 s of them;
 2. the second call captures it with ``torch.cuda.graph`` over static batch
    buffers (the gradients set to None first, so that autograd allocates
    them in the graph's pool; Python's collector held off, which could
@@ -136,12 +138,7 @@ class GraphedStep:
             self.static[k].copy_(v)
 
     def _warm(self, body, state) -> dict:
-        side, main = torch.cuda.Stream(self.device), torch.cuda.current_stream(self.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            out = body(state, self.static)
-        main.wait_stream(side)
-        return out
+        return body(state, self.static)
 
     def _capture(self, body, state) -> None:
         for p in state.params().values():

@@ -11,6 +11,9 @@ Span                   Where                                             Tags
 ``data.build``         ``data_iterator``: one batch made (prefetch       ``batch``: the batch's seq
                        thread, or the caller's without prefetch)         (1, 2, ... in order)
 ``data.load``          its child: the native loader or the collate
+``data.collate``       its child, on the Python collator's path alone
+                       (input the native loader does not take): the
+                       item reads, the crops and the stack
 ``data.to_device``     its child: ``train.loop.batch_to_device``
                        (pin, enqueue the copy)
 ``data.wait``          ``data_iterator``: the consumer waits for the     ``batch``; ``ready``: batches
@@ -25,7 +28,8 @@ Span                   Where                                             Tags
                        ``cudaGraphLaunch``)
 =====================  ================================================  ==============================
 
-Counters: ``data.batches`` (batches made), ``step.replays``,
+Counters: ``data.batches`` (batches made), ``data.collated`` (of them,
+those the Python collator made), ``step.replays``,
 ``step.captures``, ``host.pinned_allocs`` (pinned host blocks the caching
 host allocator created, read at the end of each ``step`` span). Levels,
 read whether or not the tracer is on and handed back with its records:
